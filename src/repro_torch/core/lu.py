@@ -1,0 +1,253 @@
+"""LU factorization — the paper's N-server schedule (port of repro.core.lu).
+
+The paper (§IV.D, Algorithms 1–3) computes LU *without pivoting* on the
+ciphered matrix: the schedule must be value-independent (pivot choices
+leak magnitudes), and the client's ε(N)-thresholded Q2/Q3 check (§IV.E)
+is the guard against the resulting numerical drift.
+
+  * lu_unblocked     — Doolittle elimination of one tile (the panel
+                       kernel on CUDA).
+  * lu_panel_blocked — blocked factorization of one diagonal tile: 32-wide
+                       Doolittle panels, triangular-solve strips and one
+                       Schur product per step (DESIGN.md §1.1).
+  * lu_nserver       — the paper's Algorithm 3: server i owns block row i,
+                       computes L_{i,1..i-1}, factors X_ii, computes
+                       U_{i,i+1..N}; one-way message log.
+
+On CUDA tensors the Doolittle tiles run the panel kernel
+(kernels/csrc/lu_panel.cu) and the strips the two triangular-solve
+kernels (kernels/csrc/trsm.cu); on CPU tensors their plain versions run.
+The Schur-complement terms are plain matrix products, left to
+torch.matmul as the reference leaves them to XLA. Every function accepts
+(..., n, n) stacks and leaves its input untouched: the caller's
+ciphertext must survive the factorization, because Authenticate checks
+L·U against it.
+
+Paper errata handled here (DESIGN.md §1.1): Alg. 3 line 7's inverse
+right-multiplies, L_ik = (X_ik − …)·U_kk⁻¹, and line 8's Schur term is
+Σ L_ik U_ki.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+
+
+# ---------------------------------------------------------------------------
+# one tile
+# ---------------------------------------------------------------------------
+def _doolittle_compact(a: torch.Tensor) -> torch.Tensor:
+    """Doolittle elimination of (..., b, b) tiles without pivoting, in the
+    compact form: strict-lower multipliers + U in one array."""
+    return ops.lu_panel(a)
+
+
+def _split_compact(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(L unit-lower, U upper) from the compact form; batch-aware."""
+    n = a.shape[-1]
+    l = torch.tril(a, -1) + torch.eye(n, dtype=a.dtype, device=a.device)
+    return l, torch.triu(a)
+
+
+def lu_unblocked(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Doolittle LU without pivoting on (..., n, n) → (L, U). On CUDA the
+    tile must fit one block's shared memory (kernels/lu_panel.py)."""
+    return _split_compact(_doolittle_compact(a))
+
+
+def _trsm_right_upper(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Solve Z U = B → Z = B U⁻¹; batch-aware."""
+    return ops.trsm_upper_right(u, b)
+
+
+# ---------------------------------------------------------------------------
+# blocked panel — the pipeline's per-round diagonal factorization
+# ---------------------------------------------------------------------------
+def lu_panel_blocked(
+    a: torch.Tensor, inner: int = 32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blocked factorization of a (..., b, b) diagonal tile.
+
+    Only the inner×inner sub-panels run the dependent Doolittle
+    elimination; the strips beside and below each are triangular solves
+    and the trailing update is one matrix product per step, so the
+    sequential chain is ceil(b/inner) panels instead of b rank-1 steps.
+    A ragged tail gets a short final panel. Works on a copy of `a`.
+    """
+    b = a.shape[-1]
+    if b <= inner:
+        return _split_compact(_doolittle_compact(a))
+    a = a.clone()
+    for s0 in range(0, b, inner):
+        s1 = min(s0 + inner, b)
+        diag = _doolittle_compact(a[..., s0:s1, s0:s1])
+        a[..., s0:s1, s0:s1] = diag
+        if s1 < b:
+            # the kernels read only the triangle they need, so the
+            # compact tile serves as both L_kk and U_kk
+            u_right = ops.trsm_lower(diag, a[..., s0:s1, s1:])
+            l_below = _trsm_right_upper(diag, a[..., s1:, s0:s1])
+            a[..., s0:s1, s1:] = u_right
+            a[..., s1:, s0:s1] = l_below
+            a[..., s1:, s1:] -= l_below @ u_right
+    return _split_compact(a)
+
+
+#: tile sizes >= this threshold take the blocked-panel path on the pipeline
+#: critical path (below it the matmuls are too small to beat plain Doolittle)
+PANEL_BLOCK_THRESHOLD = 64
+
+
+def lu_diag_factor(a: torch.Tensor, inner: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+    """Factor a diagonal tile: blocked for b >= PANEL_BLOCK_THRESHOLD,
+    one Doolittle tile below it."""
+    if a.shape[-1] >= PANEL_BLOCK_THRESHOLD:
+        return lu_panel_blocked(a, inner=inner)
+    return lu_unblocked(a)
+
+
+# ---------------------------------------------------------------------------
+# the paper's N-server algorithm (Algorithm 3) with message accounting
+# ---------------------------------------------------------------------------
+@dataclass
+class CommLog:
+    """One-way communication record: (src_server, dst_server, n_elements)."""
+
+    messages: list[tuple[int, int, int]] = field(default_factory=list)
+
+    def send(self, src: int, dst: int, elems: int) -> None:
+        self.messages.append((src, dst, elems))
+
+    @property
+    def total_elements(self) -> int:
+        return sum(e for _, _, e in self.messages)
+
+    @property
+    def hops(self) -> int:
+        return len(self.messages)
+
+
+def nserver_comm_model(n: int, num_servers: int) -> CommLog:
+    """The one-way chain's message log — a pure function of (n, N):
+    server i sends every U row k <= i to server i+1."""
+    b = n // num_servers
+    log = CommLog()
+    for i in range(num_servers - 1):
+        elems = sum((num_servers - k) * b * b for k in range(i + 1))
+        log.send(i, i + 1, elems)
+    return log
+
+
+def lu_nserver(
+    x: torch.Tensor, num_servers: int, faults=()
+) -> tuple[torch.Tensor, torch.Tensor, CommLog]:
+    """Paper Algorithm 3 — N-server one-way pipelined block LU.
+
+    Single-process simulation: exactly the block operations of Alg. 3 in
+    the paper's order, server i computing only block row i, with the
+    one-way chain's message log. Accepts (..., n, n); returns
+    (L, U, comm_log). Fault plans are not ported yet.
+    """
+    if faults:
+        raise NotImplementedError("fault plans: ROADMAP A8")
+    n = x.shape[-1]
+    N = num_servers
+    if n % N != 0 or n // N <= 1:
+        raise ValueError(
+            f"n={n} must be divisible by N={N} with block > 1; augment first"
+        )
+    b = n // N
+    X = [
+        [x[..., i * b : (i + 1) * b, j * b : (j + 1) * b] for j in range(N)]
+        for i in range(N)
+    ]
+    L = [[None] * N for _ in range(N)]
+    U = [[None] * N for _ in range(N)]
+    log = nserver_comm_model(n, N)
+
+    for i in range(N):
+        # L_ik for k < i (corrected right-multiply; module docstring)
+        for k in range(i):
+            acc = X[i][k]
+            for m in range(k):
+                acc = acc - L[i][m] @ U[m][k]
+            L[i][k] = _trsm_right_upper(U[k][k], acc)
+        # Schur update of the diagonal block, then its factorization
+        acc = X[i][i]
+        for k in range(i):
+            acc = acc - L[i][k] @ U[k][i]
+        L[i][i], U[i][i] = lu_diag_factor(acc)
+        # U_ij for j > i
+        for j in range(i + 1, N):
+            acc = X[i][j]
+            for k in range(i):
+                acc = acc - L[i][k] @ U[k][j]
+            U[i][j] = ops.trsm_lower(L[i][i], acc)
+
+    l_out = torch.zeros_like(x)
+    u_out = torch.zeros_like(x)
+    for i in range(N):
+        for j in range(N):
+            rows, cols = slice(i * b, (i + 1) * b), slice(j * b, (j + 1) * b)
+            if L[i][j] is not None:
+                l_out[..., rows, cols] = L[i][j]
+            if U[i][j] is not None:
+                u_out[..., rows, cols] = U[i][j]
+    return l_out, u_out, log
+
+
+# ---------------------------------------------------------------------------
+# determinant from LU
+# ---------------------------------------------------------------------------
+def _neumaier_sum(x: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """Compensated (Kahan–Babuška/Neumaier) sum over the LAST axis.
+
+    Returns host (hi, lo) arrays in x's dtype whose exact sum hi + lo
+    carries the sum to ~u² relative error. The sum is O(n) and
+    sequential, so it runs on the host in the reference's operation
+    order rather than as n tiny device launches. Batch-aware.
+    """
+    arr = x.detach().cpu().numpy()
+    flat = arr.reshape(-1, arr.shape[-1])
+    hi = np.zeros(flat.shape[0], dtype=arr.dtype)
+    lo = np.zeros(flat.shape[0], dtype=arr.dtype)
+    for row, terms in enumerate(flat):
+        s = c = arr.dtype.type(0)
+        for xi in terms:
+            t = s + xi
+            # whichever operand is larger kept its bits; the smaller
+            # one's truncated tail is recovered exactly
+            c = c + ((s - t) + xi if abs(s) >= abs(xi) else (xi - t) + s)
+            s = t
+        hi[row], lo[row] = s, c
+    lead = arr.shape[:-1]
+    return hi.reshape(lead), lo.reshape(lead)
+
+
+def slogdet_pair_from_lu(
+    l: torch.Tensor, u: torch.Tensor
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(sign, logabs_hi, logabs_lo) from LU factors, as host arrays — the
+    compensated form: log|det| = hi + lo, recombined in float64 by the
+    caller (a float32 cannot hold log|det| ≈ 1000 to 1e-4)."""
+    d = (torch.diagonal(l, dim1=-2, dim2=-1)
+         * torch.diagonal(u, dim1=-2, dim2=-1))
+    sign = torch.prod(torch.sign(d), dim=-1).cpu().numpy()
+    hi, lo = _neumaier_sum(torch.log(torch.abs(d)))
+    return sign, hi, lo
+
+
+def slogdet_from_lu(l: torch.Tensor, u: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """(sign, log|det|) from LU factors, the pair recombined in the
+    compute dtype. Batch-aware."""
+    sign, hi, lo = slogdet_pair_from_lu(l, u)
+    return sign, hi + lo
+
+
+def det_from_lu(l: torch.Tensor, u: torch.Tensor) -> np.ndarray:
+    sign, logabs = slogdet_from_lu(l, u)
+    return sign * np.exp(logabs)

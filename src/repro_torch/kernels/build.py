@@ -1,0 +1,119 @@
+"""Build the port's CUDA kernels at first use.
+
+Each `csrc/<name>.cu` compiles with its own `nvcc`, all started together,
+into a shared library with a plain C interface that the wrappers bind
+with ctypes. No source includes PyTorch's headers, so a build takes
+seconds rather than minutes. Libraries are named by a hash of their
+source and flags, so an edited source rebuilds and an unchanged one is
+reused; they live in `_build/` beside this file (ignored by git).
+
+Flags: `-O3` for `sm_90a`, and no `--use_fast_math` — it would turn the
+CED kernel's float division into an approximate one, and that kernel
+must agree bit for bit with its plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+SOURCES = ("ced", "lu_panel", "trsm")
+NVCC_FLAGS = (
+    "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+#: seconds one nvcc may take before the build is abandoned
+NVCC_TIMEOUT_S = 600
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of nvcc: on PATH, else under $CUDA_HOME, else the toolkit's
+    default install location."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def target(name: str) -> Path:
+    """The library path for csrc/<name>.cu at its current content."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names=SOURCES) -> dict[str, float]:
+    """Compile every named source whose library is missing, one nvcc
+    each, all at once. Returns {name: seconds} for what it compiled;
+    raises with the compiler's output if any compile fails. The ptxas
+    report (registers, shared memory, spills) is kept beside each
+    library as `<library>.log`."""
+    compiler = nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = {}
+    for name in names:
+        out = target(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        started[name] = (proc, tmp, out, time.perf_counter())
+    seconds, failed = {}, []
+    try:
+        for name, (proc, tmp, out, t0) in started.items():
+            log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            seconds[name] = time.perf_counter() - t0
+            Path(f"{out}.log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, out)
+    finally:
+        for proc, _, _, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return seconds
+
+
+def library(name: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built on first use, with
+    each function's ctypes signature declared: signatures maps a symbol
+    to (restype, argtypes)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build()
+        lib = ctypes.CDLL(str(target(name)))
+        for symbol, (restype, argtypes) in signatures.items():
+            fn = getattr(lib, symbol)
+            fn.restype = restype
+            fn.argtypes = list(argtypes)
+        lib.spdc_error_string.restype = ctypes.c_char_p
+        lib.spdc_error_string.argtypes = [ctypes.c_int]
+        _LIBS[name] = lib
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, kernel: str, code: int) -> None:
+    """Raise if a launcher reported a CUDA error (its cudaGetLastError()
+    right after the launch): a refused launch never runs, and a later
+    synchronize would not report it."""
+    if code != 0:
+        what = lib.spdc_error_string(code).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {code} ({what})")

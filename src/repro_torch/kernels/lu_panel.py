@@ -1,0 +1,65 @@
+"""Wrapper of the panel LU kernel (csrc/lu_panel.cu).
+
+Port of src/repro/kernels/lu_panel.py:lu_panel_compact: no-pivot
+Doolittle of one (b, b) tile or a (B, b, b) stack, compact output.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    f"lu_panel_{suffix}": (_INT, (_PTR, _LL, _LL, _LL, _PTR, _INT, _INT, _PTR))
+    for suffix in ("f32", "f64")
+}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+#: shared memory one thread block may hold on the H100 (227 KB)
+MAX_SMEM_BYTES = 232448
+_MAX_GRID_X = 2**31 - 1
+
+
+def max_tile(dtype: torch.dtype) -> int:
+    """Largest b whose b x b tile of `dtype` fits in one block's shared
+    memory (170 for float64)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    b = int((MAX_SMEM_BYTES // itemsize) ** 0.5)
+    while b * b * itemsize > MAX_SMEM_BYTES:
+        b -= 1
+    return b
+
+
+def lu_panel_cuda(a: torch.Tensor) -> torch.Tensor:
+    """Launch the panel kernel on a (b, b) or (B, b, b) CUDA tensor at any
+    strides; returns the contiguous compact factor. A tile that does not
+    fit in shared memory raises."""
+    if a.device.type != "cuda":
+        raise ValueError(f"lu_panel_cuda needs a CUDA tensor, got {a.device}")
+    if a.dtype not in _SUFFIX:
+        raise TypeError(f"lu_panel_cuda takes float32/float64, got {a.dtype}")
+    if a.ndim not in (2, 3) or a.shape[-1] != a.shape[-2]:
+        raise ValueError(f"lu_panel_cuda needs (b, b) or (B, b, b), got {tuple(a.shape)}")
+    b = a.shape[-1]
+    if b > max_tile(a.dtype):
+        raise ValueError(
+            f"a {b}x{b} {a.dtype} tile exceeds one block's shared memory "
+            f"(largest {max_tile(a.dtype)}); factor it blocked"
+        )
+    batch = a.shape[0] if a.ndim == 3 else 1
+    if batch > _MAX_GRID_X:
+        raise ValueError(f"batch {batch} exceeds the grid")
+    out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    if batch == 0 or b == 0:
+        return out
+    sb = a.stride(0) if a.ndim == 3 else 0
+    lib = build.library("lu_panel", _SIGNATURES)
+    with torch.cuda.device(a.device):
+        code = getattr(lib, f"lu_panel_{_SUFFIX[a.dtype]}")(
+            a.data_ptr(), sb, a.stride(-2), a.stride(-1), out.data_ptr(),
+            batch, b, torch.cuda.current_stream().cuda_stream,
+        )
+    build.check_launch(lib, "lu_panel", code)
+    return out

@@ -1,0 +1,81 @@
+"""Dispatch between the hand-written kernels and their plain versions.
+
+A tensor on a CUDA device goes to the kernel — or the call raises; there
+is no fallback. A tensor on the CPU goes to the plain PyTorch version in
+ref.py. Any other device raises.
+
+`LAUNCHES[name]` counts the kernel launches each wrapper made (plain
+versions never count), so a run can show that its path went through the
+kernels; `reset_launches()` zeroes every count.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .ced import ced_cuda
+from .lu_panel import lu_panel_cuda
+from .trsm import trsm_lower_cuda, trsm_upper_right_cuda
+
+LAUNCHES: dict[str, int] = {
+    "ced": 0, "lu_panel": 0, "trsm_lower": 0, "trsm_upper_right": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    """True for CUDA operands, False for CPU ones; raises on a mix or on
+    any other device."""
+    device = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != device:
+            raise ValueError(f"operands on {device} and {t.device}")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel and no plain path for device {device}")
+    return device.type == "cuda"
+
+
+def ced(m: torch.Tensor, v: torch.Tensor, k: int, *, mode: str = "ewd",
+        growth_safe: bool = False) -> torch.Tensor:
+    """Fused CED cipher: rot90_cw^k(EWO(m, v)); growth_safe composes odd
+    rotations with the exchange flip (DESIGN.md §6.1). v is cast to m's
+    dtype first, as the reference's EWO does."""
+    v = v.to(m.dtype)
+    if _on_cuda(m, v):
+        out = ced_cuda(m, v, k, mode=mode, growth_safe=growth_safe)
+        LAUNCHES["ced"] += 1
+        return out
+    return ref.ced_ref(m, v, k, mode=mode, growth_safe=growth_safe)
+
+
+def lu_panel(a: torch.Tensor) -> torch.Tensor:
+    """Compact no-pivot LU of a (..., b, b) tile: strict-lower
+    multipliers plus U. Leaves `a` untouched."""
+    if _on_cuda(a):
+        out = lu_panel_cuda(a)
+        LAUNCHES["lu_panel"] += 1
+        return out
+    return ref.lu_panel_ref(a)
+
+
+def trsm_lower(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """X = L⁻¹B, L unit lower; only l's strict lower triangle is read."""
+    if _on_cuda(l, b):
+        out = trsm_lower_cuda(l, b)
+        LAUNCHES["trsm_lower"] += 1
+        return out
+    return ref.trsm_lower_ref(l, b)
+
+
+def trsm_upper_right(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Z = B·U⁻¹, U upper with a non-unit diagonal; only u's upper
+    triangle is read."""
+    if _on_cuda(u, b):
+        out = trsm_upper_right_cuda(u, b)
+        LAUNCHES["trsm_upper_right"] += 1
+        return out
+    return ref.trsm_upper_right_ref(u, b)

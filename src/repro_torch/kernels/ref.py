@@ -1,0 +1,60 @@
+"""Plain PyTorch versions of the port's kernels — they define correctness.
+
+Each function computes what its CUDA kernel computes, in the kernel's
+own operation order, with ordinary batched tensor ops over any leading
+batch dims. `ops` runs these for tensors on the CPU; `chip_smoke.py`
+holds each kernel against its plain version on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def ced_ref(m: torch.Tensor, v: torch.Tensor, k: int, mode: str = "ewd",
+            growth_safe: bool = False) -> torch.Tensor:
+    """rot90_cw^k(EWO(m, v)): rows scaled by v (divide for "ewd",
+    multiply for "ewm"), then k clockwise quarter-turns, then — with
+    growth_safe and an odd k — the exchange flip that makes the whole a
+    transpose. m is (..., n, n), v is (..., n). This is the reference's
+    own jnp Cipher, op for op."""
+    from ..core.cipher import _flip_rotated, ewo
+    from ..core.prt import rot90_cw
+
+    x = rot90_cw(ewo(m, v, mode), k)
+    if growth_safe:
+        x = _flip_rotated(x, k)
+    return x.contiguous()
+
+
+def lu_panel_ref(a: torch.Tensor) -> torch.Tensor:
+    """No-pivot Doolittle of (..., b, b) tiles in compact form: the
+    strict-lower multipliers and U in one array. Does not modify `a`."""
+    a = a.clone()
+    b = a.shape[-1]
+    for k in range(b - 1):
+        a[..., k + 1:, k] = a[..., k + 1:, k] / a[..., k, k, None]
+        a[..., k + 1:, k + 1:] -= a[..., k + 1:, k, None] * a[..., k, None, k + 1:]
+    return a
+
+
+def trsm_lower_ref(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """X = L⁻¹B by forward substitution. Reads only the strict lower
+    triangle of l (the unit diagonal is implied), so the compact LU form
+    may be passed as is. l is (..., n, n), b is (..., n, m)."""
+    x = b.clone()
+    n = l.shape[-1]
+    for k in range(n - 1):
+        x[..., k + 1:, :] -= l[..., k + 1:, k, None] * x[..., k, None, :]
+    return x
+
+
+def trsm_upper_right_ref(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Z = B·U⁻¹ by substitution over the columns of B. Reads only the
+    upper triangle of u, diagonal included. u is (..., n, n), b is
+    (..., m, n)."""
+    z = b.clone()
+    n = u.shape[-1]
+    for k in range(n):
+        z[..., :, k] = z[..., :, k] / u[..., k, k, None]
+        z[..., :, k + 1:] -= z[..., :, k, None] * u[..., k, None, k + 1:]
+    return z
