@@ -11,21 +11,35 @@ entry point runs on the CUDA device unless the caller passes
 ``device="cpu"``; on the CPU each kernel's plain PyTorch version
 (kernels/ref.py) computes the same function.
 """
-from .api import InlineTransport, Session, SPDCClient
+from .api import (
+    EdgeServer,
+    InlineTransport,
+    MultiprocessTransport,
+    Session,
+    SPDCClient,
+    ThreadPoolTransport,
+    TransportConfig,
+)
 from .core.protocol import (
     SPDCBatchResult,
     SPDCResult,
     outsource_determinant,
     resolve_dtype,
 )
+from .core.faults import ServerFault
 from .device import resolve_device
 
 __all__ = [
+    "EdgeServer",
     "InlineTransport",
+    "MultiprocessTransport",
     "SPDCBatchResult",
     "SPDCClient",
     "SPDCResult",
+    "ServerFault",
     "Session",
+    "ThreadPoolTransport",
+    "TransportConfig",
     "outsource_determinant",
     "resolve_device",
     "resolve_dtype",

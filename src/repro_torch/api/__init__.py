@@ -1,14 +1,48 @@
-"""Role-split API of the port (mirrors repro.api): the trusted client
-(`SPDCClient`/`Session`) and the transport that carries the Parallelize
-stage (`InlineTransport`)."""
-from .client import Session, SPDCClient
-from .inline import InlineTransport, Transport, TransportError, resolve_transport
+"""Role-split API of the port (mirrors repro.api, DESIGN.md §7):
+
+  * `SPDCClient` / `Session` (client.py) — the trusted role: KeyGen,
+    Cipher, Authenticate, Decipher, and the async-overlap pipeline
+    (`Session.start` → `PendingResult`, `SPDCClient.run_pipelined`);
+  * `EdgeServer` (server.py) — the untrusted role, a stateless
+    `run(ShardTask) → ShardResult` worker;
+  * `ShardTask` / `ShardResult` (messages.py) and the codec (wire.py) —
+    what crosses the boundary, as versioned pickle-free byte frames;
+  * transports (transport.py) — inline (the fused sweep), threadpool and
+    multiprocess, selected by name, `TransportConfig` or instance through
+    `resolve_transport`.
+"""
+from .client import BoundaryViolation, PendingResult, Session, SPDCClient
+from .messages import (
+    FaultPlanFrame,
+    ShardResult,
+    ShardTask,
+    TriSolveResult,
+    TriSolveTask,
+)
+from .server import EdgeServer
+from .transport import (
+    InlineTransport,
+    MultiprocessTransport,
+    ThreadPoolTransport,
+    Transport,
+    TransportConfig,
+    TransportError,
+    TransportProtocolError,
+    TransportTimeout,
+    TransportWorkerDied,
+    close_all,
+    resolve_transport,
+)
+from .wire import WireError, decode_message
 
 __all__ = [
-    "InlineTransport",
-    "SPDCClient",
-    "Session",
-    "Transport",
-    "TransportError",
-    "resolve_transport",
+    "SPDCClient", "Session", "PendingResult", "BoundaryViolation",
+    "EdgeServer",
+    "ShardTask", "ShardResult", "TriSolveTask", "TriSolveResult",
+    "FaultPlanFrame",
+    "Transport", "TransportConfig", "TransportError", "TransportTimeout",
+    "TransportWorkerDied", "TransportProtocolError",
+    "InlineTransport", "ThreadPoolTransport", "MultiprocessTransport",
+    "resolve_transport", "close_all",
+    "WireError", "decode_message",
 ]

@@ -12,12 +12,17 @@ hardware:
 `open_session` performs the PMOP (seed → key → cipher → equilibrate →
 det-preserving border) and keeps every secret on the Session: seeds,
 blinding keys, rotation metadata, and the augmented ciphertext the
-probes verify against. `Session.collect()` authenticates the factors
-with a secret-keyed probe and deciphers.
+probes verify against. What leaves the session is only what
+`Session.tasks()` emits: per-server ShardTasks holding encrypted block
+rows and dispatch sub-seeds, boundary-checked as they are minted.
+`Session.collect()` authenticates the factors (a full pair, or the
+servers' ShardResults) with a secret-keyed probe and deciphers.
 
-Ported here: one matrix and same-size stacks on the inline transport.
-Mixed-size lists (ROADMAP A11), fault plans and recovery (A8), rateless
-dispatch (A9) and per-server messages (A7) raise NotImplementedError.
+Ported here: one matrix and same-size stacks, on the inline, thread-pool
+and multiprocess transports, with simulated fault plans; `Session.start`
+and `SPDCClient.run_pipelined` overlap one session's wire time with the
+next one's PMOP. Mixed-size lists (ROADMAP A11), verification-driven
+recovery (A8) and rateless dispatch (A9) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -32,14 +37,41 @@ from ..core.augment import augment, border_rng, padding_for_servers
 from ..core.cipher import CipherMeta, cipher, cipher_batch
 from ..core.cipher import equilibrate as ced_equilibrate
 from ..core.decipher import decipher, decipher_batch
+from ..core.faults import normalize_plan, resolve_delays
 from ..core.keygen import keygen, keygen_batch
 from ..core.lu import nserver_comm_model
 from ..core.seed import Seed, seedgen, seedgen_batch
 from ..core.verify import authenticate
 from ..device import resolve_device, synchronize
-from .inline import resolve_transport
+from .messages import ShardResult, ShardTask
+from .transport import TransportConfig, resolve_transport
 
-__all__ = ["SPDCClient", "Session"]
+__all__ = ["SPDCClient", "Session", "PendingResult", "BoundaryViolation"]
+
+
+class BoundaryViolation(AssertionError):
+    """A ShardTask was about to carry plaintext or key material."""
+
+
+#: everything a ShardTask is allowed to hold — a new field on the message
+#: is a deliberate API change, not something a refactor may smuggle in
+_TASK_FIELDS = frozenset(
+    {"server", "num_servers", "x_row", "subseed", "style", "attempt",
+     "u_upstream", "session_id"}
+)
+
+#: everything a TriSolveTask (the secure linalg rounds, DESIGN.md §12)
+#: is allowed to hold — same contract as _TASK_FIELDS: repro-lint's
+#: SPDC105 cross-checks this set against the dataclass
+_SOLVE_TASK_FIELDS = frozenset(
+    {"server", "num_servers", "l", "u", "rhs", "subseed", "transpose",
+     "col0", "attempt", "session_id"}
+)
+
+#: auto boundary check: full entry-level plaintext-disjointness screening
+#: up to this many payload elements per sweep (beyond it the structural
+#: checks still run; tests force the full check at every size)
+_FULL_CHECK_ELEMS = 1 << 20
 
 _NUMPY_DTYPES = {torch.float64: np.float64, torch.float32: np.float32,
                  torch.float16: np.float16}
@@ -77,7 +109,11 @@ class SPDCClient:
     growth_safe: bool | None = None
     equilibrate: bool | None = None
     rateless: Any = False
-    #: default transport of this client's sessions (None = inline)
+    #: default transport of this client's sessions: a name, a
+    #: TransportConfig, or a Transport instance (None = inline). A config
+    #: is built here and owned — `close()` tears it down; names resolve
+    #: to the process-shared instance on the client's device, and
+    #: instances stay caller-owned.
     transport: Any = None
     device: Any = None
 
@@ -89,12 +125,56 @@ class SPDCClient:
         if self.rateless:
             raise NotImplementedError("rateless dispatch: ROADMAP A9")
         self.device = resolve_device(self.device)
-        self.transport = resolve_transport(self.transport)
+        self._owns_transport = False
+        if isinstance(self.transport, TransportConfig):
+            self.transport = self.transport.build(device=self.device)
+            self._owns_transport = True
+        elif self.transport is not None:
+            self.transport = resolve_transport(self.transport,
+                                               device=self.device)
         self.dtype = resolve_dtype(self.dtype)
         self.growth_safe, self.equilibrate = _resolve_growth_controls(
             self.dtype, self.growth_safe, self.equilibrate,
             self.faithful_sign,
         )
+
+    # -- transport lifecycle -------------------------------------------------
+
+    def close(self) -> None:
+        """Close the transport this client owns (built from a
+        TransportConfig). Shared and caller-provided instances are left
+        to their owners. Idempotent."""
+        if self._owns_transport and self.transport is not None:
+            self.transport.close()
+
+    def __enter__(self) -> "SPDCClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- async-overlap pipeline (DESIGN.md §9) --------------------------------
+
+    def run_pipelined(self, inputs, num_servers: int, *, depth: int = 2,
+                      transport=None, faults=None, tamper=None) -> list:
+        """Run many independent protocol inputs with PMOP/wire overlap:
+        up to `depth` sessions in flight, session k's tasks riding the
+        transport (a `Session.start` Future) while session k+1's PMOP
+        runs here. Results come back in input order, each collected on
+        this thread. depth=1 is the sequential loop."""
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        results: list = []
+        pending: list[PendingResult] = []
+        for m in inputs:
+            if len(pending) >= depth:
+                results.append(pending.pop(0).result())
+            session = self.open_session(m, num_servers, faults=faults,
+                                        tamper=tamper)
+            pending.append(session.start(transport))
+        while pending:
+            results.append(pending.pop(0).result())
+        return results
 
     def _host_copy(self, m) -> np.ndarray:
         """The plaintext as a host array in the compute dtype — what
@@ -115,14 +195,16 @@ class SPDCClient:
                      tamper=None) -> "Session":
         """Run the client-side PMOP and return the dispatchable Session.
 
-        m: one (n, n) matrix or a (B, n, n) stack. tamper is a client-side
-        hook on the assembled factors (models a malicious server).
+        m: one (n, n) matrix or a (B, n, n) stack. faults / tamper
+        configure simulated misbehaviour: faults (a core.faults plan)
+        ride to the Parallelize stage (in the sweep on the inline
+        transport, worker-side on the message transports); tamper is a
+        client-side hook on the assembled factors.
         """
         if isinstance(m, (list, tuple)):
             raise NotImplementedError("mixed-size lists: ROADMAP A11")
-        if faults:
-            raise NotImplementedError("fault plans: ROADMAP A8")
         t0 = time.perf_counter()
+        plan = resolve_delays(normalize_plan(faults), None)
         m_host = self._host_copy(m)
         m_dev = torch.from_numpy(m_host).to(self.device)
         if m_host.ndim == 3 and m_host.shape[-1] == m_host.shape[-2]:
@@ -133,6 +215,7 @@ class SPDCClient:
             raise ValueError(
                 f"expected a square matrix or a (B, n, n) stack, got {m_host.shape}"
             )
+        sess.plan = plan
         synchronize(self.device)
         sess._pmop_s = time.perf_counter() - t0
         return sess
@@ -152,7 +235,7 @@ class SPDCClient:
             client=self, kind="single", num_servers=num_servers,
             x_aug=x_aug, seeds=[seed], metas=[meta],
             log2_scale=float(log2_scale), n=n, padding=padding,
-            digest=seed.digest, tamper=tamper,
+            digest=seed.digest, tamper=tamper, _m_host=m_host,
         )
 
     def _open_batch(self, m, m_host, num_servers, tamper) -> "Session":
@@ -172,14 +255,17 @@ class SPDCClient:
             client=self, kind="batch", num_servers=num_servers,
             x_aug=x_aug, seeds=seeds, metas=metas,
             log2_scale=log2_scale, n=n, padding=padding,
-            digest=_batch_digest(seeds), tamper=tamper,
+            digest=_batch_digest(seeds), tamper=tamper, _m_host=m_host,
         )
 
 
 @dataclass
 class Session:
     """One protocol run: the client's secrets and the dispatchable
-    ciphertext. Everything here is client-private."""
+    ciphertext. Everything here except `tasks()`'s output is
+    client-private. The life cycle is tasks → (transport) → collect, or
+    just `run(transport)`, which prefers the fused sweep on fused
+    transports."""
 
     client: SPDCClient
     kind: str  # "single" | "batch"
@@ -191,36 +277,204 @@ class Session:
     n: int  # raw size
     padding: int
     digest: bytes
+    plan: tuple = ()
     tamper: Any = None
+    _m_host: np.ndarray | None = None
     # phase timings feeding SPDCReport.timings
     _pmop_s: float = 0.0
     _dispatch_s: float = 0.0
+
+    def __post_init__(self):
+        from ..distrib.recovery import dispatch_subseed
+
+        # opaque routing tag: one-way derived from the secret digest so it
+        # can be logged/echoed without leaking probe or channel material
+        self.session_id = dispatch_subseed(self.digest, -1, -1)[:8].hex()
+
+    # -- geometry ------------------------------------------------------------
 
     @property
     def n_aug(self) -> int:
         return int(self.x_aug.shape[-1])
 
+    @property
+    def block(self) -> int:
+        return self.n_aug // self.num_servers
+
+    # -- dispatch ------------------------------------------------------------
+
+    def tasks(self, *, check_boundary: bool | None = None) -> list[ShardTask]:
+        """The initial ShardTasks — one encrypted block row (a host copy)
+        and dispatch sub-seed per server; u_upstream is left to the
+        transport's relay.
+
+        check_boundary: None (default) runs the structural boundary checks
+        always and the full entry-level plaintext screening up to ~1M
+        payload elements; True forces the full screening at any size;
+        False runs structural checks only.
+        """
+        from ..distrib.recovery import dispatch_subseed
+
+        b = self.block
+        out = []
+        for i in range(self.num_servers):
+            out.append(
+                ShardTask(
+                    server=i,
+                    num_servers=self.num_servers,
+                    x_row=self.x_aug[..., i * b : (i + 1) * b, :]
+                    .detach().to("cpu", copy=True).numpy(),
+                    subseed=dispatch_subseed(self.digest, i, 0),
+                    style="nserver",
+                    session_id=self.session_id,
+                )
+            )
+        self._assert_boundary(out, check_boundary)
+        return out
+
+    def _assert_boundary(self, tasks, check_boundary) -> None:
+        """No plaintext, no key material, no unexpected fields — checked
+        at the moment messages are minted, not left to code review."""
+        plaintexts = [self._m_host] if self._m_host is not None else []
+        total = sum(t.x_row.size for t in tasks)
+        full = check_boundary or (
+            check_boundary is None and total <= _FULL_CHECK_ELEMS
+        )
+        secrets = np.asarray([s.psi for s in self.seeds])
+
+        def informative(a):
+            # exact 0/±1 entries are structural constants (zero border,
+            # identity block) that carry no client information
+            a = np.asarray(a).ravel()
+            return a[(a != 0.0) & (np.abs(a) != 1.0)]
+
+        # the plaintext side of the screen is loop-invariant: filter and
+        # sort it once, not once per task
+        plain_sorted = [np.sort(informative(m)) for m in plaintexts] \
+            if full else []
+
+        def leaks(payload, reference_sorted):
+            if not reference_sorted.size or not payload.size:
+                return False
+            idx = np.clip(np.searchsorted(reference_sorted, payload),
+                          0, reference_sorted.size - 1)
+            return bool(np.any(reference_sorted[idx] == payload))
+
+        for t in tasks:
+            extra = set(vars(t)) - _TASK_FIELDS
+            if extra:
+                raise BoundaryViolation(
+                    f"ShardTask grew unreviewed fields {sorted(extra)}"
+                )
+            if not (isinstance(t.subseed, bytes) and len(t.subseed) == 32):
+                raise BoundaryViolation("subseed must be a 32-byte digest")
+            for m in plaintexts:
+                if np.shares_memory(t.x_row, m):
+                    raise BoundaryViolation(
+                        "ShardTask payload aliases the plaintext buffer"
+                    )
+            if full:
+                payload = informative(t.x_row)
+                for ref in plain_sorted:
+                    if leaks(payload, ref):
+                        raise BoundaryViolation(
+                            "ShardTask payload contains verbatim plaintext "
+                            "entries — cipher did not run?"
+                        )
+                if leaks(payload, np.sort(secrets)):
+                    raise BoundaryViolation(
+                        "ShardTask payload contains client key material"
+                    )
+
+    # -- execution -----------------------------------------------------------
+
+    def _resolve_transport(self, transport):
+        """None falls back to the client's configured transport (itself
+        defaulting to inline); names resolve on the client's device."""
+        if transport is None:
+            transport = self.client.transport
+        return resolve_transport(transport, device=self.client.device)
+
     def run(self, transport=None):
-        """Dispatch the Parallelize stage through a transport (default:
-        the client's), then collect."""
-        transport = (self.client.transport if transport is None
-                     else resolve_transport(transport))
+        """Dispatch + collect through a transport (default: the client's
+        configured one, else inline)."""
+        transport = self._resolve_transport(transport)
         t0 = time.perf_counter()
-        l, u = transport.sweep(self.x_aug, self.num_servers)
+        if transport.fused:
+            l, u = transport.sweep(self.x_aug, self.num_servers,
+                                   faults=self.plan)
+        else:
+            results = transport.factor(self.tasks(), faults=self.plan)
+            l, u = self._assemble(results)
         synchronize(self.x_aug.device)
         self._dispatch_s = time.perf_counter() - t0
         return self.collect((l, u))
 
+    def start(self, transport=None) -> "PendingResult":
+        """Nonblocking dispatch: ship this session's Parallelize stage and
+        return a PendingResult whose `.result()` runs the verify/decipher
+        tail. On message transports the sweep rides the transport's
+        driver threads, so the caller's next `open_session` overlaps this
+        session's wire time; fused transports complete the future here."""
+        transport = self._resolve_transport(transport)
+        t0 = time.perf_counter()
+        if transport.fused:
+            from concurrent.futures import Future
+
+            future = Future()
+            try:
+                future.set_result(
+                    transport.sweep(self.x_aug, self.num_servers,
+                                    faults=self.plan)
+                )
+                synchronize(self.x_aug.device)
+                self._dispatch_s = time.perf_counter() - t0
+            except Exception as e:  # noqa: BLE001 — future carries it
+                future.set_exception(e)
+        else:
+            tasks = self.tasks()  # boundary-checked on this thread
+
+            def drive_factor():
+                out = transport.factor(tasks, self.plan)
+                self._dispatch_s = time.perf_counter() - t0
+                return out
+
+            future = transport.driver_submit(drive_factor)
+        return PendingResult(session=self, transport=transport,
+                             future=future)
+
+    def _assemble(self, results) -> tuple[torch.Tensor, torch.Tensor]:
+        """Stack per-server strips into full (…, n', n') factors on the
+        session's device."""
+        byid = {r.server: r for r in results}
+        if sorted(byid) != list(range(self.num_servers)):
+            raise ValueError(
+                f"need one ShardResult per server, got {sorted(byid)}"
+            )
+        order = range(self.num_servers)
+        l = np.concatenate([np.asarray(byid[i].l_row) for i in order], axis=-2)
+        u = np.concatenate([np.asarray(byid[i].u_row) for i in order], axis=-2)
+        dev, dt = self.x_aug.device, self.x_aug.dtype
+        return (torch.from_numpy(l).to(dev, dt),
+                torch.from_numpy(u).to(dev, dt))
+
+    # -- verify and decipher -------------------------------------------------
+
     def collect(self, results):
-        """Authenticate → Decipher over an (L, U) pair of full factors.
-        Returns core.protocol.SPDCResult / SPDCBatchResult."""
+        """Authenticate → Decipher. results: an (L, U) pair of full
+        factors, or a list of ShardResults to assemble. Returns
+        core.protocol.SPDCResult / SPDCBatchResult."""
         from ..core.protocol import (
             SessionTimings, SPDCBatchResult, SPDCReport, SPDCResult,
             _probe_rng,
         )
 
         t_collect = time.perf_counter()
-        l, u = results
+        if (isinstance(results, tuple) and len(results) == 2
+                and not isinstance(results[0], ShardResult)):
+            l, u = results
+        else:
+            l, u = self._assemble(results)
         if self.tamper is not None:
             l, u = self.tamper(l, u)
         verdict = authenticate(
@@ -270,3 +524,26 @@ class Session:
             num_servers=self.num_servers,
             report=build_report(),
         )
+
+
+@dataclass
+class PendingResult:
+    """A `Session.start`ed protocol run awaiting its verify/decipher tail.
+
+    `result(timeout=)` blocks on the in-flight Parallelize stage (expiry
+    raises TransportTimeout and the dispatch keeps running), then runs
+    `Session.collect` on the calling thread: authenticate and decipher
+    touch session secrets and stay on the client thread.
+    """
+
+    session: Session
+    transport: Any
+    future: Any
+
+    def done(self) -> bool:
+        """True once the dispatch resolved (collect still pending)."""
+        return self.future.done()
+
+    def result(self, timeout: float | None = None):
+        out = self.transport.result(self.future, timeout)
+        return self.session.collect(out)

@@ -44,7 +44,8 @@ class Determinant:
 
     `dtype` names the compute dtype of the factorization ("float64",
     "float32") and selects allclose()'s default tolerance; `logabs` is
-    always a host float64.
+    always a host float64. Serializes with the wire codec, byte-identical
+    to the reference's frames.
     """
 
     sign: float
@@ -90,6 +91,32 @@ class Determinant:
         return bool(
             abs(self.logabs - other.logabs) <= float(np.log1p(rtol)) + atol
         )
+
+    def to_bytes(self) -> bytes:
+        """Serialize with the wire codec (api/wire.py); (sign, logabs)
+        round-trip bit-exactly, ±inf included."""
+        from ..api import wire
+
+        return wire.encode(
+            "Determinant",
+            {"sign": float(self.sign), "logabs": float(self.logabs),
+             "dtype": self.dtype},
+            {},
+        )
+
+    @classmethod
+    def _from_wire(cls, scalars, arrays):
+        return cls(sign=scalars["sign"], logabs=scalars["logabs"],
+                   dtype=scalars["dtype"])
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "Determinant":
+        from ..api import wire
+
+        kind, scalars, arrays = wire.decode(data)
+        if kind != "Determinant":
+            raise wire.WireError(f"expected Determinant frame, got {kind!r}")
+        return cls._from_wire(scalars, arrays)
 
 
 def _assemble(

@@ -10,15 +10,24 @@ is the guard against the resulting numerical drift.
   * lu_panel_blocked — blocked factorization of one diagonal tile: 32-wide
                        Doolittle panels, triangular-solve strips and one
                        Schur product per step (DESIGN.md §1.1).
+  * lu_blocked       — right-looking block LU (panel → TRSM → Schur),
+                       the sequential one-server baseline.
   * lu_nserver       — the paper's Algorithm 3: server i owns block row i,
                        computes L_{i,1..i-1}, factors X_ii, computes
                        U_{i,i+1..N}; one-way message log.
+  * lu_block_row     — one server's block row of Algorithm 3 from its
+                       ciphertext row and the U rows relayed from upstream
+                       (what an EdgeServer computes).
 
 On CUDA tensors the Doolittle tiles run the panel kernel
-(kernels/csrc/lu_panel.cu) and the strips the two triangular-solve
-kernels (kernels/csrc/trsm.cu); on CPU tensors their plain versions run.
-The Schur-complement terms are plain matrix products, left to
-torch.matmul as the reference leaves them to XLA. Every function accepts
+(kernels/csrc/lu_panel.cu), the strips the two triangular-solve kernels
+(kernels/csrc/trsm.cu) and lu_blocked's trailing updates the Schur kernel
+(kernels/csrc/schur.cu); on CPU tensors their plain versions run. lu_blocked
+also runs the Schur kernel on its diagonal tiles' inner updates, which
+the reference's kernel route computes inside its panel kernel. The
+Schur terms of lu_nserver and lu_block_row, diagonal tiles included, are
+plain matrix products, left to torch.matmul as the reference leaves them
+to XLA. Every function accepts
 (..., n, n) stacks and leaves its input untouched: the caller's
 ciphertext must survive the factorization, because Authenticate checks
 L·U against it.
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from .faults import apply_faults, corrupt_strip, split_plan
 
 
 # ---------------------------------------------------------------------------
@@ -67,16 +77,23 @@ def _trsm_right_upper(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # blocked panel — the pipeline's per-round diagonal factorization
 # ---------------------------------------------------------------------------
+def _matmul_update(c: torch.Tensor, a: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    return c - a @ b
+
+
 def lu_panel_blocked(
-    a: torch.Tensor, inner: int = 32
+    a: torch.Tensor, inner: int = 32, update=_matmul_update
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Blocked factorization of a (..., b, b) diagonal tile.
 
     Only the inner×inner sub-panels run the dependent Doolittle
     elimination; the strips beside and below each are triangular solves
-    and the trailing update is one matrix product per step, so the
-    sequential chain is ceil(b/inner) panels instead of b rank-1 steps.
-    A ragged tail gets a short final panel. Works on a copy of `a`.
+    and the trailing update is one product per step, so the sequential
+    chain is ceil(b/inner) panels instead of b rank-1 steps. A ragged
+    tail gets a short final panel. `update(c, a, b)` returns c − a·b:
+    a torch.matmul by default, ops.schur_update on lu_blocked's tiles.
+    Works on a copy of `a`.
     """
     b = a.shape[-1]
     if b <= inner:
@@ -93,7 +110,7 @@ def lu_panel_blocked(
             l_below = _trsm_right_upper(diag, a[..., s1:, s0:s1])
             a[..., s0:s1, s1:] = u_right
             a[..., s1:, s0:s1] = l_below
-            a[..., s1:, s1:] -= l_below @ u_right
+            a[..., s1:, s1:] = update(a[..., s1:, s1:], l_below, u_right)
     return _split_compact(a)
 
 
@@ -102,12 +119,63 @@ def lu_panel_blocked(
 PANEL_BLOCK_THRESHOLD = 64
 
 
-def lu_diag_factor(a: torch.Tensor, inner: int = 32) -> tuple[torch.Tensor, torch.Tensor]:
+def lu_diag_factor(
+    a: torch.Tensor, inner: int = 32, update=_matmul_update
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Factor a diagonal tile: blocked for b >= PANEL_BLOCK_THRESHOLD,
     one Doolittle tile below it."""
     if a.shape[-1] >= PANEL_BLOCK_THRESHOLD:
-        return lu_panel_blocked(a, inner=inner)
+        return lu_panel_blocked(a, inner=inner, update=update)
     return lu_unblocked(a)
+
+
+# ---------------------------------------------------------------------------
+# blocked right-looking (the sequential one-server baseline)
+# ---------------------------------------------------------------------------
+def lu_blocked(
+    a: torch.Tensor, block: int, *, acc_dtype=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Right-looking block LU on (..., n, n); n must be divisible by block.
+
+    Per step k over the block diagonal:
+      panel:  X_kk = L_kk U_kk              (lu_diag_factor)
+      trsm:   U_kj = L_kk⁻¹ X_kj (j>k);  L_ik = X_ik U_kk⁻¹ (i>k)
+      schur:  X_ij -= L_ik U_kj             (i, j > k — the O(n³) bulk)
+
+    The reference's kernel route factors each diagonal tile with one
+    panel launch; the port's panel kernel holds at most a 170-wide f64
+    tile, so the tile goes through lu_diag_factor, the same factorization
+    in another order, with its inner updates on the Schur kernel too. The
+    mixed-precision ``acc_dtype`` variant is not
+    ported yet. Leaves `a` untouched.
+    """
+    if acc_dtype is not None:
+        raise NotImplementedError("the mixed acc_dtype variant: ROADMAP A6")
+    n = a.shape[-1]
+    if n % block != 0:
+        raise ValueError(f"n={n} not divisible by block={block}")
+    nb = n // block
+
+    def tile(i, j):
+        return (..., slice(i * block, (i + 1) * block),
+                slice(j * block, (j + 1) * block))
+
+    blocks = [[a[tile(i, j)] for j in range(nb)] for i in range(nb)]
+    l_out = torch.zeros_like(a)
+    u_out = torch.zeros_like(a)
+    for k in range(nb):
+        lkk, ukk = lu_diag_factor(blocks[k][k], update=ops.schur_update)
+        l_out[tile(k, k)], u_out[tile(k, k)] = lkk, ukk
+        u_row = {j: ops.trsm_lower(lkk, blocks[k][j]) for j in range(k + 1, nb)}
+        l_col = {i: ops.trsm_upper_right(ukk, blocks[i][k])
+                 for i in range(k + 1, nb)}
+        for j, ukj in u_row.items():
+            u_out[tile(k, j)] = ukj
+        for i, lik in l_col.items():
+            l_out[tile(i, k)] = lik
+            for j, ukj in u_row.items():
+                blocks[i][j] = ops.schur_update(blocks[i][j], lik, ukj)
+    return l_out, u_out
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +210,27 @@ def nserver_comm_model(n: int, num_servers: int) -> CommLog:
     return log
 
 
+def _corrupt_row_blocks(blocks, row_faults, *, n, b, batched, factor):
+    """In-band injection for lu_nserver: corrupt one server's strip of row
+    blocks in the wavefront, so downstream servers consume the corrupted
+    relay (the cascading-poison threat model)."""
+    defined = [j for j in range(len(blocks)) if blocks[j] is not None]
+    lead = blocks[defined[0]].shape[:-2]
+    full = blocks[defined[0]].new_zeros((*lead, b, n))
+    for j in defined:
+        full[..., :, j * b : (j + 1) * b] = blocks[j]
+    for f in row_faults:
+        bad = corrupt_strip(full, f, n=n, factor=factor)
+        if f.matrices is not None and batched:
+            idx = torch.as_tensor(f.matrices, dtype=torch.long)
+            full = full.clone()
+            full[idx] = bad[idx]
+        else:
+            full = bad
+    for j in defined:
+        blocks[j] = full[..., :, j * b : (j + 1) * b].contiguous()
+
+
 def lu_nserver(
     x: torch.Tensor, num_servers: int, faults=()
 ) -> tuple[torch.Tensor, torch.Tensor, CommLog]:
@@ -150,10 +239,15 @@ def lu_nserver(
     Single-process simulation: exactly the block operations of Alg. 3 in
     the paper's order, server i computing only block row i, with the
     one-way chain's message log. Accepts (..., n, n); returns
-    (L, U, comm_log). Fault plans are not ported yet.
+    (L, U, comm_log).
+
+    faults: a fault plan (core.faults). Faults marked ``in_band`` corrupt
+    the faulty server's strips inside the wavefront, before the relay
+    hop, so every later block row is computed against the poisoned U
+    row; report-level faults are applied to the assembled factors on the
+    way out (``apply_faults``).
     """
-    if faults:
-        raise NotImplementedError("fault plans: ROADMAP A8")
+    in_band, report = split_plan(faults)
     n = x.shape[-1]
     N = num_servers
     if n % N != 0 or n // N <= 1:
@@ -187,6 +281,14 @@ def lu_nserver(
             for k in range(i):
                 acc = acc - L[i][k] @ U[k][j]
             U[i][j] = ops.trsm_lower(L[i][i], acc)
+        # in-band faults: server i corrupts its strips before the relay
+        # hop, so rows > i are computed against the poisoned U row
+        row_faults = [f for f in in_band if f.server == i]
+        for factor, row in (("u", U[i]), ("l", L[i])):
+            hits = [f for f in row_faults if factor in f.target]
+            if hits:
+                _corrupt_row_blocks(row, hits, n=n, b=b,
+                                    batched=x.ndim == 3, factor=factor)
 
     l_out = torch.zeros_like(x)
     u_out = torch.zeros_like(x)
@@ -197,7 +299,90 @@ def lu_nserver(
                 l_out[..., rows, cols] = L[i][j]
             if U[i][j] is not None:
                 u_out[..., rows, cols] = U[i][j]
+    if report:
+        l_out, u_out = apply_faults(l_out, u_out, report, num_servers=N)
     return l_out, u_out, log
+
+
+def lu_block_row(
+    x: torch.Tensor,
+    u: torch.Tensor,
+    server: int,
+    num_servers: int,
+    *,
+    style: str = "nserver",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One server's block row of the Algorithm-3 factorization.
+
+    Given the ciphertext ``x`` and factors ``u`` whose U rows above
+    ``server`` are the upstream servers' (rows at or below it are masked
+    out, so a corrupted strip never feeds its own recomputation), return
+    the (L strip, U strip) server ``server`` reports, each (..., b, n).
+
+    style selects the operation order:
+
+      * "nserver"  — block-wise accumulation, bit-equal to lu_nserver's
+        rows on the same device: every product multiplies the same
+        contiguous (b, b) blocks lu_nserver multiplies, so the device
+        library sees the same problem.
+      * "pipeline" — full-row matmul accumulation, the shard_map server
+        program's order.
+    """
+    n = x.shape[-1]
+    N = num_servers
+    if n % N != 0 or n // N <= 1:
+        raise ValueError(f"n={n} not partitionable over N={N}")
+    if not 0 <= server < N:
+        raise ValueError(f"server {server} out of range for N={N}")
+    if style not in ("nserver", "pipeline"):
+        raise ValueError(f"unknown style {style!r}")
+    b = n // N
+    s0 = server * b
+    x_row = x[..., s0 : s0 + b, :]
+    u_above = u.clone()
+    u_above[..., s0:, :] = 0
+    l_row = torch.zeros_like(x_row)
+
+    if style == "pipeline":
+        for k in range(server):
+            kb = k * b
+            acc = x_row[..., :, kb : kb + b] - l_row @ u_above[..., :, kb : kb + b]
+            ukk = u_above[..., kb : kb + b, kb : kb + b]
+            l_row[..., :, kb : kb + b] = _trsm_right_upper(ukk, acc)
+        s = x_row - l_row @ u_above
+        lii, _ = lu_diag_factor(s[..., :, s0 : s0 + b])
+        l_row[..., :, s0 : s0 + b] = lii
+        u_row = ops.trsm_lower(lii, s)
+        u_row[..., :, :s0] = 0
+        return l_row, u_row
+
+    def blk(a, i, j):
+        return a[..., i * b : (i + 1) * b, j * b : (j + 1) * b]
+
+    def u_blk(k, j):
+        # a fresh contiguous copy, laid out as lu_nserver's U[k][j]
+        return blk(u_above, k, j).contiguous()
+
+    L = [None] * N
+    for k in range(server):
+        acc = blk(x, server, k)
+        for m in range(k):
+            acc = acc - L[m] @ u_blk(m, k)
+        L[k] = _trsm_right_upper(blk(u_above, k, k), acc)
+        l_row[..., :, k * b : (k + 1) * b] = L[k]
+    acc = blk(x, server, server)
+    for k in range(server):
+        acc = acc - L[k] @ u_blk(k, server)
+    lii, uii = lu_diag_factor(acc)
+    l_row[..., :, s0 : s0 + b] = lii
+    u_row = torch.zeros_like(x_row)
+    u_row[..., :, s0 : s0 + b] = uii
+    for j in range(server + 1, N):
+        acc = blk(x, server, j)
+        for k in range(server):
+            acc = acc - L[k] @ u_blk(k, j)
+        u_row[..., :, j * b : (j + 1) * b] = ops.trsm_lower(lii, acc)
+    return l_row, u_row
 
 
 # ---------------------------------------------------------------------------

@@ -193,16 +193,23 @@ def outsource_determinant(
         (DESIGN.md §1.1.3).
     tamper: optional fn (L, U) -> (L, U) applied to the servers' factors
         before Authenticate — models a malicious edge server.
+    faults: a core.faults plan (a ServerFault or an iterable of them)
+        played by the servers: in the sweep on the inline transport,
+        worker-side on the message transports. The verdict names the
+        culprit; recovery is not ported.
     dtype: compute dtype, "float64" (default) or "float32".
     growth_safe / equilibrate: growth controls (DESIGN.md §6); None = on
         below float64, off for float64.
-    transport: None or "inline" (the fused in-process sweep).
+    transport: None or "inline" (the fused in-process sweep),
+        "threadpool", "multiprocess", a TransportConfig, or a Transport
+        instance; names and configs resolve to shared instances on
+        `device`.
     device: where the protocol computes; None = the CUDA device
         (RuntimeError without one), "cpu" for the plain path.
 
     Not ported yet, and raising NotImplementedError: mixed-size lists
-    (ROADMAP A11), faults= and recover= (A8), rateless= (A9),
-    distributed= (A12).
+    (ROADMAP A11), recover= (A8), rateless= and the socket transport
+    (A9), distributed= and the shardmap transport (A12).
 
     Returns SPDCResult for one matrix, SPDCBatchResult for a stack.
     """

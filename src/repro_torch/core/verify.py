@@ -149,6 +149,11 @@ def per_server_residuals(
     return out.detach().cpu().numpy()
 
 
+#: Verdict fields that may be scalars (single matrix) or per-matrix
+#: numpy arrays (a stack) — the wire codec branches on this
+_VERDICT_POLY = ("ok", "residual", "eps", "culprit")
+
+
 @dataclass
 class Verdict:
     """Structured Authenticate outcome: global accept/reject plus the
@@ -157,6 +162,8 @@ class Verdict:
     Scalars (bool/float) for a single matrix; per-matrix numpy arrays for
     a (B, n, n) stack. `culprit` is the FIRST server whose residual block
     exceeds ε(N), every strip above it clean (-1 when all blocks pass).
+    Serializes with the wire codec (`to_bytes`/`from_bytes`, api/wire.py),
+    byte-identical to the reference's frames.
     """
 
     ok: bool | np.ndarray
@@ -171,6 +178,45 @@ class Verdict:
     @property
     def all_ok(self) -> bool:
         return bool(np.all(self.ok))
+
+    def to_bytes(self) -> bytes:
+        from ..api import wire
+
+        scalars = {"method": self.method, "num_servers": self.num_servers}
+        arrays = {"server_residual": self.server_residual,
+                  "server_ok": self.server_ok}
+        for name in _VERDICT_POLY:
+            val = getattr(self, name)
+            if isinstance(val, np.ndarray):
+                arrays[name] = val
+            elif isinstance(val, (bool, np.bool_)):
+                scalars[name] = bool(val)
+            elif isinstance(val, (int, np.integer)):
+                scalars[name] = int(val)
+            else:
+                scalars[name] = float(val)
+        return wire.encode("Verdict", scalars, arrays)
+
+    @classmethod
+    def _from_wire(cls, scalars, arrays):
+        fields = {
+            "method": scalars["method"],
+            "num_servers": int(scalars["num_servers"]),
+            "server_residual": arrays["server_residual"],
+            "server_ok": arrays["server_ok"],
+        }
+        for name in _VERDICT_POLY:
+            fields[name] = arrays[name] if name in arrays else scalars[name]
+        return cls(**fields)
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "Verdict":
+        from ..api import wire
+
+        kind, scalars, arrays = wire.decode(data)
+        if kind != "Verdict":
+            raise wire.WireError(f"expected Verdict frame, got {kind!r}")
+        return cls._from_wire(scalars, arrays)
 
 
 def _first_culprit(server_ok: np.ndarray) -> int | np.ndarray:

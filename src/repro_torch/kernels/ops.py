@@ -15,10 +15,12 @@ import torch
 from . import ref
 from .ced import ced_cuda
 from .lu_panel import lu_panel_cuda
+from .schur import schur_update_cuda
 from .trsm import trsm_lower_cuda, trsm_upper_right_cuda
 
 LAUNCHES: dict[str, int] = {
     "ced": 0, "lu_panel": 0, "trsm_lower": 0, "trsm_upper_right": 0,
+    "schur_update": 0,
 }
 
 
@@ -79,3 +81,15 @@ def trsm_upper_right(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         LAUNCHES["trsm_upper_right"] += 1
         return out
     return ref.trsm_upper_right_ref(u, b)
+
+
+def schur_update(c: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """C − A·B into a fresh tensor; (…, M, K)·(…, K, N), batch-aware.
+    float64/float32 accumulate in their own type, bfloat16/float16 in
+    float32."""
+    if _on_cuda(c, a, b):
+        out = schur_update_cuda(c, a, b)
+        LAUNCHES["schur_update"] += 1
+        return out
+    return ref.schur_update_ref(c, a, b)

@@ -58,3 +58,14 @@ def trsm_upper_right_ref(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         z[..., :, k] = z[..., :, k] / u[..., k, k, None]
         z[..., :, k + 1:] -= z[..., :, k, None] * u[..., k, None, k + 1:]
     return z
+
+
+def schur_update_ref(c: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """C − A·B in the accumulation dtype: bfloat16 and float16 are widened
+    to float32 and the result rounded once to the input dtype; float32
+    and float64 compute in their own type. c is (..., M, N), a (..., M, K),
+    b (..., K, N); the result is a new tensor."""
+    if c.dtype in (torch.bfloat16, torch.float16):
+        return (c.float() - a.float() @ b.float()).to(c.dtype)
+    return c - a @ b

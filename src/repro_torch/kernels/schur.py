@@ -1,0 +1,75 @@
+"""Wrapper of the Schur-complement kernel (csrc/schur.cu).
+
+Port of src/repro/kernels/gemm.py:schur_update: C − A·B for (M, K)·(K, N)
+operands or a (B, M, K)·(B, K, N) stack, at any strides, into a fresh
+output. float64 and float32 accumulate in their own type, bfloat16 and
+float16 in float32.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32",
+           torch.bfloat16: "bf16", torch.float16: "f16"}
+_SIGNATURES = {
+    f"schur_{suffix}": (
+        _INT,
+        (_PTR, _LL, _LL, _LL, _PTR, _LL, _LL, _LL, _PTR, _LL, _LL, _LL,
+         _PTR, _LL, _LL, _LL, _INT, _INT, _INT, _INT, _PTR),
+    )
+    for suffix in _SUFFIX.values()
+}
+_MAX_GRID_YZ = 65535
+_TILE = 64
+
+
+def _strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """(batch, row, column) element strides; batch 0 for a 2-D operand."""
+    return (t.stride(0) if t.ndim == 3 else 0, t.stride(-2), t.stride(-1))
+
+
+def schur_update_cuda(c: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor) -> torch.Tensor:
+    """C − A·B on CUDA tensors: c (…, M, N), a (…, M, K), b (…, K, N),
+    all 2-D or all 3-D with one batch size, one dtype. Returns a new
+    contiguous tensor; the operands are left as they are."""
+    for t in (c, a, b):
+        if t.device.type != "cuda" or t.device != c.device:
+            raise ValueError(
+                f"schur_update needs CUDA operands on one device, got "
+                f"{c.device}/{a.device}/{b.device}")
+    if c.dtype not in _SUFFIX or a.dtype != c.dtype or b.dtype != c.dtype:
+        raise TypeError(
+            "schur_update takes float64, float32, bfloat16 or float16 "
+            f"operands of one dtype, got {c.dtype}/{a.dtype}/{b.dtype}")
+    if c.ndim not in (2, 3) or a.ndim != c.ndim or b.ndim != c.ndim:
+        raise ValueError("schur_update needs three 2-D or three 3-D operands")
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    if b.shape[-2] != k or tuple(c.shape[-2:]) != (m, n):
+        raise ValueError(
+            f"schur_update: C {tuple(c.shape)}, A {tuple(a.shape)}, "
+            f"B {tuple(b.shape)} do not chain")
+    batch = c.shape[0] if c.ndim == 3 else 1
+    if c.ndim == 3 and not a.shape[0] == b.shape[0] == batch:
+        raise ValueError(
+            f"schur_update: batches {batch}, {a.shape[0]}, {b.shape[0]}")
+    if batch > _MAX_GRID_YZ or -(-m // _TILE) > _MAX_GRID_YZ:
+        raise ValueError(f"schur_update: batch {batch} or M {m} exceeds the grid")
+    out = torch.empty(c.shape, dtype=c.dtype, device=c.device)
+    if batch == 0 or m == 0 or n == 0:
+        return out
+    lib = build.library("schur", _SIGNATURES)
+    with torch.cuda.device(c.device):
+        code = getattr(lib, f"schur_{_SUFFIX[c.dtype]}")(
+            c.data_ptr(), *_strides(c), a.data_ptr(), *_strides(a),
+            b.data_ptr(), *_strides(b), out.data_ptr(), *_strides(out),
+            batch, m, n, k, torch.cuda.current_stream().cuda_stream,
+        )
+    build.check_launch(lib, "schur_update", code)
+    return out

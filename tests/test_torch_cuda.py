@@ -9,7 +9,9 @@ conftest:
 
 Tolerances: CED bit for bit; the panel LU and the triangular solves within
 1e-12 of max|plain| (the same arithmetic, another FMA contraction and
-summation order).
+summation order); the Schur update within tol · (max|C| + K·max|A|·max|B|),
+tol 1e-12 in f64, 1e-4 in f32 and 1e-2 in bf16/f16 (K products summed in
+another order, and the narrow types round the stored output).
 """
 import numpy as np
 import pytest
@@ -128,7 +130,84 @@ def test_protocol_on_card_matches_cpu(cuda):
     m = _dominant((256, 256), 5)
     ops.reset_launches()
     got = repro_torch.outsource_determinant(m, 4)
-    assert all(count > 0 for count in ops.LAUNCHES.values()), ops.LAUNCHES
+    path = ("ced", "lu_panel", "trsm_lower", "trsm_upper_right")
+    assert all(ops.LAUNCHES[name] > 0 for name in path), ops.LAUNCHES
     want = repro_torch.outsource_determinant(m, 4, device="cpu")
     assert got.verified and want.verified
     assert got.det.allclose(want.det)
+
+
+#: f64/f32 on the scale max|C| + K·max|A|·max|B| of the K products both
+#: sides sum in different orders; bf16/f16 on max|want|, because both
+#: sides sum in f32 and differ by the stored output's rounding
+SCHUR_TOL = {torch.float64: 1e-12, torch.float32: 1e-4, torch.bfloat16: 2e-2,
+             torch.float16: 2e-2}
+
+
+def _schur_close(got, want, c, a, b, dtype):
+    if dtype in (torch.bfloat16, torch.float16):
+        scale = float(want.double().abs().max())
+    else:
+        scale = (float(c.abs().max()) + a.shape[-1] * float(a.abs().max())
+                 * float(b.abs().max()))
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= SCHUR_TOL[dtype] * scale, (err, scale)
+
+
+@pytest.mark.parametrize("m,k,n,batch", [(1024, 1024, 1024, None),
+                                          (256, 256, 256, 16),
+                                          (77, 45, 13, 3), (1, 1, 1, None)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16, torch.float16])
+def test_schur_kernel_matches_plain_and_library(cuda, m, k, n, batch, dtype):
+    lead = () if batch is None else (batch,)
+    c, a, b = (torch.from_numpy(_rand((*lead, *s), seed)).to(cuda, dtype)
+               for s, seed in (((m, n), 1), ((m, k), 2), ((k, n), 3)))
+    ops.reset_launches()
+    got = ops.schur_update(c, a, b)
+    assert ops.LAUNCHES["schur_update"] == 1
+    _schur_close(got, ref.schur_update_ref(c, a, b), c, a, b, dtype)
+    library = (torch.addmm(c, a, b, alpha=-1) if batch is None
+               else torch.baddbmm(c, a, b, alpha=-1))
+    _schur_close(got, library, c, a, b, dtype)
+
+
+def test_schur_kernel_reads_strided_views_and_keeps_operands(cuda):
+    x = torch.from_numpy(_rand((512, 512), 8)).to(cuda)
+    before = x.clone()
+    c, a, b = x[128:256, 256:512], x[128:256, :128], x[:128, 256:512]
+    got = ops.schur_update(c, a, b)
+    _schur_close(got, ref.schur_update_ref(c, a, b), c, a, b, torch.float64)
+    at = x[:128, 128:256].t()  # a column-major operand
+    _schur_close(ops.schur_update(c, at, b), ref.schur_update_ref(c, at, b),
+                 c, at, b, torch.float64)
+    assert torch.equal(x, before)
+
+
+def test_lu_blocked_on_card_runs_the_schur_kernel(cuda):
+    from repro_torch.core.lu import lu_blocked
+
+    x = _dominant((256, 256), 6)
+    ops.reset_launches()
+    l, u = lu_blocked(torch.from_numpy(x).to(cuda), 64)
+    # 9 + 4 + 1 trailing updates, and one inner update in each of the four
+    # 64-wide diagonal tiles (two 32-wide panels each)
+    assert ops.LAUNCHES["schur_update"] == 9 + 4 + 1 + 4
+    l_cpu, u_cpu = lu_blocked(torch.from_numpy(x), 64)
+    _close(l.cpu(), l_cpu, 1e-10)
+    _close(u.cpu(), u_cpu, 1e-10)
+
+
+def test_threadpool_session_on_card_bit_equal_to_inline(cuda):
+    """Role split on the card: the thread pool's strips equal the fused
+    sweep's bit for bit, and the session verifies."""
+    from repro_torch.api import InlineTransport, SPDCClient, ThreadPoolTransport
+
+    m = _dominant((512, 512), 7)
+    session = SPDCClient().open_session(m, 4)
+    with ThreadPoolTransport() as tp:
+        l, u = session._assemble(tp.factor(session.tasks()))
+        result = session.run(tp)
+    l_inline, u_inline = InlineTransport().sweep(session.x_aug, 4)
+    assert torch.equal(l, l_inline) and torch.equal(u, u_inline)
+    assert result.verified

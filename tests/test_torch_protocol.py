@@ -20,6 +20,7 @@ from repro.core import lu as r_lu
 from repro.core import protocol as r_protocol
 from repro_torch import interop
 from repro_torch.api import SPDCClient
+from repro_torch.core.faults import ServerFault
 from repro_torch.core import lu as t_lu
 from repro_torch.core.decipher import Determinant, decipher, decipher_batch
 from repro_torch.core.verify import authenticate
@@ -246,9 +247,9 @@ def test_float32_protocol_verifies():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"recover": True}, "A8"),
-    ({"faults": ("plan",)}, "A8"),
+    ({"faults": ServerFault(server=1), "recover": True}, "A8"),
     ({"rateless": True}, "A9"),
-    ({"transport": "multiprocess"}, "A7"),
+    ({"transport": "shardmap"}, "A12"),
     ({"transport": "socket"}, "A9"),
     ({"distributed": True}, "A12"),
 ])
@@ -265,7 +266,7 @@ def test_mixed_size_list_raises():
 
 def test_lu_nserver_rejects_fault_plan_and_bad_partition():
     x = torch.from_numpy(_matrix(8, 0))
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(TypeError, match="ServerFault"):
         t_lu.lu_nserver(x, 2, faults=("plan",))
     with pytest.raises(ValueError):
         t_lu.lu_nserver(x, 3)
