@@ -35,12 +35,30 @@ Phases, each printed as one JSON line:
    sized from ε) must be rejected with the right culprit; the in-band
    tamper at its default magnitude, under q3 and q1, must get the verdict
    and culprit the JAX reference gives on the same matrix
-   (reference_fault_witness.py, WITNESS_REFERENCE).
+   (reference_fault_witness.py, WITNESS_REFERENCE);
+12. the flash-attention kernel against its plain version: the serving
+   path's prefill, q (4, 32, 2048, 64) and kv (4, 4, 2048, 64) as
+   (B, S, H, D) views, causal, and its decode, q (4, 32, 1, 64) over a
+   2048-long cache prefix, in bf16 and f32, then small window,
+   non-causal, ragged (50 / 77) and fully-masked (Sq > Sk) cases: within
+   1e-5 · max|v| in f32, and in bf16 every element within
+   2 eps |want| + eps/8 · max|v| and the whole within eps of ||want||
+   (FLASH_TOL says why);
+13. serve: tinyllama-1.1b at full width and depth in bf16, weights from
+   --seed on the card: `build_prefill_step` on 4 × 2048 prompts (finite
+   logits, 22 flash launches per call, warm time); 128 decode steps
+   against the prefill of the same 128 tokens in bf16 and in f32
+   (SERVE_TOL); the f32 card prefill (B = 1, S = 64) against the CPU's
+   plain prefill with the same weights; `greedy_generate` at the
+   launcher's defaults (4 × 16 prompts, 32 new tokens), the path's own
+   run, whose launches the kernels line reports; one warm prefill under
+   torch.profiler.
 
 Each phase is driven with the launch counts set to 0 just before it and
 read just after, and fails if a kernel of its path never launched. Then
-it prints the kernels line (launches on phase 3 — the Schur kernel's on
-phase 8 — error from phases 2 and 7, time per launch beside the plain
+it prints the whole run's wall time and the kernels line (launches on
+phase 3 — the Schur kernel's on phase 8, flash attention's on phase 13 —
+error from phases 2, 7 and 12, time per launch beside the plain
 version, the library call where one computes the same function, and the
 least time the card could take), the card's name and power limit, and
 last {"ok": true, "device": {...}}. All inputs come from --seed through
@@ -80,6 +98,7 @@ CLIENT_PATH = ("ced",)
 SERVER_PATH = ("lu_panel", "trsm_lower", "trsm_upper_right")
 MAIN_PATH = CLIENT_PATH + SERVER_PATH
 SEQUENTIAL_PATH = SERVER_PATH + ("schur_update",)
+SERVE_PATH = ("flash_attention",)
 #: the faults phase's witness case: witness_matrix(WITNESS_SEED, 4096)
 #: over N = 4 with server 2's in-band single tamper at its default
 #: magnitude, and per method the JAX reference's (verified, culprit) and
@@ -89,9 +108,38 @@ WITNESS_REFERENCE = {"q3": (True, -1), "q1": (True, -1)}
 WITNESS_X_AUG_SHA256 = (
     "25a2211c34be8f432df7a5980931f47993e3b3c2d3d82f0cb56ab52930e29589")
 #: the card's published peaks (H100 SXM data sheet): HBM bytes/s and the
-#: f64 (tensor core) and f32 operation rates
+#: f64 (tensor core), f32 and bf16 (tensor core, dense) operation rates
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {torch.float64: 67e12, torch.float32: 67e12}
+PEAK_OPS_S = {torch.float64: 67e12, torch.float32: 67e12,
+              torch.bfloat16: 989e12}
+#: flash attention against its plain version. Both sides accumulate in
+#: f32; they differ in summation order, in P where it is rounded to V's
+#: dtype (the kernel rounds exp(s - m) against the running max of each key
+#: tile, the plain version against the row's final max) and in the output's
+#: rounding. f32: max|err| <= 1e-5 * max|v|. bf16, with eps its machine
+#: epsilon 2^-7: every element within 2 eps |want| (two ulps of the
+#: output's rounding) + eps/8 * max|v| (P's rounding), and
+#: ||err|| <= eps ||want|| over the whole output, so an error in a large
+#: share of the outputs fails even where each is small. On the card the
+#: bf16 prefill read max|err| 0.0039, one ulp of an output in [0.5, 1).
+FLASH_TOL = {torch.float32: 1e-5}
+#: the serving path: the reference launcher's default model, the prefill
+#: batch, the decode-against-prefill length and the launcher's defaults
+SERVE_ARCH = "tinyllama-1.1b"
+PREFILL_BATCH, PREFILL_LEN = 4, 2048
+#: tinyllama-1.1b's query heads, kv heads and head dimension
+FLASH_HEADS = (32, 4, 64)
+CONSISTENCY_LEN = 128
+GEN_BATCH, GEN_PROMPT, GEN_STEPS = 4, 16, 32
+CPU_CHECK_LEN = 64
+#: last logits of two computations, on max|logits|. decode vs prefill in
+#: bf16: activations are rounded to 8 bits after every operation, and the
+#: two reach cuBLAS at other shapes (4 rows against 512), so they round
+#: differently and the difference passes through 22 residual layers; in
+#: f32 only summation order differs, so the bound is tight; the card's f32
+#: prefill against the CPU's plain one: summation order again
+SERVE_TOL = {"decode_vs_prefill_bf16": 5e-2, "decode_vs_prefill_f32": 1e-4,
+             "card_vs_cpu_f32": 1e-4}
 
 
 def emit(obj) -> None:
@@ -163,6 +211,15 @@ def device_ms(fn, reps: int) -> float:
 def timed(fn, reps: int) -> tuple[float, float]:
     """(device ms, event ms) per call."""
     return device_ms(fn, reps), event_ms(fn, reps)
+
+
+def counted(ops, fn):
+    """(result, launches of the call) without resetting the counts, so a
+    phase's totals keep accumulating."""
+    before = dict(ops.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in ops.LAUNCHES.items()}
 
 
 def bound_ms(nbytes: float, ops: float, dtype) -> tuple[float, str]:
@@ -505,7 +562,7 @@ def phase_sequential(rng, dev) -> dict:
                    "trsm_lower": nb * (panels - 1) + outer,
                    "trsm_upper_right": nb * (panels - 1) + outer,
                    "schur_update": sum(k * k for k in range(nb))
-                   + nb * (panels - 1)}
+                   + nb * (panels - 1), "flash_attention": 0}
     check(launches == want_counts, f"sequential launches {launches}")
     ln, un, _ = lu_nserver(x, N_SERVERS)
     dl = float((l - ln).abs().max())
@@ -797,6 +854,231 @@ def phase_profile(rng) -> None:
           "top_device_ms": {k: {"ms": v[0], "count": v[1]} for k, v in top}})
 
 
+def flash_inputs(rng, dev, dtype, b, hq, hkv, sq, sk, d, cache_len=None):
+    """q, k, v as the serving path passes them: (B, H, S, D) views of
+    (B, S, H, D) tensors; with cache_len, k and v are the first sk slots
+    of a (B, cache_len, Hkv, D) cache."""
+    def draw(shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(dev, dtype)
+
+    q = draw((b, sq, hq, d)).transpose(1, 2)
+    length = cache_len or sk
+    k = draw((b, length, hkv, d))[:, :sk].transpose(1, 2)
+    v = draw((b, length, hkv, d))[:, :sk].transpose(1, 2)
+    return q, k, v
+
+
+def phase_flash(rng, dev) -> float:
+    """The flash kernel against its plain version; returns the largest
+    error over the cases."""
+    from repro_torch.kernels import ops, ref
+
+    (hq, hkv, d), b, s = FLASH_HEADS, PREFILL_BATCH, PREFILL_LEN
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += [("prefill", dtype, (b, hq, hkv, s, s, d), {"causal": True}),
+                  ("decode over a cache prefix", dtype,
+                   (b, hq, hkv, 1, s, d, s + 128), {"causal": True})]
+    cases += [("window 40", torch.bfloat16, (1, 4, 1, 200, 200, d),
+               {"causal": True, "window": 40}),
+              ("non-causal", torch.bfloat16, (1, 4, 4, 128, 128, d),
+               {"causal": False}),
+              ("ragged 50 / 77", torch.float32, (2, 4, 2, 50, 77, d),
+               {"causal": True}),
+              ("fully masked rows, Sq 8 > Sk 4", torch.float32,
+               (1, 4, 2, 8, 4, d), {"causal": True})]
+    worst = 0.0
+    for label, dtype, shape, kw in cases:
+        q, k, v = flash_inputs(rng, dev, dtype, *shape)
+        got = ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        reading = flash_compare(got, want, v)
+        line = {"phase": "kernel_vs_plain", "kernel": "flash_attention",
+                "case": label, "dtype": str(dtype), "q": list(q.shape),
+                "kv": list(k.shape), **kw, **reading}
+        if label.startswith("fully masked"):
+            mean = v.float().mean(dim=2, keepdim=True)
+            mean = mean.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+            rows = q.shape[2] - k.shape[2]
+            line["masked_rows_vs_mean_of_v"] = float(
+                (got[:, :, :rows].float() - mean).abs().max())
+            check(line["masked_rows_vs_mean_of_v"]
+                  <= FLASH_TOL[dtype] * reading["max_abs_v"],
+                  "fully masked rows are not the mean of V")
+        emit(line)
+        check(reading["within"], f"flash_attention {label} {dtype}: {reading}")
+        worst = max(worst, reading["max_abs_err"])
+    return worst
+
+
+def flash_compare(got, want, v) -> dict:
+    """The flash kernel's output against its plain version's, read and
+    judged by FLASH_TOL's rule for the dtype."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    max_v = float(v.float().abs().max())
+    out = {"max_abs_err": float(err.max()), "max_abs_v": max_v,
+           "median_abs_want": float(want.abs().median())}
+    if v.dtype == torch.float32:
+        out["tolerance"] = f"{FLASH_TOL[v.dtype]} * max|v|"
+        out["within"] = out["max_abs_err"] <= FLASH_TOL[v.dtype] * max_v
+        return out
+    eps = torch.finfo(v.dtype).eps
+    bound = 2 * eps * want.abs() + eps / 8 * max_v
+    out.update(
+        rel_norm_err=float(err.norm() / want.norm()),
+        worst_of_elementwise_bound=float((err / bound).max()),
+        tolerance=f"|err| <= 2 eps |want| + eps/8 max|v| and "
+                  f"||err|| <= eps ||want||, eps {eps}")
+    out["within"] = (out["worst_of_elementwise_bound"] <= 1
+                     and out["rel_norm_err"] <= eps)
+    return out
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor, vocab: int) -> float:
+    """max |got − want| over max |want|, on the real vocabulary."""
+    got, want = got[:, :vocab].float(), want[:, :vocab].float()
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def decode_against_prefill(ops, model, cfg, tokens) -> dict:
+    """Decode the tokens one by one from empty caches; the last logits
+    against the prefill of the same tokens."""
+    from repro_torch.serve.kvcache import init_caches
+    from repro_torch.serve.steps import build_decode_step, build_prefill_step
+
+    b, s = tokens.shape
+    want = build_prefill_step(cfg)(model, {"tokens": tokens})
+    caches = init_caches(cfg, b, s, device=tokens.device)
+    decode = build_decode_step(cfg)
+
+    def run():
+        logits = None
+        for t in range(s):
+            pos = torch.full((b,), t, dtype=torch.int32, device=tokens.device)
+            logits, _ = decode(model, caches, {"tokens": tokens[:, t:t + 1]}, pos)
+        return logits
+
+    (got, launches), seconds = wall(lambda: counted(ops, run))
+    check(launches["flash_attention"] == cfg.num_layers * s,
+          f"decode flash launches {launches['flash_attention']}")
+    return {"rel_err": rel_err(got, want, cfg.vocab_size),
+            "max_abs_logits": float(want[:, :cfg.vocab_size].abs().max()),
+            "decode_steps": s, "decode_s": seconds}
+
+
+def phase_serve(rng, dev, seed: int) -> dict:
+    """LM serving of tinyllama-1.1b at full width and depth on the card."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.steps import build_prefill_step, greedy_generate
+    from repro_torch.train.data import SyntheticLM
+
+    ops.reset_launches()
+    phase_t0 = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    model, init_s = wall(lambda: init_lm(cfg, seed, device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    data = SyntheticLM(cfg, seed=seed)
+    prompts = data.batch(0, PREFILL_BATCH, PREFILL_LEN)["tokens"].to(dev)
+    prefill = build_prefill_step(cfg)
+    batch = {"tokens": prompts}
+    (logits, launches), cold_s = wall(lambda: counted(ops, lambda: prefill(model, batch)))
+    check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          "prefill logits are not finite")
+    check(launches["flash_attention"] == cfg.num_layers,
+          f"prefill flash launches {launches['flash_attention']}")
+    warm = [wall(lambda: prefill(model, batch))[1] for _ in range(3)]
+    warm_s = float(np.median(warm))
+
+    bf16 = decode_against_prefill(ops, model, cfg, prompts[:, :CONSISTENCY_LEN])
+    check(bf16["rel_err"] <= SERVE_TOL["decode_vs_prefill_bf16"],
+          f"bf16 decode vs prefill: {bf16['rel_err']}")
+
+    # the launcher's run, with the counts set to 0 just before it: the
+    # main path's launches, which the kernels line reports
+    gen_prompts = data.batch(1, GEN_BATCH, GEN_PROMPT)["tokens"].to(dev)
+    (out, gen_launches), gen_s = wall(lambda: run_counted(
+        ops, lambda: greedy_generate(cfg, model, gen_prompts, GEN_STEPS)))
+    check(tuple(out.shape) == (GEN_BATCH, GEN_PROMPT + GEN_STEPS),
+          f"greedy output shape {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "greedy tokens outside the vocabulary")
+    gen_decode_steps = GEN_PROMPT + GEN_STEPS - 1
+    check(gen_launches["flash_attention"] == cfg.num_layers * gen_decode_steps,
+          f"greedy flash launches {gen_launches['flash_attention']}")
+
+    profile = serve_profile(model, prefill, batch)
+    del model
+    torch.cuda.empty_cache()
+
+    cfg32 = replace(cfg, activation_dtype="float32", params_dtype="float32")
+    model32 = init_lm(cfg32, seed, device=dev)
+    f32 = decode_against_prefill(ops, model32, cfg32, prompts[:, :CONSISTENCY_LEN])
+    check(f32["rel_err"] <= SERVE_TOL["decode_vs_prefill_f32"],
+          f"f32 decode vs prefill: {f32['rel_err']}")
+    short = prompts[:1, :CPU_CHECK_LEN]
+    on_card, card_launches = counted(
+        ops, lambda: build_prefill_step(cfg32)(model32, {"tokens": short}))
+    check(card_launches["flash_attention"] == cfg.num_layers,
+          f"f32 prefill flash launches {card_launches['flash_attention']}")
+    model32.cpu()
+    torch.cuda.empty_cache()
+    on_cpu, cpu_s = wall(lambda: build_prefill_step(cfg32)(
+        model32, {"tokens": short.cpu()}))
+    card_vs_cpu = rel_err(on_card.cpu(), on_cpu, cfg.vocab_size)
+    check(card_vs_cpu <= SERVE_TOL["card_vs_cpu_f32"],
+          f"f32 card vs CPU prefill: {card_vs_cpu}")
+    del model32
+
+    emit({"phase": "serve", "arch": SERVE_ARCH, "params": n_params,
+          "dtype": cfg.activation_dtype, "init_s": init_s,
+          "prefill": {"batch": PREFILL_BATCH, "prompt": PREFILL_LEN,
+                      "cold_s": cold_s, "warm_s": warm_s, "warm_runs_s": warm,
+                      "tokens_per_s": PREFILL_BATCH * PREFILL_LEN / warm_s,
+                      "flash_launches_per_call": cfg.num_layers},
+          "decode_vs_prefill": {"bf16": bf16, "f32": f32,
+                                "tolerance": {k: v for k, v in SERVE_TOL.items()
+                                              if k.startswith("decode")}},
+          "card_vs_cpu_f32": {"batch": 1, "prompt": CPU_CHECK_LEN,
+                              "rel_err": card_vs_cpu, "cpu_s": cpu_s,
+                              "tolerance": SERVE_TOL["card_vs_cpu_f32"]},
+          "greedy": {"batch": GEN_BATCH, "prompt": GEN_PROMPT,
+                     "generated": GEN_STEPS, "seconds": gen_s,
+                     "tokens_per_s": GEN_BATCH * GEN_STEPS / gen_s,
+                     "decode_steps": gen_decode_steps,
+                     "flash_launches": gen_launches["flash_attention"],
+                     "sample": out[0, :24].tolist()},
+          "launches": gen_launches, "phase_s": time.perf_counter() - phase_t0})
+    emit(profile)
+    return gen_launches
+
+
+def serve_profile(model, prefill, batch) -> dict:
+    """One warm prefill under torch.profiler: the card's busy share and
+    its device time by kernel."""
+    events, host_s = device_events(lambda: prefill(model, batch), 1)
+    check(bool(events), "the profiler recorded no device activity")
+    by_kernel: dict[str, list] = {}
+    for evt in events:
+        entry = by_kernel.setdefault(short_name(evt.name), [0.0, 0])
+        entry[0] += evt.time_range.elapsed_us() / 1e3
+        entry[1] += 1
+    busy_ms = sum(ms for ms, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"phase": "serve_profile", "arch": SERVE_ARCH,
+            "batch": PREFILL_BATCH, "prompt": PREFILL_LEN,
+            "wall_ms": host_s * 1e3, "device_ms": busy_ms,
+            "device_busy_share": busy_ms / (host_s * 1e3),
+            "device_launches": sum(c for _, c in by_kernel.values()),
+            "top_device_ms": {k: {"ms": v[0], "count": v[1]} for k, v in top}}
+
+
 # ---------------------------------------------------------------------------
 def kernels_line(rng, dev, launches: dict, errs: dict) -> dict:
     """Time each kernel, its plain version and the library call at the
@@ -808,14 +1090,15 @@ def kernels_line(rng, dev, launches: dict, errs: dict) -> dict:
     entries: list[dict] = []
 
     def row(name, source, replaces, shape, kernel, plain, library, reps,
-            plain_reps, nbytes, ops_count, **extra):
-        bound, by = bound_ms(nbytes, ops_count, f64)
+            plain_reps, nbytes, ops_count, dtype=f64, **extra):
+        bound, by = bound_ms(nbytes, ops_count, dtype)
         ms, kernel_event = timed(kernel, reps)
         plain_ms, plain_event = timed(plain, plain_reps)
         lib_ms, lib_event = timed(library, reps) if library else (None, None)
         entries.append({
             "name": name, "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": replaces, "shape": shape, "ms": ms,
+            "replaces": replaces, "shape": shape,
+            "dtype": str(dtype).removeprefix("torch."), "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
             "bound_by": by,
             "event_ms": {"kernel": kernel_event, "plain": plain_event,
@@ -882,6 +1165,35 @@ def kernels_line(rng, dev, launches: dict, errs: dict) -> dict:
                     "bound_ms": batch_bound[0], "bound_by": batch_bound[1]},
         note="launches from the sequential phase (lu_blocked); "
              "FMA pipes, no tensor cores")
+
+    # attention at the serving path's prefill and decode shapes, bf16
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    bf16 = torch.bfloat16
+    (hq, hkv, d), fb, s = FLASH_HEADS, PREFILL_BATCH, PREFILL_LEN
+    q, k, v = flash_inputs(rng, dev, bf16, fb, hq, hkv, s, s, d)
+    qd, kd, vd = flash_inputs(rng, dev, bf16, fb, hq, hkv, 1, s, d, s + 128)
+    decode_bytes = 2 * (2 * fb * hq * d + 2 * fb * hkv * s * d)
+    decode_bound = bound_ms(decode_bytes, 4 * fb * hq * s * d, bf16)
+    decode_ms, decode_event = timed(lambda: ops.flash_attention(qd, kd, vd), 50)
+    row("flash_attention", "flash_attn.cu", "src/repro/kernels/flash_attn.py:79",
+        [fb, hq, s, d], lambda: ops.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True),
+        lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10, 3,
+        2 * (2 * fb * hq * s * d + 2 * fb * hkv * s * d),
+        2 * fb * hq * s * s * d, dtype=bf16,
+        kv_shape=[fb, hkv, s, d],
+        decode_case={
+            "q": [fb, hq, 1, d], "kv_prefix": [fb, hkv, s, d],
+            "ms": decode_ms, "event_ms": decode_event,
+            "plain_ms": timed(lambda: ref.flash_attention_ref(qd, kd, vd), 10)[0],
+            "library_ms": timed(lambda: sdpa(qd, kd, vd, enable_gqa=True), 50)[0],
+            "bound_ms": decode_bound[0], "bound_by": decode_bound[1]},
+        note="launches from the serve phase's greedy_generate run (22 "
+             "layers x 47 decode steps); causal prefill counted at half "
+             "of 4·B·Hq·S²·D; FMA pipes, no tensor cores; the library call "
+             "(scaled_dot_product_attention) is a yardstick the port never "
+             "calls")
     for e in entries:
         e.update(route="cuda", launches=launches[e["name"]],
                  max_abs_err=errs[e["name"]])
@@ -899,6 +1211,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import repro_torch  # noqa: F401 — fails outside a checkout of the repo
 
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(args.seed)
@@ -921,13 +1234,18 @@ def main() -> int:
     # the workers launch the server kernels in their own processes
     per_phase["multiprocess"] = (phase_multiprocess(rng, dev), CLIENT_PATH)
     per_phase["faults"] = (phase_faults(rng), MAIN_PATH)
+    errs["flash_attention"] = phase_flash(rng, dev)
+    per_phase["serve"] = (phase_serve(rng, dev, args.seed), SERVE_PATH)
     for phase, (launches, path) in per_phase.items():
         for name in path:
             check(launches[name] > 0, f"{name} never launched in phase {phase}")
     phase_profile(rng)
     launches = dict(per_phase["single"][0])
     launches["schur_update"] = per_phase["sequential"][0]["schur_update"]
-    emit(kernels_line(rng, dev, launches, errs))
+    launches["flash_attention"] = per_phase["serve"][0]["flash_attention"]
+    line = kernels_line(rng, dev, launches, errs)
+    emit({"phase": "run", "wall_s": time.perf_counter() - started})
+    emit(line)
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -14,13 +14,14 @@ import torch
 
 from . import ref
 from .ced import ced_cuda
+from .flash_attn import check_operands, flash_attention_cuda
 from .lu_panel import lu_panel_cuda
 from .schur import schur_update_cuda
 from .trsm import trsm_lower_cuda, trsm_upper_right_cuda
 
 LAUNCHES: dict[str, int] = {
     "ced": 0, "lu_panel": 0, "trsm_lower": 0, "trsm_upper_right": 0,
-    "schur_update": 0,
+    "schur_update": 0, "flash_attention": 0,
 }
 
 
@@ -93,3 +94,19 @@ def schur_update(c: torch.Tensor, a: torch.Tensor,
         LAUNCHES["schur_update"] += 1
         return out
     return ref.schur_update_ref(c, a, b)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Blockwise online-softmax attention (GQA-aware): q (B, Hq, Sq, D),
+    k and v (B, Hkv, Sk, D) at any (batch, head, seq) strides; query rows
+    right-aligned to the keys; scale defaults to D^-½."""
+    if _on_cuda(q, k, v):
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+        LAUNCHES["flash_attention"] += 1
+        return out
+    check_operands(q, k, v, window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)

@@ -69,3 +69,42 @@ def schur_update_ref(c: torch.Tensor, a: torch.Tensor,
     if c.dtype in (torch.bfloat16, torch.float16):
         return (c.float() - a.float() @ b.float()).to(c.dtype)
     return c - a @ b
+
+
+#: the masked-score sentinel of the reference's kernel (flash_attn.py:23)
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """softmax(QKᵀ·scale + mask)·V in the flash kernel's arithmetic.
+
+    q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), any strides; the kv head of
+    query head h is h // (Hq / Hkv). Query row i sits at position
+    i + Sk − Sq (right-aligned, so decode works); `causal` masks keys
+    after it, `window` keys at or before qpos − window. Scores are f32,
+    masked ones get the −1e30 sentinel, the unnormalised probabilities
+    exp(s − max) are cast to V's dtype before the f32 product with V, and
+    the sum is divided by the f32 row sum, then cast to q's dtype. A row
+    with every key masked (causal with Sq > Sk) therefore gets the mean of
+    V over the Sk keys, as the reference's Pallas kernel gives it."""
+    _, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    kk = k.repeat_interleave(g, dim=1).float()
+    vv = v.repeat_interleave(g, dim=1)
+    s = torch.matmul(q.float(), kk.transpose(-1, -2)) * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(p.to(v.dtype).float(), vv.float())
+    return (o / p.sum(dim=-1, keepdim=True)).to(q.dtype)

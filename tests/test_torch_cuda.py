@@ -11,7 +11,15 @@ Tolerances: CED bit for bit; the panel LU and the triangular solves within
 1e-12 of max|plain| (the same arithmetic, another FMA contraction and
 summation order); the Schur update within tol · (max|C| + K·max|A|·max|B|),
 tol 1e-12 in f64, 1e-4 in f32 and 1e-2 in bf16/f16 (K products summed in
-another order, and the narrow types round the stored output).
+another order, and the narrow types round the stored output); flash
+attention within 1e-5 · max|v| in f32, and in bf16/f16, with eps the
+type's machine epsilon, every element within 2 eps |want| (two ulps of
+the output's rounding) + eps/8 · max|v| (P's rounding: the kernel rounds
+exp(s − m) against each key tile's running max, the plain version against
+the row's final max) and the whole within ||err|| <= eps ||want||, so an
+error in a large share of the outputs fails even where each is small
+(both sides accumulate in f32; chip_smoke.py's bf16 prefill read max|err|
+0.0039, one ulp of an output in [0.5, 1)).
 """
 import numpy as np
 import pytest
@@ -211,3 +219,120 @@ def test_threadpool_session_on_card_bit_equal_to_inline(cuda):
     l_inline, u_inline = InlineTransport().sweep(session.x_aug, 4)
     assert torch.equal(l, l_inline) and torch.equal(u, u_inline)
     assert result.verified
+
+
+#: flash attention in f32: tolerance on max|v| (see the module docstring;
+#: bf16/f16 are held to their machine epsilon there)
+FLASH_TOL = {torch.float32: 1e-5}
+
+
+def _qkv(cuda, b, hq, hkv, sq, sk, d, dtype, seed=0, layout="bhsd"):
+    """q (b, hq, sq, d), k and v (b, hkv, sk, d); with layout "bshd" each
+    is the (B, H, S, D) view of a (B, S, H, D) tensor, as the model
+    passes its projections."""
+    rng = np.random.default_rng(seed)
+
+    def draw(h, s):
+        if layout == "bshd":
+            x = torch.from_numpy(rng.standard_normal((b, s, h, d)))
+            return x.to(cuda, dtype).transpose(1, 2)
+        return torch.from_numpy(rng.standard_normal((b, h, s, d))).to(cuda, dtype)
+
+    return draw(hq, sq), draw(hkv, sk), draw(hkv, sk)
+
+
+def _flash_close(q, k, v, **kw):
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    assert got.shape == want.shape and got.dtype == q.dtype
+    err = (got.float() - want.float()).abs()
+    max_v = float(v.float().abs().max())
+    if q.dtype == torch.float32:
+        assert float(err.max()) <= FLASH_TOL[q.dtype] * max_v, float(err.max())
+        return got
+    eps = torch.finfo(q.dtype).eps
+    bound = 2 * eps * want.float().abs() + eps / 8 * max_v
+    assert bool((err <= bound).all()), float((err / bound).max())
+    rel = float(err.norm() / want.float().norm())
+    assert rel <= eps, rel
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,causal,window", [
+    (2, 8, 2, 300, 300, 64, True, None),
+    (1, 4, 4, 128, 128, 64, False, None),
+    (1, 4, 1, 200, 200, 128, True, 40),
+    (2, 2, 2, 50, 77, 80, True, None),
+    (1, 2, 1, 77, 50, 16, True, None),
+    (1, 2, 2, 65, 65, 256, False, 24),
+    (2, 32, 4, 1, 333, 64, True, None),
+    (1, 4, 2, 9, 100, 8, True, 8),
+], ids=["gqa-causal", "non-causal", "window", "ragged", "fully-masked",
+        "d256-window", "decode", "d8-short"])
+def test_flash_kernel_matches_plain(cuda, dtype, b, hq, hkv, sq, sk, d,
+                                    causal, window):
+    q, k, v = _qkv(cuda, b, hq, hkv, sq, sk, d, dtype, seed=sq + d)
+    _flash_close(q, k, v, causal=causal, window=window)
+
+
+def test_flash_kernel_fully_masked_rows_are_mean_of_v(cuda):
+    """Causal with Sq > Sk: the first Sq − Sk rows see no key, and the
+    Pallas kernel gives them the mean of V."""
+    q, k, v = _qkv(cuda, 1, 2, 1, 8, 4, 16, torch.float32, seed=4)
+    got = _flash_close(q, k, v, causal=True)
+    mean = v.float().mean(dim=2, keepdim=True).expand(1, 2, 4, 16)
+    assert torch.allclose(got[:, :, :4], mean, atol=1e-6)
+
+
+def test_flash_kernel_takes_model_views_and_cache_prefix(cuda):
+    """(B, S, H, D) projections as (B, H, S, D) views, and decode over a
+    prefix of a (B, L, Hkv, D) cache, with no copy; the operands stay."""
+    q, k, v = _qkv(cuda, 2, 8, 2, 96, 96, 64, torch.bfloat16, layout="bshd")
+    before = [t.clone() for t in (q, k, v)]
+    out = _flash_close(q, k, v, causal=True)
+    assert out.transpose(1, 2).is_contiguous()  # laid out as q is
+    assert all(torch.equal(a, t) for a, t in zip(before, (q, k, v)))
+    cache = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 128, 2, 64))).to(cuda, torch.bfloat16)
+    qd = q[:, :, :1]
+    _flash_close(qd, cache[:, :70].transpose(1, 2),
+                 cache[:, :70].transpose(1, 2).flip(-1).contiguous(),
+                 causal=True)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 2, 1, 8, 8, 16, torch.float32)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError):
+        ops.flash_attention(q[..., :12], k[..., :12], v[..., :12])
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.transpose(2, 3), v)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.cpu(), v)
+
+
+def test_serve_path_on_card_matches_cpu(cuda):
+    """Prefill and greedy generation of the smoke tinyllama on the card,
+    against the plain path on the CPU with the same weights, in f32."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.steps import build_prefill_step, greedy_generate
+
+    cfg = smoke_config("tinyllama-1.1b")
+    model = init_lm(cfg, 0, device=cuda)
+    cpu_model = init_lm(cfg, 0, device="cpu")
+    cpu_model.load_state_dict({n: t.cpu() for n, t in model.state_dict().items()})
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32))
+    ops.reset_launches()
+    got = build_prefill_step(cfg)(model, {"tokens": toks.to(cuda)})
+    assert ops.LAUNCHES["flash_attention"] == cfg.num_layers
+    want = build_prefill_step(cfg)(cpu_model, {"tokens": toks})
+    got, want = got.cpu()[:, :cfg.vocab_size], want[:, :cfg.vocab_size]
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    out = greedy_generate(cfg, model, toks[:, :8].to(cuda), 8)
+    assert torch.equal(out.cpu(), greedy_generate(cfg, cpu_model, toks[:, :8], 8))

@@ -23,6 +23,7 @@ from repro_torch.core import keygen as t_keygen
 from repro_torch.core import seed as t_seed
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.ced import ced_cuda
+from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.kernels.lu_panel import lu_panel_cuda, max_tile
 from repro_torch.kernels.trsm import trsm_lower_cuda, trsm_upper_right_cuda
 
@@ -204,6 +205,9 @@ def test_trsm_refs_read_only_their_triangle():
 def test_dispatch_counts_no_launch_on_cpu():
     ops.reset_launches()
     ops.lu_panel(torch.from_numpy(_dominant((8, 8), 0)))
+    q = torch.from_numpy(_rand((1, 2, 4, 8), 1)).float()
+    ops.flash_attention(q, q, q)
+    assert "flash_attention" in ops.LAUNCHES
     assert all(v == 0 for v in ops.LAUNCHES.values())
 
 
@@ -213,7 +217,8 @@ def test_dispatch_counts_no_launch_on_cpu():
     lambda t: lu_panel_cuda(t),
     lambda t: trsm_lower_cuda(t, t),
     lambda t: trsm_upper_right_cuda(t, t),
-], ids=["ced", "lu_panel", "trsm_lower", "trsm_upper_right"])
+    lambda t: flash_attention_cuda(*(t.float()[None, None],) * 3),
+], ids=["ced", "lu_panel", "trsm_lower", "trsm_upper_right", "flash_attention"])
 def test_kernel_wrappers_refuse_cpu_tensors(launch):
     """A wrapper launches its kernel or raises; only ops routes CPU
     tensors to the plain versions."""
@@ -227,6 +232,11 @@ def test_dispatch_refuses_mixed_and_unknown_devices():
         ops.trsm_lower(cpu, torch.eye(4, dtype=torch.float64, device="meta"))
     with pytest.raises(ValueError):
         ops.lu_panel(torch.eye(4, dtype=torch.float64, device="meta"))
+    q = torch.zeros(1, 2, 4, 8)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, q.to("meta"), q)
+    with pytest.raises(ValueError):
+        ops.flash_attention(*(q.to("meta"),) * 3)
 
 
 def test_max_tile_fits_shared_memory():
