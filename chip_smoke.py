@@ -39,8 +39,11 @@ Phases, each printed as one JSON line:
 12. the flash-attention kernel against its plain version: the serving
    path's prefill, q (4, 32, 2048, 64) and kv (4, 4, 2048, 64) as
    (B, S, H, D) views, causal, and its decode, q (4, 32, 1, 64) over a
-   2048-long cache prefix, in bf16 and f32, then small window,
-   non-causal, ragged (50 / 77) and fully-masked (Sq > Sk) cases: within
+   2048-long cache prefix, in bf16 and f32 (bf16 decode packs each GQA
+   group into one block and splits the keys into chunks, then merges
+   them), decode with a 40-key window inside the last chunk, then small
+   window, non-causal, ragged (50 / 77) and fully-masked (Sq > Sk) cases:
+   within
    1e-5 · max|v| in f32, and in bf16 every element within
    2 eps |want| + eps/8 · max|v| and the whole within eps of ||want||
    (FLASH_TOL says why);
@@ -60,7 +63,12 @@ it prints the whole run's wall time and the kernels line (launches on
 phase 3 — the Schur kernel's on phase 8, flash attention's on phase 13 —
 error from phases 2, 7 and 12, time per launch beside the plain
 version, the library call where one computes the same function, and the
-least time the card could take), the card's name and power limit, and
+least time the card could take; the CUDA launches one wrapper call
+made, counted from the profiler's device events and, for the triangular
+solves and flash attention, checked against the wrappers' own formulas;
+and the panel loop's 32 x 992 strips as the trsm rows' strip_case, with
+the strip calls counted on phase 3, which the inner_strip_times line
+prints first), the card's name and power limit, and
 last {"ok": true, "device": {...}}. All inputs come from --seed through
 numpy. Any failed check raises, so the script exits non-zero and prints
 no last line; it does so too without a CUDA device or without the
@@ -142,6 +150,11 @@ SERVE_TOL = {"decode_vs_prefill_bf16": 5e-2, "decode_vs_prefill_f32": 1e-4,
              "card_vs_cpu_f32": 1e-4}
 
 
+#: device_events' padding before a timed loop: launches and seconds
+WARM_LAUNCHES, WARM_PAUSE_S = 64, 0.01
+TIMED_RANGE = "chip_smoke.timed"
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -184,28 +197,56 @@ def short_name(name: str) -> str:
 
 def device_events(fn, reps: int):
     """(device events, host seconds) of `reps` calls under torch.profiler,
-    after one warm-up call."""
-    from torch.profiler import ProfilerActivity, profile
+    after one warm-up call. Started cold, CUDA activity tracing misses
+    the first launches of a window (1 or 2, and 57 of 100 short ones, on
+    an H100), which would read as a shorter call: so the window opens
+    with WARM_LAUNCHES one-element fills and a pause, and only the
+    device events after the timed loop's start are kept."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
+    pad = torch.empty(1, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+        for _ in range(WARM_LAUNCHES):
+            pad.fill_(0.0)
         torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+        time.sleep(WARM_PAUSE_S)
+        with record_function(TIMED_RANGE):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    everything = prof.events()
+    opened = min(e.time_range.start for e in everything
+                 if e.name == TIMED_RANGE and e.device_type != cuda)
+    # half the pause: the fills ended a whole pause before the range opened
+    after = opened - WARM_PAUSE_S * 1e6 / 2
+    events = [e for e in everything if e.device_type == cuda
+              and e.name != TIMED_RANGE and e.time_range.start >= after]
     return events, host_s
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time per call: the summed duration of every kernel and copy
-    the call put on the card (torch.profiler), averaged over `reps`."""
+def device_profile(fn, reps: int) -> tuple[float, int, float]:
+    """(device ms, device launches, device events) per call over `reps`
+    calls under torch.profiler; the events are every kernel and copy the
+    calls put on the card. Should the profiler still miss an event, the
+    launches are the events per call rounded, and the ms the mean
+    event's duration times the launches, so the call does not look
+    faster."""
     events, _ = device_events(fn, reps)
     check(bool(events), "the profiler recorded no device activity")
-    return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3
+    per_call = len(events) / reps
+    launches = max(1, round(per_call))
+    mean_us = sum(e.time_range.elapsed_us() for e in events) / len(events)
+    return mean_us * launches / 1e3, launches, per_call
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call (device_profile)."""
+    return device_profile(fn, reps)[0]
 
 
 def timed(fn, reps: int) -> tuple[float, float]:
@@ -369,19 +410,47 @@ def run_counted(ops, fn):
     return out, dict(ops.LAUNCHES)
 
 
+def trsm_launches_by_rows(ops, fn):
+    """(fn's result, {wrapper: {triangle rows: launches}}): the two TRSM
+    wrappers' launches during fn, keyed by the size of their triangle.
+    The wrappers are swapped for counting ones for the call only."""
+    tally: dict[str, dict[int, int]] = {}
+    saved = {name: getattr(ops, name) for name in ("trsm_lower", "trsm_upper_right")}
+
+    def counting(name, wrapper):
+        def call(tri, rhs):
+            before = ops.LAUNCHES[name]
+            out = wrapper(tri, rhs)
+            rows = tally.setdefault(name, {})
+            rows[tri.shape[-1]] = (rows.get(tri.shape[-1], 0)
+                                   + ops.LAUNCHES[name] - before)
+            return out
+        return call
+
+    for name, wrapper in saved.items():
+        setattr(ops, name, counting(name, wrapper))
+    try:
+        return fn(), tally
+    finally:
+        for name, wrapper in saved.items():
+            setattr(ops, name, wrapper)
+
+
 def timings(res) -> dict:
     t = res.report.timings
     return {"pmop_s": t.pmop_s, "dispatch_s": t.dispatch_s,
             "collect_s": t.collect_s, "total_s": t.total_s}
 
 
-def phase_single(rng, dev) -> dict:
+def phase_single(rng, dev) -> tuple[dict, dict]:
+    """Launches of the main path's run, and the TRSM wrappers' launches
+    on the panel loop's INNER-row triangles (the strips)."""
     import repro_torch
     from repro_torch.kernels import ops
 
     m = dominant(rng, (SINGLE_N, SINGLE_N))
-    res, launches = run_counted(
-        ops, lambda: repro_torch.outsource_determinant(m, N_SERVERS))
+    (res, by_rows), launches = run_counted(ops, lambda: trsm_launches_by_rows(
+        ops, lambda: repro_torch.outsource_determinant(m, N_SERVERS)))
     want = slogdet_det(torch.from_numpy(m).to(dev))
     check(res.verified, f"single n={SINGLE_N} verified")
     check(res.det.allclose(want), f"single det {res.det} vs {want}")
@@ -389,6 +458,12 @@ def phase_single(rng, dev) -> dict:
     check(launches["ced"] == 1, f"ced launches {launches['ced']}")
     for name, count in want_counts.items():
         check(launches[name] == count, f"{name} launches {launches[name]} != {count}")
+    strips = {}
+    for name, rows in by_rows.items():
+        check(sum(rows.values()) == launches[name], f"{name} by rows {rows}")
+        strips[name] = rows.get(INNER, 0)
+        check(strips[name] == N_SERVERS * (SINGLE_N // N_SERVERS // INNER - 1),
+              f"{name} strips {strips[name]}")
     others = {}
     for method in ("q1", "q2"):
         r = repro_torch.outsource_determinant(m, N_SERVERS, method=method)
@@ -404,9 +479,10 @@ def phase_single(rng, dev) -> dict:
           "eps": res.report.verdict.eps,
           "logabs": res.det.logabs, "slogdet_logabs": want.logabs,
           "sign": res.det.sign, "launches": launches,
-          "expected_launches": want_counts, "q1_q2": others,
+          "expected_launches": want_counts,
+          "trsm_launches_by_triangle_rows": by_rows, "q1_q2": others,
           "warm_wall_s": wall, "warm_timings": timings(warm)})
-    return launches
+    return launches, strips
 
 
 def phase_batch(rng, dev) -> dict:
@@ -880,7 +956,9 @@ def phase_flash(rng, dev) -> float:
         cases += [("prefill", dtype, (b, hq, hkv, s, s, d), {"causal": True}),
                   ("decode over a cache prefix", dtype,
                    (b, hq, hkv, 1, s, d, s + 128), {"causal": True})]
-    cases += [("window 40", torch.bfloat16, (1, 4, 1, 200, 200, d),
+    cases += [("decode, window 40 inside the last chunk", torch.bfloat16,
+               (b, hq, hkv, 1, s, d, s + 128), {"causal": True, "window": 40}),
+              ("window 40", torch.bfloat16, (1, 4, 1, 200, 200, d),
                {"causal": True, "window": 40}),
               ("non-causal", torch.bfloat16, (1, 4, 4, 128, 128, d),
                {"causal": False}),
@@ -1080,29 +1158,52 @@ def serve_profile(model, prefill, batch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-def kernels_line(rng, dev, launches: dict, errs: dict) -> dict:
+def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict) -> dict:
     """Time each kernel, its plain version and the library call at the
-    phase-3 shapes, beside its bound."""
-    from repro_torch.kernels import ops, ref
+    phase-3 shapes, beside its bound; `strips` holds phase 3's strip
+    launches of each TRSM wrapper."""
+    from repro_torch.kernels import flash_attn, ops, ref, trsm
 
     f64 = torch.float64
     n, b = SINGLE_N, SINGLE_N // N_SERVERS
     entries: list[dict] = []
 
-    def row(name, source, replaces, shape, kernel, plain, library, reps,
-            plain_reps, nbytes, ops_count, dtype=f64, **extra):
+    def case(kernel, plain, library, reps, plain_reps, nbytes, ops_count,
+             dtype=f64, expect_launches=None) -> dict:
+        """Device ms and CUDA launches per call of the kernel, the ms of
+        its plain version and the library call at one shape, beside the
+        bound; CUDA-event times in event_ms. The launches are the
+        profiled calls' device events per call, rounded, and held to
+        `expect_launches` (the wrapper's formula) where given. Should
+        the profiler still miss an event, a wrapper off its formula is
+        off on every call, so at most a quarter of the calls may lack
+        one."""
         bound, by = bound_ms(nbytes, ops_count, dtype)
-        ms, kernel_event = timed(kernel, reps)
+        ms, launches_per_call, per_call = device_profile(kernel, reps)
+        check(abs(per_call - launches_per_call) * reps <= reps // 4,
+              f"{per_call} device events a call")
+        if expect_launches is not None:
+            check(launches_per_call == expect_launches,
+                  f"{per_call} CUDA launches a call, formula {expect_launches}")
+        kernel_event = event_ms(kernel, reps)
         plain_ms, plain_event = timed(plain, plain_reps)
         lib_ms, lib_event = timed(library, reps) if library else (None, None)
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound, "bound_by": by,
+                "cuda_launches_per_call": launches_per_call,
+                "device_events_per_call": per_call,
+                "event_ms": {"kernel": kernel_event, "plain": plain_event,
+                             "library": lib_event}}
+
+    def row(name, source, replaces, shape, kernel, plain, library, reps,
+            plain_reps, nbytes, ops_count, dtype=f64, expect_launches=None,
+            **extra):
         entries.append({
             "name": name, "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "shape": shape,
-            "dtype": str(dtype).removeprefix("torch."), "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
-            "bound_by": by,
-            "event_ms": {"kernel": kernel_event, "plain": plain_event,
-                         "library": lib_event},
+            "dtype": str(dtype).removeprefix("torch."),
+            **case(kernel, plain, library, reps, plain_reps, nbytes,
+                   ops_count, dtype, expect_launches),
             **extra,
         })
 
@@ -1126,25 +1227,50 @@ def kernels_line(rng, dev, launches: dict, errs: dict) -> dict:
     ut = (torch.from_numpy(np.triu(rng.standard_normal((b, b))) + b * np.eye(b))
           .to(dev))
     rhs = torch.from_numpy(rng.standard_normal((b, b))).to(dev)
+    # the panel loop's strips: a 32 x 32 triangle of the compact tile
+    # against the 32 x (b - s1) strip beside it and the (b - s1) x 32
+    # strip below it, strided views; timed at the widest, s1 = 32
+    a = torch.from_numpy(dominant(rng, (b, b))).to(dev)
+    tri, right, below = a[:INNER, :INNER], a[:INNER, INNER:], a[INNER:, :INNER]
+    w = b - INNER
+    strip_lower = case(
+        lambda: ops.trsm_lower(tri, right), lambda: ref.trsm_lower_ref(tri, right),
+        lambda: torch.linalg.solve_triangular(tri, right, upper=False,
+                                              unitriangular=True),
+        50, 10, (INNER * (INNER - 1) / 2 + 2 * INNER * w) * 8,
+        INNER * (INNER - 1) * w, expect_launches=trsm.cuda_launches(INNER))
+    strip_upper = case(
+        lambda: ops.trsm_upper_right(tri, below),
+        lambda: ref.trsm_upper_right_ref(tri, below),
+        lambda: torch.linalg.solve_triangular(tri, below, upper=True, left=False),
+        50, 10, (INNER * (INNER + 1) / 2 + 2 * INNER * w) * 8, INNER * INNER * w,
+        expect_launches=trsm.cuda_launches(INNER))
+    for label, one in (("trsm_lower", strip_lower), ("trsm_upper_right", strip_upper)):
+        one.update(shape=[INNER, INNER, w], launches_per_single_call=strips[label])
+    emit({"phase": "inner_strip_times", "shape": [INNER, w],
+          "strips_per_single_call": sum(strips.values()),
+          "trsm_lower": strip_lower, "trsm_upper_right": strip_upper,
+          "units": "ms per call: device time under torch.profiler; event_ms "
+                   "by CUDA events, with the host's launch latency; "
+                   "launches_per_single_call counted on phase 3 (strips "
+                   f"{w} down to {INNER} columns wide, timed at the widest)"})
     row("trsm_lower", "trsm.cu", "src/repro/kernels/trsm.py:74", [b, b, b],
         lambda: ops.trsm_lower(lt, rhs), lambda: ref.trsm_lower_ref(lt, rhs),
         lambda: torch.linalg.solve_triangular(lt, rhs, upper=False,
                                               unitriangular=True),
-        10, 3, (b * (b - 1) / 2 + 2 * b * b) * 8, b * (b - 1) * b)
+        10, 3, (b * (b - 1) / 2 + 2 * b * b) * 8, b * (b - 1) * b,
+        expect_launches=trsm.cuda_launches(b), strip_case=strip_lower,
+        note="launches: wrapper calls on the single phase (strip_case's "
+             "launches_per_single_call strips, the rest Algorithm-3 "
+             "blocks); each call put cuda_launches_per_call kernels on the "
+             "stream (leaves and DMMA updates), counted by the profiler")
     row("trsm_upper_right", "trsm.cu", "src/repro/kernels/trsm.py:114",
         [b, b, b], lambda: ops.trsm_upper_right(ut, rhs),
         lambda: ref.trsm_upper_right_ref(ut, rhs),
         lambda: torch.linalg.solve_triangular(ut, rhs, upper=True, left=False),
-        10, 3, (b * (b + 1) / 2 + 2 * b * b) * 8, b * b * b)
-
-    # the panel loop's strips: 32 x 32 against 32 x (b - 32), strided
-    a = torch.from_numpy(dominant(rng, (b, b))).to(dev)
-    tri = a[:INNER, :INNER]
-    emit({"phase": "inner_strip_times", "shape": [INNER, b - INNER],
-          "trsm_lower_ms": timed(lambda: ops.trsm_lower(tri, a[:INNER, INNER:]), 20),
-          "trsm_upper_right_ms": timed(
-              lambda: ops.trsm_upper_right(tri, a[INNER:, :INNER]), 20),
-          "units": "(device ms, event ms) per launch"})
+        10, 3, (b * (b + 1) / 2 + 2 * b * b) * 8, b * b * b,
+        expect_launches=trsm.cuda_launches(b), strip_case=strip_upper,
+        note="the lower solver on the transposed problem (trsm.cu)")
     # the trailing update of lu_blocked at the sequential phase's blocks
     cs, as_, bs = (torch.from_numpy(rng.standard_normal((b, b))).to(dev)
                    for _ in range(3))
@@ -1173,9 +1299,12 @@ def kernels_line(rng, dev, launches: dict, errs: dict) -> dict:
     (hq, hkv, d), fb, s = FLASH_HEADS, PREFILL_BATCH, PREFILL_LEN
     q, k, v = flash_inputs(rng, dev, bf16, fb, hq, hkv, s, s, d)
     qd, kd, vd = flash_inputs(rng, dev, bf16, fb, hq, hkv, 1, s, d, s + 128)
-    decode_bytes = 2 * (2 * fb * hq * d + 2 * fb * hkv * s * d)
-    decode_bound = bound_ms(decode_bytes, 4 * fb * hq * s * d, bf16)
-    decode_ms, decode_event = timed(lambda: ops.flash_attention(qd, kd, vd), 50)
+    decode_case = case(
+        lambda: ops.flash_attention(qd, kd, vd),
+        lambda: ref.flash_attention_ref(qd, kd, vd),
+        lambda: sdpa(qd, kd, vd, enable_gqa=True), 50, 10,
+        2 * (2 * fb * hq * d + 2 * fb * hkv * s * d), 4 * fb * hq * s * d,
+        bf16, expect_launches=flash_attn.cuda_launches(qd, kd))
     row("flash_attention", "flash_attn.cu", "src/repro/kernels/flash_attn.py:79",
         [fb, hq, s, d], lambda: ops.flash_attention(q, k, v, causal=True),
         lambda: ref.flash_attention_ref(q, k, v, causal=True),
@@ -1183,15 +1312,14 @@ def kernels_line(rng, dev, launches: dict, errs: dict) -> dict:
         2 * (2 * fb * hq * s * d + 2 * fb * hkv * s * d),
         2 * fb * hq * s * s * d, dtype=bf16,
         kv_shape=[fb, hkv, s, d],
-        decode_case={
-            "q": [fb, hq, 1, d], "kv_prefix": [fb, hkv, s, d],
-            "ms": decode_ms, "event_ms": decode_event,
-            "plain_ms": timed(lambda: ref.flash_attention_ref(qd, kd, vd), 10)[0],
-            "library_ms": timed(lambda: sdpa(qd, kd, vd, enable_gqa=True), 50)[0],
-            "bound_ms": decode_bound[0], "bound_by": decode_bound[1]},
+        expect_launches=flash_attn.cuda_launches(q, k),
+        decode_case={"q": [fb, hq, 1, d], "kv_prefix": [fb, hkv, s, d],
+                     **decode_case},
         note="launches from the serve phase's greedy_generate run (22 "
              "layers x 47 decode steps); causal prefill counted at half "
-             "of 4·B·Hq·S²·D; FMA pipes, no tensor cores; the library call "
+             "of 4·B·Hq·S²·D; bf16 tensor cores (mma.sync), decode packs "
+             "each GQA group and splits the keys, then merges the chunks "
+             "(decode_case's cuda_launches_per_call); the library call "
              "(scaled_dot_product_attention) is a yardstick the port never "
              "calls")
     for e in entries:
@@ -1222,8 +1350,9 @@ def main() -> int:
     emit({"phase": "card", "torch": torch.__version__,
           "cuda": torch.version.cuda, "card": card})
     errs = phase_kernels(rng, dev)
+    single_launches, strips = phase_single(rng, dev)
     per_phase = {
-        "single": (phase_single(rng, dev), MAIN_PATH),
+        "single": (single_launches, MAIN_PATH),
         "batch": (phase_batch(rng, dev), MAIN_PATH),
         "padded": (phase_padded(rng, dev), MAIN_PATH),
         "tamper": (phase_tamper(rng), MAIN_PATH),
@@ -1243,7 +1372,7 @@ def main() -> int:
     launches = dict(per_phase["single"][0])
     launches["schur_update"] = per_phase["sequential"][0]["schur_update"]
     launches["flash_attention"] = per_phase["serve"][0]["flash_attention"]
-    line = kernels_line(rng, dev, launches, errs)
+    line = kernels_line(rng, dev, launches, errs, strips)
     emit({"phase": "run", "wall_s": time.perf_counter() - started})
     emit(line)
     print(card, flush=True)

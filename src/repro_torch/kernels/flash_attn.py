@@ -5,6 +5,11 @@ online-softmax attention, GQA-aware, with right-aligned causal and
 sliding-window masks. Each operand goes in at its own (batch, head, seq)
 strides, so (B, S, H, D) projections and KV-cache prefixes need no copy;
 the output is allocated in q's memory layout.
+
+bf16 and f16 run on the tensor cores. A call with Sq <= DECODE_ROWS packs
+each kv head's GQA group into one block and splits the keys into chunks
+(`decode_split`), then merges the chunks in a second launch; the wrapper
+allocates the chunks' f32 partials. f32 runs the exact FMA kernel.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ _SIGNATURES = {
         _INT,
         (_PTR, _LL, _LL, _LL, _PTR, _LL, _LL, _LL, _PTR, _LL, _LL, _LL,
          _PTR, _LL, _LL, _LL, _INT, _INT, _INT, _INT, _INT, _INT, _FLT,
-         _INT, _INT, _INT, _PTR),
+         _INT, _INT, _INT, _PTR, _INT, _INT, _INT, _PTR),
     )
     for suffix in _SUFFIX.values()
 }
@@ -32,6 +37,37 @@ _MAX_GRID_YZ = 65535
 _WIDE_WINDOW = 2**30
 #: the largest head dimension the kernel's shared-memory tiles hold
 MAX_HEAD_DIM = 256
+#: query rows per block and keys per tile of the tensor-core kernel
+BLOCK_ROWS, KEY_TILE = 64, 64
+#: calls with at most this many query rows take the packed decode path
+DECODE_ROWS = 16
+#: key tiles of one decode chunk: at tinyllama's batch 4 x 4 kv heads
+#: over 2048 keys, 16 chunks a row make 256 blocks for the H100's 132 SMs
+CHUNK_TILES = 2
+
+
+def decode_split(sk: int) -> tuple[int, int]:
+    """(keys per chunk, chunks) of the packed decode: CHUNK_TILES key
+    tiles a chunk. The split depends on Sk alone, so a row's arithmetic
+    is the same at any batch size, head count and card."""
+    chunk = CHUNK_TILES * KEY_TILE
+    return chunk, -(-sk // chunk)
+
+
+def cuda_launches(q: torch.Tensor, k: torch.Tensor) -> int:
+    """CUDA launches one call makes: two for a decode whose keys are
+    split (the chunks, then their merge), else one."""
+    if q.dtype == torch.float32 or q.shape[2] > DECODE_ROWS:
+        return 1
+    return 1 + (decode_split(k.shape[2])[1] > 1)
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    """Every row of every 16-bit operand starts on 16 bytes, so 8-element
+    chunks copy as one cp.async each."""
+    return all(t.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st in t.stride()[:3])
+               for t in tensors)
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,6 +125,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if b == 0 or sq == 0:
         return out
+    chunk = nchunks = 0
+    part = None
+    if q.dtype != torch.float32 and sq <= DECODE_ROWS:
+        chunk, nchunks = decode_split(sk)
+        if hkv * -(-(hq // hkv) * sq // BLOCK_ROWS) > _MAX_GRID_YZ:
+            raise ValueError(f"flash_attention: {hkv} kv heads x "
+                             f"{hq // hkv * sq} packed rows exceed the grid")
+        if nchunks > 1:
+            part = torch.empty(nchunks * b * hq * sq * (d + 2),
+                               dtype=torch.float32, device=q.device)
     lib = build.library("flash_attn", _SIGNATURES)
     with torch.cuda.device(q.device):
         code = getattr(lib, f"flash_{_SUFFIX[q.dtype]}")(
@@ -96,7 +142,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             v.data_ptr(), *v.stride()[:3], out.data_ptr(), *out.stride()[:3],
             b, hq, hkv, sq, sk, d, float(scale), int(bool(causal)),
             int(window is not None), min(int(window or 0), _WIDE_WINDOW),
-            torch.cuda.current_stream().cuda_stream,
+            None if part is None else part.data_ptr(), chunk, nchunks,
+            int(_aligned(q, k, v)), torch.cuda.current_stream().cuda_stream,
         )
     build.check_launch(lib, "flash_attention", code)
     return out

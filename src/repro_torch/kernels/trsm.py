@@ -3,7 +3,9 @@
 Ports of src/repro/kernels/trsm.py:trsm_lower and :trsm_upper_right. One
 CUDA solver handles both: Z = B·U⁻¹ is handed over as Uᵀ Zᵀ = Bᵀ by
 swapping strides, and every operand goes with its strides, so strided
-views need no copy.
+views need no copy. One wrapper call puts `cuda_launches(n)` kernels on
+the stream: a 64-row leaf solve per leaf and a trailing update between
+consecutive leaves.
 """
 from __future__ import annotations
 
@@ -24,6 +26,14 @@ _SIGNATURES = {
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _MAX_GRID_Z = 65535
+#: rows of one leaf of csrc/trsm.cu's blocked solve
+LEAF = 64
+
+
+def cuda_launches(n: int) -> int:
+    """CUDA launches of one wrapper call on an n-row triangle: a leaf
+    solve per LEAF rows and an update between each two."""
+    return 2 * -(-n // LEAF) - 1 if n > 0 else 0
 
 
 def _check(kernel: str, tri: torch.Tensor, rhs: torch.Tensor) -> int:

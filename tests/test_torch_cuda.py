@@ -336,3 +336,210 @@ def test_serve_path_on_card_matches_cpu(cuda):
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
     out = greedy_generate(cfg, model, toks[:, :8].to(cuda), 8)
     assert torch.equal(out.cpu(), greedy_generate(cfg, cpu_model, toks[:, :8], 8))
+
+
+# --- the tensor-core flash kernel's decode path and the blocked TRSM ------
+
+def _bf16_close_to_mean(got, v, rows, group):
+    """The first `rows` query rows against the mean of V over its keys,
+    per query head's kv head, within bf16's rounding of the output."""
+    mean = v.float().mean(dim=2, keepdim=True).repeat_interleave(group, dim=1)
+    err = (got[:, :, :rows].float() - mean).abs()
+    eps = torch.finfo(got.dtype).eps
+    assert bool((err <= 2 * eps * mean.abs() + eps / 8
+                 * float(v.float().abs().max())).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk", [
+    (4, 32, 4, 1, 2048),
+    (2, 8, 8, 1, 500),
+    (2, 16, 2, 16, 700),
+], ids=["group8-full-width", "group1", "group8-16-rows"])
+def test_flash_decode_packs_gqa_groups(cuda, dtype, b, hq, hkv, sq, sk):
+    from repro_torch.kernels import flash_attn
+
+    q, k, v = _qkv(cuda, b, hq, hkv, sq, sk, 64, dtype, seed=sk,
+                   layout="bshd")
+    _flash_close(q, k, v, causal=True)
+    want = 1 if dtype == torch.float32 else 2  # split keys, then merge
+    assert flash_attn.cuda_launches(q, k) == want
+
+
+@pytest.mark.parametrize("sk", [333, 40, 64, 65], ids=[
+    "ragged-chunks", "under-one-chunk", "one-tile", "one-tile-and-one-key"])
+def test_flash_decode_ragged_key_chunks(cuda, sk):
+    q, k, v = _qkv(cuda, 2, 8, 2, 1, sk, 64, torch.bfloat16, seed=sk)
+    _flash_close(q, k, v, causal=True)
+
+
+def test_flash_decode_split_fully_masked_rows_are_mean_of_v(cuda, monkeypatch):
+    """Sq 8 > Sk 5: the first three rows see no key. Forced into chunks
+    of 2 keys, every chunk of such a row has m = -1e30, so the merge
+    weighs the chunks by their l and returns the mean over all 5 keys."""
+    from repro_torch.kernels import flash_attn
+
+    monkeypatch.setattr(flash_attn, "decode_split", lambda *a: (2, 3))
+    q, k, v = _qkv(cuda, 1, 4, 2, 8, 5, 16, torch.bfloat16, seed=11)
+    got = _flash_close(q, k, v, causal=True)
+    _bf16_close_to_mean(got, v, 3, 2)
+
+
+@pytest.mark.parametrize("sq,window", [(1, 40), (4, 8), (16, 100)])
+def test_flash_decode_window_inside_one_chunk(cuda, sq, window):
+    """The window covers keys of the last chunk only: every earlier chunk
+    visits no tile and must weigh nothing in the merge."""
+    q, k, v = _qkv(cuda, 2, 8, 2, sq, 2048, 64, torch.bfloat16, seed=sq)
+    _flash_close(q, k, v, causal=True, window=window)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_prefill_bf16_head_dims(cuda, d):
+    q, k, v = _qkv(cuda, 2, 8, 2, 300, 300, d, torch.bfloat16, seed=d,
+                   layout="bshd")
+    _flash_close(q, k, v, causal=True)
+
+
+def test_flash_f32_full_width_within_tolerance(cuda):
+    """f32 stays exact f32 (no TF32): the serving shapes within
+    1e-5 · max|v|."""
+    q, k, v = _qkv(cuda, 4, 32, 4, 2048, 2048, 64, torch.float32, seed=3,
+                   layout="bshd")
+    _flash_close(q, k, v, causal=True)
+    _flash_close(q[:, :, -1:], k, v, causal=True)
+
+
+def test_flash_decode_same_bits_run_to_run(cuda):
+    """The chunks merge in a fixed order: two calls give the same bits."""
+    q, k, v = _qkv(cuda, 4, 32, 4, 1, 2048, 64, torch.bfloat16, seed=9,
+                   layout="bshd")
+    first = ops.flash_attention(q, k, v, causal=True)
+    for _ in range(3):
+        assert torch.equal(ops.flash_attention(q, k, v, causal=True), first)
+
+
+def test_flash_decode_rows_same_bits_at_any_batch(cuda):
+    """The key chunks depend on Sk alone: a batch element's decode rows
+    have the same bits alone as in a batch of four."""
+    q, k, v = _qkv(cuda, 4, 32, 4, 1, 2048, 64, torch.bfloat16, seed=10,
+                   layout="bshd")
+    whole = ops.flash_attention(q, k, v, causal=True)
+    for i in (0, 3):
+        one = ops.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True)
+        assert torch.equal(one, whole[i:i + 1])
+
+
+def _profiled_launches(fn, reps=4):
+    """Device events (kernels and copies) one call of fn puts on the
+    card, counted by torch.profiler over `reps` calls. Started cold, the
+    profiler misses a window's first launches, so the window opens with
+    64 one-element fills and a pause, and only the events after the
+    timed range opens count (as chip_smoke.py's device_events)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    fn()
+    torch.cuda.synchronize()
+    pad = torch.empty(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            pad.fill_(0.0)
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+        with record_function("timed"):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    opened = min(e.time_range.start for e in prof.events()
+                 if e.name == "timed" and e.device_type != cuda_type)
+    events = [e for e in prof.events() if e.device_type == cuda_type
+              and e.name != "timed" and e.time_range.start >= opened - 5000]
+    assert len(events) % reps == 0, len(events)
+    return len(events) // reps
+
+
+@pytest.mark.parametrize("case", ["trsm-strip", "trsm-1024", "trsm-ragged",
+                                  "flash-prefill", "flash-decode-split",
+                                  "flash-decode-one-chunk", "flash-f32-decode"])
+def test_launch_formulas_match_profiled_kernels(cuda, case):
+    """trsm.cuda_launches and flash_attn.cuda_launches, which the
+    wrappers' docstrings state, against the launches the profiler
+    counts."""
+    from repro_torch.kernels import flash_attn, trsm
+
+    if case.startswith("trsm"):
+        n, m = {"trsm-strip": (32, 992), "trsm-1024": (1024, 1024),
+                "trsm-ragged": (130, 50)}[case]
+        l, u = (torch.from_numpy(t).to(cuda) for t in _triangles((), n, 4))
+        b = torch.from_numpy(_rand((n, m), 5)).to(cuda)
+        assert _profiled_launches(lambda: ops.trsm_lower(l, b)) == trsm.cuda_launches(n)
+        assert (_profiled_launches(lambda: ops.trsm_upper_right(u, b.t()))
+                == trsm.cuda_launches(n))
+        return
+    sq, sk, dtype = {"flash-prefill": (300, 300, torch.bfloat16),
+                     "flash-decode-split": (1, 2048, torch.bfloat16),
+                     "flash-decode-one-chunk": (4, 100, torch.bfloat16),
+                     "flash-f32-decode": (1, 2048, torch.float32)}[case]
+    q, k, v = _qkv(cuda, 2, 8, 2, sq, sk, 64, dtype, seed=sk)
+    got = _profiled_launches(lambda: ops.flash_attention(q, k, v, causal=True))
+    assert got == flash_attn.cuda_launches(q, k)
+
+
+@pytest.mark.parametrize("n,m", [(256, 300), (1024, 1024), (100, 77)])
+def test_trsm_columns_bit_equal_across_splits_and_strides(cuda, n, m):
+    """Each column's (each row's, for Z = B·U⁻¹) arithmetic depends on
+    neither m, nor its offset, nor the strides: one call equals the
+    concatenation of calls over column blocks, and a column-major copy."""
+    l, u = (torch.from_numpy(t).to(cuda) for t in _triangles((), n, 2))
+    b = torch.from_numpy(_rand((n, m), 5)).to(cuda)
+    cuts = [0, 1, m // 3, m // 3 + 64, m]
+    whole = ops.trsm_lower(l, b)
+    parts = [ops.trsm_lower(l, b[:, c0:c1]) for c0, c1 in zip(cuts, cuts[1:])]
+    assert torch.equal(whole, torch.cat(parts, dim=1))
+    assert torch.equal(whole, ops.trsm_lower(l.t().contiguous().t(),
+                                             b.t().contiguous().t()))
+    bt = b.t().contiguous()  # (m, n) for the right solve
+    whole = ops.trsm_upper_right(u, bt)
+    parts = [ops.trsm_upper_right(u, bt[c0:c1]) for c0, c1 in zip(cuts, cuts[1:])]
+    assert torch.equal(whole, torch.cat(parts, dim=0))
+    assert torch.equal(whole, ops.trsm_upper_right(u.t().contiguous().t(),
+                                                   b.t()))
+    wide = torch.from_numpy(_rand((n + 7, 2 * m), 6)).to(cuda)[3:n + 3, 1::2]
+    assert torch.equal(ops.trsm_lower(l, wide),
+                       ops.trsm_lower(l, wide.contiguous()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,m,batch", [(100, 50, None), (200, 130, 3),
+                                        (65, 64, 2), (129, 1, 4)])
+def test_trsm_ragged_leaves_and_batches(cuda, n, m, batch, dtype):
+    """n not a multiple of the 64-row leaf, and stacks of several
+    matrices; f32 updates run on the FMA pipes, in f32."""
+    lead = () if batch is None else (batch,)
+    l, u = (torch.from_numpy(t).to(cuda, dtype) for t in _triangles(lead, n, 7))
+    b = torch.from_numpy(_rand((*lead, n, m), 8)).to(cuda, dtype)
+    b2 = torch.from_numpy(_rand((*lead, m, n), 9)).to(cuda, dtype)
+    rtol = RTOL if dtype == torch.float64 else 1e-5
+    _close(ops.trsm_lower(l, b), ref.trsm_lower_ref(l, b), rtol)
+    _close(ops.trsm_upper_right(u, b2), ref.trsm_upper_right_ref(u, b2), rtol)
+    if batch:
+        one = ops.trsm_lower(l[1], b[1])
+        assert torch.equal(ops.trsm_lower(l, b)[1], one)
+
+
+def test_flash_kernel_rows_off_16_bytes(cuda):
+    """Operands whose rows do not start on 16 bytes (an odd element
+    offset and odd strides) copy element by element instead of by
+    cp.async, with the same result."""
+    rng = np.random.default_rng(12)
+
+    def odd(b, h, s, d):
+        flat = torch.from_numpy(rng.standard_normal(b * h * s * (d + 1) + 1))
+        flat = flat.to(cuda, torch.bfloat16)
+        return flat[1:].view(b, h, s, d + 1)[..., :d]
+
+    q, k, v = odd(2, 8, 40, 64), odd(2, 2, 90, 64), odd(2, 2, 90, 64)
+    _flash_close(q, k, v, causal=True)
+    _flash_close(q[:, :, :1], k, v, causal=True)

@@ -246,6 +246,50 @@ def test_max_tile_fits_shared_memory():
     assert max_tile(torch.float64) == 170
 
 
+@pytest.mark.parametrize("b,hkv,group,sq,sk", [
+    (4, 4, 8, 1, 2048), (1, 2, 2, 8, 4), (2, 4, 8, 1, 333),
+    (64, 4, 8, 1, 2048), (4, 4, 8, 16, 2048), (1, 1, 32, 16, 100000),
+])
+def test_flash_decode_split_covers_the_keys_and_fills_the_card(
+        b, hkv, group, sq, sk):
+    """Whole key tiles per chunk, every key in exactly one chunk, no empty
+    chunk, a split that depends on Sk alone (so a row's output does not
+    depend on the batch), and a block per SM at tinyllama's decode."""
+    from repro_torch.kernels import flash_attn
+
+    chunk, n = flash_attn.decode_split(sk)
+    tiles = -(-sk // flash_attn.KEY_TILE)
+    assert chunk == flash_attn.CHUNK_TILES * flash_attn.KEY_TILE
+    assert (n - 1) * chunk < sk <= n * chunk
+    assert 1 <= n <= tiles
+    blocks = b * hkv * -(-group * sq // flash_attn.BLOCK_ROWS) * n
+    if b * hkv >= 16 and sk >= 2048:  # tinyllama, batch >= 4
+        assert blocks >= 132
+
+
+@pytest.mark.parametrize("n,launches", [(32, 1), (64, 1), (65, 3), (256, 7),
+                                        (1024, 31), (0, 0)])
+def test_trsm_launches_per_call(n, launches):
+    """One leaf solve per 64 rows and one update between each two."""
+    from repro_torch.kernels import trsm
+
+    assert trsm.cuda_launches(n) == launches
+
+
+def test_flash_launches_per_call_on_cpu_shapes():
+    """f32 and prefill are one launch; a bf16 decode is two once its keys
+    span more than one chunk."""
+    from repro_torch.kernels import flash_attn
+
+    q = torch.zeros(1, 4, 32, 8)
+    assert flash_attn.cuda_launches(q, q[:, :2]) == 1
+    assert flash_attn.cuda_launches(q[:, :, :1], q[:, :2]) == 1
+    assert flash_attn.cuda_launches(q.bfloat16(), q[:, :2].bfloat16()) == 1
+    kv = torch.zeros(1, 2, 129, 8, dtype=torch.bfloat16)
+    assert flash_attn.cuda_launches(q[:, :, :1].bfloat16(), kv[:, :, :128]) == 1
+    assert flash_attn.cuda_launches(q[:, :, :1].bfloat16(), kv) == 2
+
+
 def test_build_names_libraries_by_content_and_flags():
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
