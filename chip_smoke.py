@@ -9,7 +9,8 @@ Phases, each printed as one JSON line:
 2. hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (CED bit for bit; the LU panel and the
    triangular solves within 1e-12 of max|plain|: the same arithmetic
-   with another FMA contraction and summation order);
+   with another FMA contraction and summation order; a stack's last
+   panel tile bit-equal to the same tile alone);
 3. `outsource_determinant` on one n = 4096 float64 matrix over N = 4
    servers (q3, then q1 and q2), checked against torch.linalg.slogdet;
 4. a (16, 1024, 1024) float64 stack;
@@ -64,11 +65,14 @@ phase 3 — the Schur kernel's on phase 8, flash attention's on phase 13 —
 error from phases 2, 7 and 12, time per launch beside the plain
 version, the library call where one computes the same function, and the
 least time the card could take; the CUDA launches one wrapper call
-made, counted from the profiler's device events and, for the triangular
-solves and flash attention, checked against the wrappers' own formulas;
-and the panel loop's 32 x 992 strips as the trsm rows' strip_case, with
-the strip calls counted on phase 3, which the inner_strip_times line
-prints first), the card's name and power limit, and
+made, counted from the profiler's device events and, for the panel, the
+triangular solves, the Schur update and flash attention, checked against
+the wrappers' own formulas; the panel loop's 32 x 992 strips as the trsm
+rows' strip_case, with the strip calls counted on phase 3, which the
+inner_strip_times line prints first; the batch phase's (16, 32, 32)
+panel stack as the lu_panel row's batch_case; lu_blocked's K = 32 inner
+update, 992 x 32 x 992, as the Schur row's inner_case), the card's name
+and power limit, and
 last {"ok": true, "device": {...}}. All inputs come from --seed through
 numpy. Any failed check raises, so the script exits non-zero and prints
 no last line; it does so too without a CUDA device or without the
@@ -304,7 +308,7 @@ def card_line() -> str:
 
 def phase_kernels(rng, dev) -> dict:
     """Each kernel against its plain version; returns max errors."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import lu_panel, ops, ref
 
     errs = {}
     # CED: every k, both modes, growth-safe, both shapes, both dtypes
@@ -327,17 +331,23 @@ def phase_kernels(rng, dev) -> dict:
     emit({"phase": "kernel_vs_plain", "kernel": "ced", "cases": 64,
           "max_abs_err": worst, "tolerance": "bit-equal (torch.equal)"})
 
-    # panel LU at the tiles of lu_diag_factor
+    # panel LU at the tiles of lu_diag_factor (the warp kernel up to 32
+    # wide, the block kernel above); a stack's tiles keep the bits they
+    # get alone
     worst = 0.0
     for shape in ((INNER, INNER), (48, 48), (64, INNER, INNER),
                   (BATCH, INNER, INNER)):
         a = torch.from_numpy(dominant(rng, shape)).to(dev)
-        abs_err, rel = max_err(ops.lu_panel(a), ref.lu_panel_ref(a))
+        got = ops.lu_panel(a)
+        abs_err, rel = max_err(got, ref.lu_panel_ref(a))
+        alone = a.ndim == 2 or torch.equal(got[-1], ops.lu_panel(a[-1]))
         torch.cuda.synchronize()
         emit({"phase": "kernel_vs_plain", "kernel": "lu_panel",
-              "shape": list(shape), "max_abs_err": abs_err,
-              "max_rel_err": rel, "tolerance": RTOL})
+              "shape": list(shape), "route": lu_panel.route(shape[-1], a.dtype),
+              "max_abs_err": abs_err, "max_rel_err": rel,
+              "last_tile_bit_equal_alone": alone, "tolerance": RTOL})
         check(rel <= RTOL, f"lu_panel {shape}: {rel}")
+        check(alone, f"lu_panel {shape}: a tile's bits differ alone")
         worst = max(worst, abs_err)
     errs["lu_panel"] = worst
 
@@ -1214,13 +1224,22 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict) -> dict:
         (2 * n * n + n) * 8, n * n)
 
     tile = torch.from_numpy(dominant(rng, (INNER, INNER))).to(dev)
+    stack = torch.from_numpy(dominant(rng, (BATCH, INNER, INNER))).to(dev)
     w = np.arange(INNER)  # trailing widths b-k-1 of the elimination steps
+    tile_ops = float((w + 2 * w * w).sum())
+    batch_case = case(
+        lambda: ops.lu_panel(stack), lambda: ref.lu_panel_ref(stack),
+        lambda: torch.linalg.lu_factor_ex(stack, pivot=False), 50, 10,
+        2 * BATCH * INNER * INNER * 8, BATCH * tile_ops, expect_launches=1)
     row("lu_panel", "lu_panel.cu", "src/repro/kernels/lu_panel.py:52",
         [INNER, INNER], lambda: ops.lu_panel(tile),
         lambda: ref.lu_panel_ref(tile),
         lambda: torch.linalg.lu_factor_ex(tile, pivot=False), 50, 10,
-        2 * INNER * INNER * 8, float((w + 2 * w * w).sum()),
-        note="latency-bound: a 32-step dependent chain")
+        2 * INNER * INNER * 8, tile_ops, expect_launches=1,
+        batch_case={"shape": [BATCH, INNER, INNER], **batch_case},
+        note="latency-bound: a 32-step dependent chain; one warp a tile "
+             "(lu_warp_kernel), four tiles a block; batch_case is the "
+             "batch phase's stack")
 
     lt = (torch.from_numpy(np.tril(rng.standard_normal((b, b)), -1) / b
                            + np.eye(b)).to(dev))
@@ -1271,26 +1290,37 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict) -> dict:
         10, 3, (b * (b + 1) / 2 + 2 * b * b) * 8, b * b * b,
         expect_launches=trsm.cuda_launches(b), strip_case=strip_upper,
         note="the lower solver on the transposed problem (trsm.cu)")
-    # the trailing update of lu_blocked at the sequential phase's blocks
+    # the trailing update of lu_blocked at the sequential phase's blocks,
+    # its inner updates (K = 32: views of a diagonal tile, as
+    # lu_panel_blocked passes them, timed at the widest) and a stack
     cs, as_, bs = (torch.from_numpy(rng.standard_normal((b, b))).to(dev)
                    for _ in range(3))
+    diag = torch.from_numpy(dominant(rng, (b, b))).to(dev)
+    ic, ia, ib = diag[INNER:, INNER:], diag[INNER:, :INNER], diag[:INNER, INNER:]
+    w = b - INNER
+    inner_case = case(
+        lambda: ops.schur_update(ic, ia, ib),
+        lambda: ref.schur_update_ref(ic, ia, ib),
+        lambda: torch.addmm(ic, ia, ib, alpha=-1), 50, 10,
+        (2 * w * w + 2 * INNER * w) * 8, 2 * w * w * INNER, expect_launches=1)
     k3 = [torch.from_numpy(rng.standard_normal((BATCH, 256, 256))).to(dev)
           for _ in range(3)]
-    batch_bound = bound_ms(4 * BATCH * 256 * 256 * 8, 2 * BATCH * 256 ** 3, f64)
-    batch_ms, batch_event = timed(lambda: ops.schur_update(*k3), 20)
+    batch_case = case(
+        lambda: ops.schur_update(*k3), lambda: ref.schur_update_ref(*k3),
+        lambda: torch.baddbmm(*k3, alpha=-1), 20, 20,
+        4 * BATCH * 256 * 256 * 8, 2 * BATCH * 256 ** 3, expect_launches=1)
     row("schur_update", "schur.cu", "src/repro/kernels/gemm.py:46",
         [b, b, b], lambda: ops.schur_update(cs, as_, bs),
         lambda: ref.schur_update_ref(cs, as_, bs),
         lambda: torch.addmm(cs, as_, bs, alpha=-1), 20, 20,
-        4 * b * b * 8, 2 * b * b * b,
-        batch_case={"shape": [BATCH, 256, 256, 256], "ms": batch_ms,
-                    "event_ms": batch_event,
-                    "plain_ms": timed(lambda: ref.schur_update_ref(*k3), 20)[0],
-                    "library_ms": timed(lambda: torch.baddbmm(
-                        *k3, alpha=-1), 20)[0],
-                    "bound_ms": batch_bound[0], "bound_by": batch_bound[1]},
-        note="launches from the sequential phase (lu_blocked); "
-             "FMA pipes, no tensor cores")
+        4 * b * b * 8, 2 * b * b * b, expect_launches=1,
+        inner_case={"shape": [w, INNER, w], **inner_case},
+        batch_case={"shape": [BATCH, 256, 256, 256], **batch_case},
+        note="launches from the sequential phase (lu_blocked): "
+             f"{SINGLE_N // SEQ_BLOCK} x {SEQ_BLOCK // INNER - 1} of them at "
+             "inner_case's K = 32 (down from its M = N), the rest trailing "
+             "updates; f64 on the tensor cores (mma.sync m16n8k4), 128 x 64 "
+             "blocks, a 3-stage cp.async ring")
 
     # attention at the serving path's prefill and decode shapes, bf16
     from torch.nn.functional import scaled_dot_product_attention as sdpa

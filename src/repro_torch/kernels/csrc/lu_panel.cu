@@ -1,4 +1,4 @@
-// Panel LU kernel: no-pivot Doolittle of one b x b tile, compact output
+// Panel LU kernels: no-pivot Doolittle of one b x b tile, compact output
 // (strict-lower multipliers plus U).
 //
 // Replaces: src/repro/kernels/lu_panel.py:lu_panel_compact
@@ -8,23 +8,105 @@
 // steps; at the b = 32 of the inner panels it holds 8 KB (f64) and does
 // about 2 b^3 / 3 = 22 thousand operations, which the card's bytes and
 // operations rates would clear in nanoseconds. The time is the chain of
-// b steps, each a barrier, plus the launch.
+// b steps, plus the launch.
 //
-// What the design does about it: one thread block per tile (the grid is
-// the batch), the whole tile in shared memory for all b steps, so the
-// chain never touches device memory between steps: one read of the tile,
-// one write of the result. Each step is two phases split by barriers:
-// the multipliers of column k, then the rank-1 update of the trailing
-// (b-k-1)^2 block spread over the block's threads. The input may be a
-// strided view (batch, row and column strides); the output is
-// contiguous. A tile must fit in shared memory (227 KB, so b <= 170 in
-// f64); the wrapper raises on a larger one.
+// What the design does about it. Tiles of b <= 32, every tile of the SPDC
+// paths (lu_warp_kernel): one warp factors one tile, with no block
+// barrier. Lane i holds row i in registers. At step k the pivot row's
+// entries come from lane k by shuffles, every lane below it divides its
+// own a[i][k] by the pivot (a true division, as the plain version does;
+// the divisions of a step run side by side across lanes) and updates its
+// columns past k. The 31 steps are unrolled with no branch in them, so the
+// shuffles of a step issue back to back and the compiler overlaps one
+// step's updates with the next step's pivot and division, which are the
+// chain that remains (a branch around each shuffle would make every one of
+// them wait out its latency). A tile narrower than 32 is padded with the
+// identity, so it takes the same code. Loads and stores put consecutive
+// lanes on the unit-stride axis; a row-major tile comes in, and every
+// tile goes out, through shared memory, rows padded to 33 against bank
+// conflicts. Four tiles (warps) share a
+// block; a tile's arithmetic depends on b and the type alone, so its bits
+// are the same alone and in a stack.
+// Tiles of 33 <= b <= 170 (lu_panel_kernel): one thread block per tile,
+// the whole tile in shared memory (227 KB, so b <= 170 in f64), each step
+// two phases split by barriers, the multipliers of column k, then the
+// rank-1 update of the trailing (b-k-1)^2 block spread over the block's
+// threads. The wrapper picks the kernel by b (lu_panel.py:route). The
+// input may be a strided view (batch, row and column strides); the output
+// is contiguous.
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr size_t DEFAULT_SMEM = 48 * 1024;
+constexpr int WARP_ROWS = 32;           // widest tile of the warp kernel
+constexpr int WARP_LD = WARP_ROWS + 1;  // padded row stride
+constexpr int WARP_TILES = 4;           // tiles (warps) per block
+constexpr unsigned FULL = 0xffffffffu;
+
+// Warp w of block x factors tile WARP_TILES x + w of the batch.
+template <typename T>
+__global__ void __launch_bounds__(32 * WARP_TILES)
+lu_warp_kernel(const T* __restrict__ a, long long sb, long long sr,
+               long long sc, T* __restrict__ out, int batch, int b) {
+  __shared__ T stage[WARP_TILES][WARP_ROWS * WARP_LD];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long tile = static_cast<long long>(blockIdx.x) * WARP_TILES + w;
+  if (tile >= batch) return;  // the whole warp
+  T* s = stage[w];
+  a += tile * sb;
+  out += tile * b * b;
+  // x: this lane's row; past b the tile is the identity (below). Every
+  // load is issued before the first use (one memory latency a tile),
+  // consecutive lanes on the unit-stride axis: a row-major tile goes
+  // through s to turn columns into rows, a column-major one is read by
+  // rows directly.
+  T x[WARP_ROWS];
+  if (sc == 1 || sr != 1) {
+#pragma unroll
+    for (int r = 0; r < WARP_ROWS; ++r) {
+      x[r] = (r < b && lane < b) ? a[r * sr + lane * sc] : T(r == lane);
+    }
+#pragma unroll
+    for (int r = 0; r < WARP_ROWS; ++r) s[r * WARP_LD + lane] = x[r];
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < WARP_ROWS; ++j) x[j] = s[lane * WARP_LD + j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < WARP_ROWS; ++j) {
+      x[j] = (j < b && lane < b) ? a[lane * sr + j * sc] : T(j == lane);
+    }
+  }
+  // Step k: lane k's row is final; every lane divides its column k by the
+  // pivot and the rows below keep the quotient, their multiplier, and
+  // lose its multiple of the pivot row, whose entries come by shuffles.
+  // Always 31 steps, unrolled, with no branch: padded to the identity, a
+  // tile narrower than 32 has pivot 1 and multipliers 0 past b, so its
+  // entries see exactly the operations of a b-step elimination.
+#pragma unroll
+  for (int k = 0; k < WARP_ROWS - 1; ++k) {
+    const T pivot = __shfl_sync(FULL, x[k], k);
+    const bool below = lane > k;
+    const T mult = x[k] / pivot;
+    x[k] = below ? mult : x[k];
+#pragma unroll
+    for (int j = k + 1; j < WARP_ROWS; ++j) {
+      const T u = __shfl_sync(FULL, x[j], k);
+      if (below) x[j] -= x[k] * u;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < WARP_ROWS; ++j) s[lane * WARP_LD + j] = x[j];
+  __syncwarp();
+  if (lane < b) {
+#pragma unroll
+    for (int r = 0; r < WARP_ROWS; ++r) {
+      if (r < b) out[r * b + lane] = s[r * WARP_LD + lane];
+    }
+  }
+}
 
 template <typename T>
 __global__ void lu_panel_kernel(const T* __restrict__ a, long long sb,
@@ -72,12 +154,23 @@ int launch(const T* a, long long sb, long long sr, long long sc, T* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_warp(const T* a, long long sb, long long sr, long long sc, T* out,
+                int batch, int b, cudaStream_t stream) {
+  const int blocks = (batch - 1) / WARP_TILES + 1;  // batch >= 1
+  lu_warp_kernel<T><<<blocks, 32 * WARP_TILES, 0, stream>>>(a, sb, sr, sc,
+                                                             out, batch, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
 // a: `batch` b x b tiles at element strides (sb, sr, sc); out: `batch`
-// contiguous b x b compact factors. Returns cudaGetLastError().
+// contiguous b x b compact factors. lu_panel_*: one block a tile, any
+// b that fits; lu_panel_warp_*: one warp a tile, b <= 32. Each returns
+// cudaGetLastError().
 int lu_panel_f64(const double* a, long long sb, long long sr, long long sc,
                  double* out, int batch, int b, cudaStream_t stream) {
   return launch(a, sb, sr, sc, out, batch, b, stream);
@@ -86,6 +179,18 @@ int lu_panel_f64(const double* a, long long sb, long long sr, long long sc,
 int lu_panel_f32(const float* a, long long sb, long long sr, long long sc,
                  float* out, int batch, int b, cudaStream_t stream) {
   return launch(a, sb, sr, sc, out, batch, b, stream);
+}
+
+int lu_panel_warp_f64(const double* a, long long sb, long long sr,
+                      long long sc, double* out, int batch, int b,
+                      cudaStream_t stream) {
+  return launch_warp(a, sb, sr, sc, out, batch, b, stream);
+}
+
+int lu_panel_warp_f32(const float* a, long long sb, long long sr,
+                      long long sc, float* out, int batch, int b,
+                      cudaStream_t stream) {
+  return launch_warp(a, sb, sr, sc, out, batch, b, stream);
 }
 
 const char* spdc_error_string(int code) {

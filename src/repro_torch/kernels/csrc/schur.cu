@@ -7,28 +7,49 @@
 // Every operand is passed with its batch, row and column strides, so the
 // blocks of lu_blocked, which are views of the n x n matrix, need no
 // copy; OUT is written fresh and C, A, B are left as they are. Any M, N
-// and K: the ragged edge of each tile is masked, so the reference's
-// "halve the tile until it divides" is not needed. f64 and f32
-// accumulate in their own type; bf16 and f16 are widened to f32 on load,
-// accumulate in f32 and are rounded once on store.
+// and K: the ragged edge of each tile is masked or zero-filled, so the
+// reference's "halve the tile until it divides" is not needed.
 //
-// What bounds it on the H100: operations. At 1024 x 1024 x 1024 in f64
-// the product is 2.15 GFLOP against 33.5 MB moved: 32 us at the 67
-// TFLOP/s f64 tensor-core peak, 10 us at 3.35 TB/s.
+// What bounds it on the H100: operations at the trailing updates, bytes
+// at the inner ones. At 1024 x 1024 x 1024 in f64 the product is 2.15
+// GFLOP against 33.5 MB moved: 32 us at the 67 TFLOP/s f64 tensor-core
+// peak, 10 us at 3.35 TB/s. The inner updates of lu_blocked's diagonal
+// tiles (K = 32, from 992 x 992 down) move C and OUT and do little else:
+// 16.3 MB, 4.9 us at 992 x 32 x 992.
 //
-// What the design does about it, for now: a plain shared-memory tiling.
+// What the design does about it. f64 (schur_dmma_kernel), the only type a
+// path calls:
+//  * the f64 tensor cores: a block of 8 warps owns a 128 x 64 tile of
+//    OUT, each warp a 32 x 32 tile of it, summed by the sm_90 mma.sync f64
+//    shape m16n8k4 (DMMA) in registers. Timed once at 1024^3 on the H100,
+//    m16n8k8 and m16n8k16 ran within the spread of repeated timings of it
+//    and m8n8k4 1.5x slower (PERF.md);
+//  * a 3-stage ring of 32-deep K slices in shared memory, filled by
+//    cp.async, so the next slices load while the current one multiplies;
+//    one barrier a slice. An operand whose rows are 16-byte aligned with
+//    unit stride along the staged axis (every block of lu_blocked) goes
+//    two elements a copy (16-byte cp.async.cg); any other, strided,
+//    transposed or at an odd offset, one element a copy (8-byte
+//    cp.async.ca, legal at any offset), consecutive threads along its
+//    unit-stride axis. Both zero-fill past the ragged edge through their
+//    src-size operand. Row strides of 36 and 68 doubles keep the fragment
+//    reads free of bank conflicts;
+//  * one wave at 1024 x 1024: 128 blocks on 132 SMs;
+//  * each thread's elements of C are loaded into registers before the
+//    first slice lands, so their load overlaps the product (it is most of
+//    the bytes at the inner updates' K = 32). Each sum runs over k
+//    ascending, by slices, in f64, and is subtracted from C at the end,
+//    as the plain version computes C - (A B). No TF32, no split K, no
+//    atomics: the same call gives the same bits every run.
+// What still holds it at about half its bound is that feed: each block
+// reads 48 KB of A and B from L2 per slice (PERF.md); TMA copies
+// or clusters sharing tiles are the next step.
+// f32, bf16 and f16 (schur_kernel) take the FMA kernel of the first
+// port, a route by type: no path calls them yet and they are untimed.
 // A block of 16 x 16 threads owns a 64 x 64 tile of OUT and walks K in
-// steps of 16, staging a 64 x 16 tile of A and a 16 x 64 tile of B in
-// shared memory; each thread keeps a 4 x 4 register tile of sums (rows
-// ty + 16 i, columns tx + 16 j, so the B reads of a warp are consecutive
-// and the A reads are broadcasts). Each sum runs over k ascending with
-// one FMA per term and is subtracted from C at the end, as the plain
-// version computes C - (A B). Tile loads put consecutive threads on
-// whichever axis has unit stride, so row-major and transposed operands
-// both read coalesced. This runs on the FMA pipes, whose f64 peak is half
-// the tensor-core rate the bound assumes, so it can reach at most half of
-// its bound; the tensor cores (DMMA mma.sync m8n8k4, or wgmma) are the
-// work of a later change.
+// steps of 16 through shared memory, each thread a 4 x 4 register tile of
+// FMA sums (f32 accumulates in f32, bf16 and f16 are widened to f32 and
+// rounded once on store), subtracted from C at the end.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -179,27 +200,258 @@ int launch(const T* c, long long cb, long long cr, long long cc, const T* a,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------- f64 DMMA
+constexpr int DM = 128;            // rows of OUT per block
+constexpr int DN = 64;             // columns of OUT per block
+constexpr int DK = 32;             // depth of one pipeline stage
+constexpr int STAGES = 3;          // K slices in flight
+constexpr int DTHREADS = 256;      // 8 warps: 4 (rows) x 2 (columns)
+constexpr int A_LD = DK + 4;       // row strides in doubles: the 16 lanes of
+constexpr int B_LD = DN + 4;       // a half warp read 16 distinct banks
+constexpr int STAGE_DOUBLES = DM * A_LD + DK * B_LD;
+constexpr size_t DMMA_SMEM = STAGES * STAGE_DOUBLES * sizeof(double);
+
+// A warp's 32 x 32 tile as four 8-row groups r by four 8-column groups
+// ni: acc[r][ni][e] is row 8 r + g, column 8 ni + 2 t + e (g = lane / 4,
+// t = lane % 4). Fragments of one k-step of 4: fa[r] = A[8 r + g][t],
+// fb[ni] = B[t][8 ni + g] — the PTX layout of m16n8k4, whose rows are the
+// groups 2 mi and 2 mi + 1.
+__device__ __forceinline__ void dmma(double (&acc)[4][4][2],
+                                     const double (&fa)[4],
+                                     const double (&fb)[4]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+          "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+          : "+d"(acc[2 * mi][ni][0]), "+d"(acc[2 * mi][ni][1]),
+            "+d"(acc[2 * mi + 1][ni][0]), "+d"(acc[2 * mi + 1][ni][1])
+          : "d"(fa[2 * mi]), "d"(fa[2 * mi + 1]), "d"(fb[ni]));
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async8(double* s, const double* g,
+                                          bool pred) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(sa),
+               "l"(g), "r"(pred ? 8 : 0));
+}
+
+// 16 bytes, two elements, of which `bytes` (16, 8 or 0) are read and the
+// rest zero-filled; L2 only (.cg), and both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(double* s, const double* g,
+                                           int bytes) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
+               "l"(g), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// True where an operand can be staged 16 bytes at a time: unit stride
+// along the staged axis (A's k, B's n), an even row stride and a 16-byte
+// aligned start, as every block of lu_blocked's 4096 x 4096 matrix has.
+__device__ __forceinline__ bool pairs(const double* p, long long rows,
+                                      long long unit) {
+  return unit == 1 && (rows & 1) == 0 &&
+         (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
+// Issue the copies of K slice [k0, k0 + DK): A rows [m0, m0 + DM) into
+// sa[r * A_LD + q], B columns [n0, n0 + DN) into sb[q * B_LD + s]; zeros
+// past m, n and k (the masked copies read nothing, from a valid address).
+// An operand that `pairs` goes two elements a copy; any other, strided,
+// transposed or at an odd offset, one element a copy (8-byte cp.async.ca,
+// legal at any element offset), consecutive threads along its unit-stride
+// axis.
+__device__ __forceinline__ void load_slice(
+    double* sa, double* sb, const double* a, long long ar, long long ac,
+    bool a_pairs, const double* b, long long br, long long bc, bool b_pairs,
+    int m0, int n0, int k0, int m, int n, int k) {
+  const int tid = threadIdx.x;
+  if (a_pairs) {
+#pragma unroll
+    for (int j = 0; j < DM * DK / 2 / DTHREADS; ++j) {
+      const int e = tid + j * DTHREADS;
+      const int r = e / (DK / 2), q = 2 * (e % (DK / 2));
+      const bool ok = m0 + r < m && k0 + q < k;
+      cp_async16(sa + r * A_LD + q, ok ? a + (m0 + r) * ar + k0 + q : a,
+                 ok ? (k0 + q + 1 < k ? 16 : 8) : 0);
+    }
+  } else {
+    const bool along_k = ac == 1 || ar != 1;
+#pragma unroll
+    for (int j = 0; j < DM * DK / DTHREADS; ++j) {
+      const int e = tid + j * DTHREADS;
+      const int r = along_k ? e / DK : e % DM;
+      const int q = along_k ? e % DK : e / DM;
+      const bool ok = m0 + r < m && k0 + q < k;
+      cp_async8(sa + r * A_LD + q, ok ? a + (m0 + r) * ar + (k0 + q) * ac : a,
+                ok);
+    }
+  }
+  if (b_pairs) {
+#pragma unroll
+    for (int j = 0; j < DK * DN / 2 / DTHREADS; ++j) {
+      const int e = tid + j * DTHREADS;
+      const int q = e / (DN / 2), c = 2 * (e % (DN / 2));
+      const bool ok = k0 + q < k && n0 + c < n;
+      cp_async16(sb + q * B_LD + c, ok ? b + (k0 + q) * br + n0 + c : b,
+                 ok ? (n0 + c + 1 < n ? 16 : 8) : 0);
+    }
+  } else {
+    const bool along_n = bc == 1 || br != 1;
+#pragma unroll
+    for (int j = 0; j < DK * DN / DTHREADS; ++j) {
+      const int e = tid + j * DTHREADS;
+      const int q = along_n ? e / DN : e % DK;
+      const int c = along_n ? e % DN : e / DK;
+      const bool ok = k0 + q < k && n0 + c < n;
+      cp_async8(sb + q * B_LD + c, ok ? b + (k0 + q) * br + (n0 + c) * bc : b,
+                ok);
+    }
+  }
+}
+
+// The warp's 32 x 32 tile gains the product of one K slice in shared
+// memory, four k at a time, k ascending.
+__device__ __forceinline__ void slice_product(const double* sa,
+                                              const double* sb,
+                                              double (&acc)[4][4][2]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const double* arow = sa + (32 * (warp >> 1) + g) * A_LD + t;
+  const double* bcol = sb + t * B_LD + 32 * (warp & 1) + g;
+#pragma unroll
+  for (int kk = 0; kk < DK; kk += 4) {
+    double fa[4], fb[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) fa[r] = arow[8 * r * A_LD + kk];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) fb[ni] = bcol[kk * B_LD + 8 * ni];
+    dmma(acc, fa, fb);
+  }
+}
+
+// Block (x, y, z) computes OUT[z][128 y : 128 y + 128, 64 x : 64 x + 64].
+__global__ void __launch_bounds__(DTHREADS)
+schur_dmma_kernel(const double* __restrict__ c, long long cb, long long cr,
+                  long long cc, const double* __restrict__ a, long long ab,
+                  long long ar, long long ac, const double* __restrict__ b,
+                  long long bb, long long br, long long bc,
+                  double* __restrict__ out, long long ob, long long orr,
+                  long long oc, int m, int n, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* ring = reinterpret_cast<double*>(smem_raw);
+  c += blockIdx.z * cb;
+  a += blockIdx.z * ab;
+  b += blockIdx.z * bb;
+  out += blockIdx.z * ob;
+  const bool a_pairs = pairs(a, ar, ac), b_pairs = pairs(b, br, bc);
+  const int m0 = blockIdx.y * DM;
+  const int n0 = blockIdx.x * DN;
+  const int slices = (k + DK - 1) / DK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < slices) {
+      double* stage = ring + s * STAGE_DOUBLES;
+      load_slice(stage, stage + DM * A_LD, a, ar, ac, a_pairs, b, br, bc,
+                 b_pairs, m0, n0, s * DK, m, n, k);
+    }
+    cp_async_commit();
+  }
+  // this thread's elements of C, fetched while the product runs
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = m0 + 32 * (warp >> 1) + (lane >> 2);
+  const int col0 = n0 + 32 * (warp & 1) + 2 * (lane & 3);
+  double cv[4][4][2], acc[4][4][2];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int gr = row0 + 8 * r;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int gc = col0 + 8 * ni + e;
+        cv[r][ni][e] = (gr < m && gc < n) ? c[gr * cr + gc * cc] : 0.0;
+        acc[r][ni][e] = 0.0;
+      }
+    }
+  }
+  for (int kt = 0; kt < slices; ++kt) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of slice kt landed
+    __syncthreads();  // everyone's have, and slice kt - 1 is read
+    const int next = kt + STAGES - 1;
+    if (next < slices) {
+      double* stage = ring + (next % STAGES) * STAGE_DOUBLES;
+      load_slice(stage, stage + DM * A_LD, a, ar, ac, a_pairs, b, br, bc,
+                 b_pairs, m0, n0, next * DK, m, n, k);
+    }
+    cp_async_commit();
+    const double* stage = ring + (kt % STAGES) * STAGE_DOUBLES;
+    slice_product(stage, stage + DM * A_LD, acc);
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int gr = row0 + 8 * r;
+    if (gr >= m) continue;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int gc = col0 + 8 * ni + e;
+        if (gc < n) out[gr * orr + gc * oc] = cv[r][ni][e] - acc[r][ni][e];
+      }
+    }
+  }
+}
+
+int launch_dmma(const double* c, long long cb, long long cr, long long cc,
+                const double* a, long long ab, long long ar, long long ac,
+                const double* b, long long bb, long long br, long long bc,
+                double* out, long long ob, long long orr, long long oc,
+                int batch, int m, int n, int k, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      schur_dmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(DMMA_SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + DN - 1) / DN, (m + DM - 1) / DM, batch);
+  schur_dmma_kernel<<<grid, DTHREADS, DMMA_SMEM, stream>>>(
+      c, cb, cr, cc, a, ab, ar, ac, b, bb, br, bc, out, ob, orr, oc, m, n,
+      k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // OUT = C - A B for `batch` problems: A m x k, B k x n, C and OUT m x n,
 // each at (batch, row, column) strides in elements. Returns
 // cudaGetLastError() right after the launch.
-#define SCHUR_ENTRY(NAME, T, ACC)                                            \
+#define SCHUR_ENTRY(NAME, T, LAUNCH)                                         \
   int NAME(const T* c, long long cb, long long cr, long long cc, const T* a, \
            long long ab, long long ar, long long ac, const T* b,             \
            long long bb, long long br, long long bc, T* out, long long ob,   \
            long long orr, long long oc, int batch, int m, int n, int k,      \
            cudaStream_t stream) {                                            \
-    return launch<T, ACC>(c, cb, cr, cc, a, ab, ar, ac, b, bb, br, bc, out,  \
-                          ob, orr, oc, batch, m, n, k, stream);              \
+    return LAUNCH(c, cb, cr, cc, a, ab, ar, ac, b, bb, br, bc, out, ob, orr, \
+                  oc, batch, m, n, k, stream);                               \
   }
 
 extern "C" {
 
-SCHUR_ENTRY(schur_f64, double, double)
-SCHUR_ENTRY(schur_f32, float, float)
-SCHUR_ENTRY(schur_bf16, __nv_bfloat16, float)
-SCHUR_ENTRY(schur_f16, __half, float)
+SCHUR_ENTRY(schur_f64, double, launch_dmma)
+SCHUR_ENTRY(schur_f32, float, (launch<float, float>))
+SCHUR_ENTRY(schur_bf16, __nv_bfloat16, (launch<__nv_bfloat16, float>))
+SCHUR_ENTRY(schur_f16, __half, (launch<__half, float>))
 
 const char* spdc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

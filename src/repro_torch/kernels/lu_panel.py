@@ -1,7 +1,9 @@
 """Wrapper of the panel LU kernel (csrc/lu_panel.cu).
 
 Port of src/repro/kernels/lu_panel.py:lu_panel_compact: no-pivot
-Doolittle of one (b, b) tile or a (B, b, b) stack, compact output.
+Doolittle of one (b, b) tile or a (B, b, b) stack, compact output. Two
+kernels, chosen by `route`: one warp a tile up to WARP_MAX wide, one
+thread block a tile up to `max_tile`.
 """
 from __future__ import annotations
 
@@ -13,13 +15,16 @@ from . import build
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    f"lu_panel_{suffix}": (_INT, (_PTR, _LL, _LL, _LL, _PTR, _INT, _INT, _PTR))
-    for suffix in ("f32", "f64")
+    f"lu_panel_{kind}{suffix}": (
+        _INT, (_PTR, _LL, _LL, _LL, _PTR, _INT, _INT, _PTR))
+    for kind in ("", "warp_") for suffix in ("f32", "f64")
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 #: shared memory one thread block may hold on the H100 (227 KB)
 MAX_SMEM_BYTES = 232448
 _MAX_GRID_X = 2**31 - 1
+#: widest tile the warp kernel takes: one row a lane
+WARP_MAX = 32
 
 
 def max_tile(dtype: torch.dtype) -> int:
@@ -30,6 +35,19 @@ def max_tile(dtype: torch.dtype) -> int:
     while b * b * itemsize > MAX_SMEM_BYTES:
         b -= 1
     return b
+
+
+def route(b: int, dtype: torch.dtype) -> str:
+    """The kernel for a b x b tile of `dtype`: "warp" (one warp a tile)
+    up to WARP_MAX, "block" (one thread block a tile) up to max_tile;
+    raises above it. A tile's route, and with it its arithmetic, never
+    depends on the batch."""
+    if b > max_tile(dtype):
+        raise ValueError(
+            f"a {b}x{b} {dtype} tile exceeds one block's shared memory "
+            f"(largest {max_tile(dtype)}); factor it blocked"
+        )
+    return "warp" if b <= WARP_MAX else "block"
 
 
 def lu_panel_cuda(a: torch.Tensor) -> torch.Tensor:
@@ -43,11 +61,7 @@ def lu_panel_cuda(a: torch.Tensor) -> torch.Tensor:
     if a.ndim not in (2, 3) or a.shape[-1] != a.shape[-2]:
         raise ValueError(f"lu_panel_cuda needs (b, b) or (B, b, b), got {tuple(a.shape)}")
     b = a.shape[-1]
-    if b > max_tile(a.dtype):
-        raise ValueError(
-            f"a {b}x{b} {a.dtype} tile exceeds one block's shared memory "
-            f"(largest {max_tile(a.dtype)}); factor it blocked"
-        )
+    kind = route(b, a.dtype)
     batch = a.shape[0] if a.ndim == 3 else 1
     if batch > _MAX_GRID_X:
         raise ValueError(f"batch {batch} exceeds the grid")
@@ -57,7 +71,8 @@ def lu_panel_cuda(a: torch.Tensor) -> torch.Tensor:
     sb = a.stride(0) if a.ndim == 3 else 0
     lib = build.library("lu_panel", _SIGNATURES)
     with torch.cuda.device(a.device):
-        code = getattr(lib, f"lu_panel_{_SUFFIX[a.dtype]}")(
+        prefix = "lu_panel_warp_" if kind == "warp" else "lu_panel_"
+        code = getattr(lib, prefix + _SUFFIX[a.dtype])(
             a.data_ptr(), sb, a.stride(-2), a.stride(-1), out.data_ptr(),
             batch, b, torch.cuda.current_stream().cuda_stream,
         )

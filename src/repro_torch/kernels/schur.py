@@ -2,8 +2,9 @@
 
 Port of src/repro/kernels/gemm.py:schur_update: C − A·B for (M, K)·(K, N)
 operands or a (B, M, K)·(B, K, N) stack, at any strides, into a fresh
-output. float64 and float32 accumulate in their own type, bfloat16 and
-float16 in float32.
+output. float64 runs on the tensor cores (DMMA) and accumulates in
+float64; float32 accumulates in its own type, bfloat16 and float16 in
+float32, on the FMA pipes.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 from . import build
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: the entry point of each dtype: schur_<suffix>
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32",
            torch.bfloat16: "bf16", torch.float16: "f16"}
 _SIGNATURES = {
@@ -24,8 +26,22 @@ _SIGNATURES = {
     )
     for suffix in _SUFFIX.values()
 }
+#: the card's limit on the grid's y axis (row tiles) and z axis (batch)
 _MAX_GRID_YZ = 65535
-_TILE = 64
+
+
+def rows_per_block(dtype: torch.dtype) -> int:
+    """Rows of OUT one block computes: csrc/schur.cu's DM for the f64
+    DMMA kernel, BM for the FMA kernel of the other types."""
+    return 128 if dtype == torch.float64 else 64
+
+
+def check_grid(dtype: torch.dtype, batch: int, m: int) -> None:
+    """Raise where the launch grid (row tiles on y, the batch on z) would
+    exceed what the card accepts; its x axis (column tiles) cannot."""
+    if -(-m // rows_per_block(dtype)) > _MAX_GRID_YZ or batch > _MAX_GRID_YZ:
+        raise ValueError(
+            f"schur_update: batch {batch}, M {m} exceed the launch grid")
 
 
 def _strides(t: torch.Tensor) -> tuple[int, int, int]:
@@ -59,8 +75,7 @@ def schur_update_cuda(c: torch.Tensor, a: torch.Tensor,
     if c.ndim == 3 and not a.shape[0] == b.shape[0] == batch:
         raise ValueError(
             f"schur_update: batches {batch}, {a.shape[0]}, {b.shape[0]}")
-    if batch > _MAX_GRID_YZ or -(-m // _TILE) > _MAX_GRID_YZ:
-        raise ValueError(f"schur_update: batch {batch} or M {m} exceeds the grid")
+    check_grid(c.dtype, batch, m)
     out = torch.empty(c.shape, dtype=c.dtype, device=c.device)
     if batch == 0 or m == 0 or n == 0:
         return out

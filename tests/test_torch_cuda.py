@@ -543,3 +543,121 @@ def test_flash_kernel_rows_off_16_bytes(cuda):
     q, k, v = odd(2, 8, 40, 64), odd(2, 2, 90, 64), odd(2, 2, 90, 64)
     _flash_close(q, k, v, causal=True)
     _flash_close(q[:, :, :1], k, v, causal=True)
+
+
+# --------------------------------------- the panel kernels' two routes
+@pytest.mark.parametrize("b", [1, 2, 31, 32, 33, 48, 160])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lu_panel_kernel_both_routes(cuda, b, dtype):
+    """One warp a tile up to 32 wide, one block a tile above."""
+    a = torch.from_numpy(_dominant((3, b, b), b)).to(cuda, dtype)
+    rtol = RTOL if dtype == torch.float64 else 1e-5
+    _close(ops.lu_panel(a), ref.lu_panel_ref(a), rtol)
+    _close(ops.lu_panel(a[1]), ref.lu_panel_ref(a[1]), rtol)
+
+
+def test_lu_panel_warp_route_reads_views_and_keeps_input(cuda):
+    """Strided, transposed and odd-offset views of warp-route tiles."""
+    a = torch.from_numpy(_dominant((3, 96, 96), 12)).to(cuda)
+    before = a.clone()
+    for view in (a[:, 32:64, 32:64], a[:, 32:64, 32:64].transpose(-1, -2),
+                 a[1, 5:36, 5:36]):
+        _close(ops.lu_panel(view), ref.lu_panel_ref(view))
+        assert torch.equal(ops.lu_panel(view), ops.lu_panel(view.contiguous()))
+    assert torch.equal(a, before)
+
+
+@pytest.mark.parametrize("batch", [3, 64])
+def test_lu_panel_tile_bits_same_alone_and_in_stack(cuda, batch):
+    """A 32 x 32 tile's arithmetic depends on b and the dtype alone, not on
+    the batch or the tile's place in it."""
+    stack = torch.from_numpy(_dominant((batch, 32, 32), batch)).to(cuda)
+    whole = ops.lu_panel(stack)
+    for i in sorted({0, 1, batch // 2, batch - 1}):
+        assert torch.equal(whole[i], ops.lu_panel(stack[i]))
+        assert torch.equal(whole[i], ops.lu_panel(stack[i:i + 1])[0])
+
+
+# ------------------------------------------- Schur in f64 on the DMMA path
+@pytest.mark.parametrize("m,k,n,batch", [(130, 1, 70, None), (129, 3, 65, None),
+                                          (200, 45, 131, None), (257, 45, 1, 2),
+                                          (5, 100, 300, 3)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16, torch.float16])
+def test_schur_kernel_ragged_shapes(cuda, m, k, n, batch, dtype):
+    """M, N and K off every tile and K step, K = 1 and 3 among them."""
+    lead = () if batch is None else (batch,)
+    c, a, b = (torch.from_numpy(_rand((*lead, *s), seed)).to(cuda, dtype)
+               for s, seed in (((m, n), 4), ((m, k), 5), ((k, n), 6)))
+    _schur_close(ops.schur_update(c, a, b), ref.schur_update_ref(c, a, b),
+                 c, a, b, dtype)
+
+
+def test_schur_f64_views_at_odd_offsets(cuda):
+    """Operands at odd element offsets and odd row strides."""
+    flat = torch.from_numpy(_rand(3 * 300 * 301 + 1, 10)).to(cuda)
+    x = flat[1:].view(3, 300, 301)
+    c, a, b = x[0, 1:200, 3:150], x[1, 7:206, 5:50], x[2, 11:56, 1:148]
+    before = flat.clone()
+    got = ops.schur_update(c, a, b)
+    _schur_close(got, ref.schur_update_ref(c, a, b), c, a, b, torch.float64)
+    assert torch.equal(got, ops.schur_update(c.contiguous(), a.contiguous(),
+                                             b.contiguous()))
+    assert torch.equal(flat, before)
+
+
+@pytest.mark.parametrize("which", ["a", "b", "c", "all"])
+def test_schur_f64_column_major_operands(cuda, which):
+    """Column-major operands stage along their unit-stride axis into the
+    same shared-memory tiles, so the result is bit-equal to row-major."""
+    m, k, n = 300, 70, 200
+    rows = {name: torch.from_numpy(_rand(shape, seed)).to(cuda)
+            for name, shape, seed in (("c", (m, n), 1), ("a", (m, k), 2),
+                                      ("b", (k, n), 3))}
+    cols = {name: t.t().contiguous().t() if which in (name, "all") else t
+            for name, t in rows.items()}
+    c, a, b = rows.values()
+    got = ops.schur_update(cols["c"], cols["a"], cols["b"])
+    _schur_close(got, ref.schur_update_ref(c, a, b), c, a, b, torch.float64)
+    assert torch.equal(got, ops.schur_update(c, a, b))
+
+
+def test_schur_f64_inner_update_shape(cuda):
+    """lu_blocked's inner update: K = 32, views of a 1024² diagonal tile."""
+    tile = torch.from_numpy(_dominant((1024, 1024), 11)).to(cuda)
+    c, a, b = tile[32:, 32:], tile[32:, :32], tile[:32, 32:]
+    _schur_close(ops.schur_update(c, a, b), ref.schur_update_ref(c, a, b),
+                 c, a, b, torch.float64)
+
+
+def test_schur_f64_same_bits_run_to_run_and_across_a_batch(cuda):
+    """No split K and no atomics: one call's bits are the same every run,
+    and a matrix's bits do not depend on the stack around it."""
+    c, a, b = (torch.from_numpy(_rand(s, seed)).to(cuda)
+               for s, seed in (((4, 300, 170), 7), ((4, 300, 77), 8),
+                               ((4, 77, 170), 9)))
+    got = ops.schur_update(c, a, b)
+    _schur_close(got, ref.schur_update_ref(c, a, b), c, a, b, torch.float64)
+    assert torch.equal(got[2], ops.schur_update(c[2], a[2], b[2]))
+    big = [torch.from_numpy(_rand((1024, 1024), s)).to(cuda) for s in (1, 2, 3)]
+    first = ops.schur_update(*big)
+    for _ in range(3):
+        assert torch.equal(first, ops.schur_update(*big))
+
+
+@pytest.mark.parametrize("case", ["panel-warp", "panel-block", "panel-stack",
+                                  "schur-f64", "schur-f64-inner", "schur-f32"])
+def test_panel_and_schur_launch_once_per_call(cuda, case):
+    """One CUDA launch a wrapper call, as chip_smoke.py holds them."""
+    if case.startswith("panel"):
+        shape = {"panel-warp": (32, 32), "panel-block": (48, 48),
+                 "panel-stack": (16, 32, 32)}[case]
+        a = torch.from_numpy(_dominant(shape, 3)).to(cuda)
+        assert _profiled_launches(lambda: ops.lu_panel(a)) == 1
+        return
+    dtype = torch.float32 if case == "schur-f32" else torch.float64
+    x = torch.from_numpy(_rand((1024, 1024), 4)).to(cuda, dtype)
+    c, a, b = x, x, x
+    if case == "schur-f64-inner":
+        c, a, b = x[32:, 32:], x[32:, :32], x[:32, 32:]
+    assert _profiled_launches(lambda: ops.schur_update(c, a, b)) == 1

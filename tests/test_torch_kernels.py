@@ -239,6 +239,38 @@ def test_dispatch_refuses_mixed_and_unknown_devices():
         ops.flash_attention(*(q.to("meta"),) * 3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lu_panel_route_by_width(dtype):
+    """One warp a tile up to 32 wide, one block a tile up to max_tile,
+    an error above; the route takes b and the dtype, never the batch."""
+    import inspect
+
+    from repro_torch.kernels import lu_panel
+
+    assert [lu_panel.route(b, dtype) for b in (1, 2, 31, 32)] == ["warp"] * 4
+    assert ([lu_panel.route(b, dtype) for b in (33, 48, 64, max_tile(dtype))]
+            == ["block"] * 4)
+    with pytest.raises(ValueError, match="blocked"):
+        lu_panel.route(max_tile(dtype) + 1, dtype)
+    assert list(inspect.signature(lu_panel.route).parameters) == ["b", "dtype"]
+    assert lu_panel.WARP_MAX == 32 and max_tile(torch.float64) == 170
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16, torch.float16])
+def test_schur_grid_refuses_what_the_card_would_refuse(dtype):
+    """65,535 blocks at most on the grid's y axis (row tiles: 128 rows for
+    the f64 kernel, 64 for the others) and z axis (the batch)."""
+    from repro_torch.kernels import schur
+
+    rows = schur.rows_per_block(dtype)
+    assert rows == (128 if dtype == torch.float64 else 64)
+    schur.check_grid(dtype, 65535, 65535 * rows)
+    for batch, m in ((1, 65535 * rows + 1), (65536, 1)):
+        with pytest.raises(ValueError, match="grid"):
+            schur.check_grid(dtype, batch, m)
+
+
 def test_max_tile_fits_shared_memory():
     for dtype, itemsize in ((torch.float64, 8), (torch.float32, 4)):
         b = max_tile(dtype)
