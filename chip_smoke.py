@@ -58,6 +58,39 @@ Phases, each printed as one JSON line:
    run, whose launches the kernels line reports; one warm prefill under
    torch.profiler.
 
+Then, from a random stream of their own (so the phases above keep their
+inputs), the f32 and mixed-precision slice and recovery, before phase 12:
+
+- routes: the mixed routes (the reference's acc_dtype: f32 stored with
+  f64 arithmetic, bf16 with f32) of the panel, both triangular solves
+  and the Schur update, and the f32 routes of the panel and the solves,
+  against their plain versions at lu_blocked's shapes (MIXED_ULPS,
+  F32_RTOL);
+- f32 protocol: TF32 off and an f32 matmul within K·2^-24·max|A·B| of
+  the f64 product; n = 4096 and a 16 × 1024 stack in float32, inline,
+  verified with exact signs and |Δlog|det|| <= 1e-4 against the card's
+  f64 slogdet;
+- sequential routes: `lu_blocked(x32, 1024)` plain and with
+  acc_dtype=float64 at n = 4096: launches, the device kernels' template
+  names (f32 and mixed), warm wall, and the mixed factors nearer the f64
+  factorization than the plain ones;
+- recovery: n = 4096 f64, N = 4, standby 1: server 2's block tamper
+  healed inline (factors bit-equal to the honest run's), through the
+  thread pool and through worker processes (n = 1024, on phase 10's
+  workers), server 2's in-band single-element tamper of 1e-3·max|U|
+  healed inline under q1 (bit-equal again), and a 16 × 1024 f32 stack
+  with one matrix's strip dropped, only that matrix spliced; each healed
+  determinant equal to the honest one at rtol 1e-10, collect_s beside
+  the honest dispatch_s.
+
+The kernels line then has a row per route besides the default f64 rows:
+"<kernel>:f32" (the f32 routes the f32 paths run), "<kernel>:f32_f64"
+(the mixed routes mixed lu_blocked runs) and "<kernel>:bf16_f32" (no
+path runs them: launches null, with a note), each with the device
+kernels' template names the profiler reports. Each timing names the
+profiler windows it took (profile_windows); the run line counts the
+timings that needed more than one.
+
 Each phase is driven with the launch counts set to 0 just before it and
 read just after, and fails if a kernel of its path never launched. Then
 it prints the whole run's wall time and the kernels line (launches on
@@ -120,10 +153,10 @@ WITNESS_REFERENCE = {"q3": (True, -1), "q1": (True, -1)}
 WITNESS_X_AUG_SHA256 = (
     "25a2211c34be8f432df7a5980931f47993e3b3c2d3d82f0cb56ab52930e29589")
 #: the card's published peaks (H100 SXM data sheet): HBM bytes/s and the
-#: f64 (tensor core), f32 and bf16 (tensor core, dense) operation rates
+#: f64 (tensor core), f32 and bf16/f16 (tensor core, dense) operation rates
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.float64: 67e12, torch.float32: 67e12,
-              torch.bfloat16: 989e12}
+              torch.bfloat16: 989e12, torch.float16: 989e12}
 #: flash attention against its plain version. Both sides accumulate in
 #: f32; they differ in summation order, in P where it is rounded to V's
 #: dtype (the kernel rounds exp(s - m) against the running max of each key
@@ -154,6 +187,37 @@ SERVE_TOL = {"decode_vs_prefill_bf16": 5e-2, "decode_vs_prefill_f32": 1e-4,
              "card_vs_cpu_f32": 1e-4}
 
 
+#: the mixed routes (the reference's acc_dtype): (route, storage type,
+#: arithmetic type, the template arguments the panel's and the solves'
+#: device kernels' names begin with). A mixed route and its plain version
+#: round once to the storage type from wide values that differ in
+#: summation order only, so they agree within MIXED_ULPS storage ulps of
+#: max|plain|.
+MIXED_ROUTES = (
+    ("f32_f64", torch.float32, torch.float64, "float, double"),
+    ("bf16_f32", torch.bfloat16, torch.float32, "__nv_bfloat16, float"),
+)
+#: the Schur update's device kernel on each route (f32 -> f64 on the f64
+#: tensor cores; bf16 -> f32 is the bf16 default route)
+SCHUR_KERNEL = {"f32": "schur_kernel<float, float>",
+                "f32_f64": "schur_dmma_kernel<float>",
+                "bf16_f32": "schur_kernel<__nv_bfloat16, float>"}
+MIXED_ULPS = 4
+#: the f32 default routes of the panel and the triangular solves against
+#: their plain versions: f32 arithmetic in another order and FMA
+#: contraction, within 1e-5 of max|plain|
+F32_RTOL = 1e-5
+#: the f32 protocol's bar on log|det| against the card's f64 slogdet
+F32_DLOG = 1e-4
+#: the recovery phase's reported tamper: server 2 scales its strip by
+#: 1.3 (report-level on the inline sweep, relayed downstream on the
+#: message transports); the default 5 % single-element tamper can pass
+#: verification (ROADMAP §C), and recovery starts only from a rejection
+REPORTED_TAMPER_KW = {"server": 2, "mode": "block", "magnitude": 0.3}
+#: the recovery phase's worker-process case: n (the honest relay through
+#: four worker processes takes seconds a pass at n = 4096)
+MP_RECOVERY_N = 1024
+
 #: device_events' padding before a timed loop: launches and seconds
 WARM_LAUNCHES, WARM_PAUSE_S = 64, 0.01
 TIMED_RANGE = "chip_smoke.timed"
@@ -173,6 +237,15 @@ def dominant(rng: np.random.Generator, shape) -> np.ndarray:
     stable."""
     n = shape[-1]
     return rng.standard_normal(shape) + n * np.eye(n)
+
+
+def triangles(rng, dev, lead, n, dtype=torch.float64):
+    """A well-conditioned unit-lower and an upper triangle, as LU gives
+    them."""
+    l = np.tril(rng.standard_normal((*lead, n, n)), -1) / n + np.eye(n)
+    u = np.triu(rng.standard_normal((*lead, n, n))) + n * np.eye(n)
+    return (torch.from_numpy(l).to(dev, dtype),
+            torch.from_numpy(u).to(dev, dtype))
 
 
 def event_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -197,6 +270,27 @@ def short_name(name: str) -> str:
     """A device event's kernel name without signature or namespaces."""
     name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
     return re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1].strip()
+
+
+def template_name(name: str) -> str:
+    """A device event's kernel name with its template arguments, without
+    the signature: "leaf_kernel<float, double, float, true>"."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return name.split("(", 1)[0].strip()
+
+
+#: the device kernels of the panel, the triangular solves and the Schur
+#: update, whose template arguments name their route
+ROUTED_KERNELS = ("lu_warp_kernel", "lu_panel_kernel", "leaf_kernel",
+                  "update_kernel", "schur_kernel", "schur_dmma_kernel")
+
+
+def route_kernels(fn) -> list:
+    """The routed kernels (by template name) that one call of fn put on
+    the card, from the profiler's device events."""
+    events, _ = device_events(fn, 1)
+    return sorted({template_name(e.name) for e in events
+                   if template_name(e.name).split("<")[0] in ROUTED_KERNELS})
 
 
 def device_events(fn, reps: int):
@@ -233,29 +327,40 @@ def device_events(fn, reps: int):
     return events, host_s
 
 
-def device_profile(fn, reps: int) -> tuple[float, int, float]:
-    """(device ms, device launches, device events) per call over `reps`
-    calls under torch.profiler; the events are every kernel and copy the
-    calls put on the card. Should the profiler still miss an event, the
-    launches are the events per call rounded, and the ms the mean
-    event's duration times the launches, so the call does not look
-    faster."""
-    events, _ = device_events(fn, reps)
+#: profiled windows tried before a window with no device events fails
+#: the run (the card's CUPTI tracing once returned an empty window for a
+#: call whose device events an earlier run of the script had recorded;
+#: the cause is not known). PROFILE_WINDOWS counts the timings profiled
+#: and those that needed more than one window, for the run line.
+PROFILE_ATTEMPTS = 3
+PROFILE_WINDOWS = {"timings": 0, "retried": 0}
+
+
+def device_profile(fn, reps: int) -> tuple[float, int, float, int]:
+    """(device ms, device launches, device events, windows profiled) per
+    call over `reps` calls under torch.profiler; the events are every
+    kernel and copy the calls put on the card. Should the profiler still
+    miss an event, the launches are the events per call rounded, and the
+    ms the mean event's duration times the launches, so the call does
+    not look faster. A window with no device event at all is profiled
+    again, up to PROFILE_ATTEMPTS windows."""
+    for windows in range(1, PROFILE_ATTEMPTS + 1):
+        events, _ = device_events(fn, reps)
+        if events:
+            break
+    PROFILE_WINDOWS["timings"] += 1
+    PROFILE_WINDOWS["retried"] += windows > 1
     check(bool(events), "the profiler recorded no device activity")
     per_call = len(events) / reps
     launches = max(1, round(per_call))
     mean_us = sum(e.time_range.elapsed_us() for e in events) / len(events)
-    return mean_us * launches / 1e3, launches, per_call
+    return mean_us * launches / 1e3, launches, per_call, windows
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time per call (device_profile)."""
-    return device_profile(fn, reps)[0]
-
-
-def timed(fn, reps: int) -> tuple[float, float]:
-    """(device ms, event ms) per call."""
-    return device_ms(fn, reps), event_ms(fn, reps)
+def timed(fn, reps: int) -> tuple[float, float, int]:
+    """(device ms, event ms, windows profiled) per call."""
+    ms, _, _, windows = device_profile(fn, reps)
+    return ms, event_ms(fn, reps), windows
 
 
 def counted(ops, fn):
@@ -352,18 +457,11 @@ def phase_kernels(rng, dev) -> dict:
     errs["lu_panel"] = worst
 
     # triangular solves: the Algorithm-3 strips and the panel strips
-    def triangles(lead, n):
-        l = (torch.from_numpy(np.tril(rng.standard_normal((*lead, n, n)), -1)
-                              / n + np.eye(n)).to(dev))
-        u = (torch.from_numpy(np.triu(rng.standard_normal((*lead, n, n)))
-                              + n * np.eye(n)).to(dev))
-        return l, u
-
     worst_l = worst_u = 0.0
     b = SINGLE_N // N_SERVERS
-    l, u = triangles((), b)
+    l, u = triangles(rng, dev, (), b)
     tile = torch.from_numpy(dominant(rng, (b, b))).to(dev)
-    lb, ub = triangles((BATCH,), BATCH_N // N_SERVERS)
+    lb, ub = triangles(rng, dev, (BATCH,), BATCH_N // N_SERVERS)
     cases = [
         ("1024x1024 vs 1024x1024", l, u,
          torch.from_numpy(rng.standard_normal((b, b))).to(dev),
@@ -428,9 +526,9 @@ def trsm_launches_by_rows(ops, fn):
     saved = {name: getattr(ops, name) for name in ("trsm_lower", "trsm_upper_right")}
 
     def counting(name, wrapper):
-        def call(tri, rhs):
+        def call(tri, rhs, **kw):
             before = ops.LAUNCHES[name]
-            out = wrapper(tri, rhs)
+            out = wrapper(tri, rhs, **kw)
             rows = tally.setdefault(name, {})
             rows[tri.shape[-1]] = (rows.get(tri.shape[-1], 0)
                                    + ops.LAUNCHES[name] - before)
@@ -581,14 +679,14 @@ def schur_scale(c, a, b) -> float:
             * float(a.abs().max().float()) * float(b.abs().max().float()))
 
 
-def phase_schur(rng, dev) -> float:
-    """The Schur kernel against its plain version; returns the f64 max
-    error."""
+def phase_schur(rng, dev) -> dict:
+    """The Schur kernel against its plain version; returns the max error
+    by dtype."""
     from repro_torch.kernels import ops, ref
 
     big = torch.from_numpy(rng.standard_normal((SINGLE_N, SINGLE_N))).to(dev)
     b = SEQ_BLOCK
-    worst64 = 0.0
+    worst = {dtype: 0.0 for dtype in SCHUR_TOL}
     for dtype, tol in SCHUR_TOL.items():
         def draw(shape):
             return torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
@@ -616,9 +714,8 @@ def phase_schur(rng, dev) -> float:
                   "case": label, "dtype": str(dtype), "max_abs_err": abs_err,
                   "scale": scale, "tolerance": rule})
             check(abs_err <= tol * scale, f"schur {label} {dtype}: {abs_err}")
-            if dtype == torch.float64:
-                worst64 = max(worst64, abs_err)
-    return worst64
+            worst[dtype] = max(worst[dtype], abs_err)
+    return worst
 
 
 def wall(fn) -> tuple[object, float]:
@@ -783,9 +880,36 @@ def request_costs(session, transport, edge_cls) -> list[dict]:
     return out
 
 
-def phase_multiprocess(rng, dev) -> dict:
+def recovery_case(res, honest, transport: str) -> dict:
+    """The recovery gates of one healed run: verified, healed, server 2
+    blamed first, the honest determinant at rtol 1e-10."""
+    rep = res.report.recovery
+    check(bool(np.all(res.verified)) and rep is not None and rep.ok,
+          f"{transport} recovery: verified {res.verified}")
+    check(rep.events[0].server == 2,
+          f"{transport} recovery blamed {rep.events[0].server}")
+    check(res.det.sign == honest.det.sign
+          and math.isclose(res.det.logabs, honest.det.logabs, rel_tol=1e-10,
+                           abs_tol=0.0),
+          f"{transport} healed det {res.det} vs honest {honest.det}")
+    return {"verified": bool(res.verified), "rounds": rep.rounds,
+            "servers_replaced": list(rep.servers_replaced),
+            "replacements": [e.replacement for e in rep.events],
+            "comm_elements": [e.comm_elements for e in rep.events],
+            "standby_used": rep.standby_used,
+            "dlogabs_vs_honest": res.det.logabs - honest.det.logabs,
+            "collect_s": res.report.timings.collect_s,
+            "honest_dispatch_s": honest.report.timings.dispatch_s,
+            "dispatch_s": res.report.timings.dispatch_s}
+
+
+def phase_multiprocess(rng, dev, rng_new) -> tuple[dict, dict]:
     """Spawned worker processes computing on the card; every task and
-    result crosses a pipe as wire frames."""
+    result crosses a pipe as wire frames. Then, on the same workers, the
+    recovery phase's worker-process case (rng_new's matrix): a reported
+    tamper by server 2 healed on a standby process. Returns the client's
+    launches and that case."""
+    from repro_torch import ServerFault
     from repro_torch.api import (EdgeServer, InlineTransport,
                                  MultiprocessTransport, SPDCClient)
     from repro_torch.kernels import ops
@@ -808,13 +932,23 @@ def phase_multiprocess(rng, dev) -> dict:
         warm, warm_s = wall(lambda: client.open_session(m, N_SERVERS).run(mp))
         check(warm.verified and warm.det == inline_out.det, "multiprocess warm")
         per_task = request_costs(session, mp, EdgeServer)
+        small = dominant(rng_new, (MP_RECOVERY_N, MP_RECOVERY_N))
+        tamper = ServerFault(**REPORTED_TAMPER_KW)
+        honest = client.open_session(small, N_SERVERS).run(mp)
+        healer = SPDCClient(recover=True, standby=1)
+        healed, healed_s = wall(lambda: healer.open_session(
+            small, N_SERVERS, faults=tamper).run(mp))
+        recovery = recovery_case(healed, honest, "multiprocess")
+        check(N_SERVERS in mp.workers, f"no standby process: {mp.workers}")
+        recovery.update(n=MP_RECOVERY_N, wall_s=healed_s,
+                        workers=list(mp.workers))
     emit({"phase": "multiprocess", "n": SINGLE_N, "servers": N_SERVERS,
           "dtype": "float64", "verified": out.verified,
           "bit_equal_to_inline": True, "max_abs_diff": diff,
           "spawn_and_first_sweep_s": first_s, "warm_wall_s": warm_s,
           "warm_timings": timings(warm), "per_task": per_task,
           "client_launches": pmop})
-    return pmop
+    return pmop, recovery
 
 
 def witness_matrix(seed: int, n: int) -> np.ndarray:
@@ -938,6 +1072,292 @@ def phase_profile(rng) -> None:
           "device_busy_share": busy_ms / (host_s * 1e3),
           "device_launches": sum(c for _, c in by_kernel.values()),
           "top_device_ms": {k: {"ms": v[0], "count": v[1]} for k, v in top}})
+
+
+def route_cases(rng, dev, dtype):
+    """{kernel: {case: operands}} at the shapes lu_blocked(x, 1024) gives
+    each kernel, in `dtype`: the panel at 32² and the (16, 32, 32) stack;
+    the triangular solves at 1024³ and on the 32-wide strips of a
+    diagonal tile; the Schur update at 1024³ and the K = 32 inner update
+    (strided views of a 1024² tile)."""
+    b = SEQ_BLOCK
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
+
+    tile = torch.from_numpy(dominant(rng, (b, b))).to(dev, dtype)
+    tri = tile[:INNER, :INNER]
+    l, u = triangles(rng, dev, (), b, dtype)
+    return {
+        "lu_panel": {
+            "32x32": (torch.from_numpy(dominant(rng, (INNER, INNER))).to(dev, dtype),),
+            "(16, 32, 32)": (torch.from_numpy(
+                dominant(rng, (BATCH, INNER, INNER))).to(dev, dtype),)},
+        "trsm_lower": {"1024^3": (l, draw(b, b)),
+                       "32x32 vs 32x992 strided": (tri, tile[:INNER, INNER:])},
+        "trsm_upper_right": {"1024^3": (u, draw(b, b)),
+                             "992x32 vs 32x32 strided": (tri, tile[INNER:, :INNER])},
+        "schur_update": {"1024^3": (draw(b, b), draw(b, b), draw(b, b)),
+                         "992x32x992 strided": (tile[INNER:, INNER:],
+                                                tile[INNER:, :INNER],
+                                                tile[:INNER, INNER:])},
+    }
+
+
+def phase_routes(rng, dev) -> dict:
+    """The mixed routes (both pairs) and the f32 default routes of the
+    panel and the triangular solves against their plain versions at the
+    shapes lu_blocked gives them; returns max errors by kernels-line row
+    ("<kernel>:<route>")."""
+    from repro_torch.kernels import ops, ref
+
+    errs = {}
+    routes = [(name, st, acc, MIXED_ULPS * torch.finfo(st).eps)
+              for name, st, acc, _ in MIXED_ROUTES]
+    routes.append(("f32", torch.float32, None, F32_RTOL))
+    for route, st, acc, tol in routes:
+        cases = route_cases(rng, dev, st)
+        if acc is None:  # phase 7 holds the f32 Schur route
+            del cases["schur_update"]
+        line = {}
+        for kernel, shaped in cases.items():
+            worst = 0.0
+            for label, operands in shaped.items():
+                got = getattr(ops, kernel)(*operands, acc_dtype=acc)
+                want = getattr(ref, f"{kernel}_ref")(*operands, acc)
+                torch.cuda.synchronize()
+                abs_err, rel = max_err(got.double(), want.double())
+                check(got.dtype == st, f"{kernel}:{route} stored {got.dtype}")
+                check(rel <= tol, f"{kernel}:{route} {label}: {rel} > {tol}")
+                line[f"{kernel} {label}"] = {"max_abs_err": abs_err,
+                                             "max_rel_err": rel}
+                worst = max(worst, abs_err)
+            errs[f"{kernel}:{route}"] = worst
+        emit({"phase": "kernel_vs_plain", "kernel": "routes", "route": route,
+              "storage": str(st), "arithmetic": str(acc or st),
+              "cases": line, "tolerance": f"{tol} * max|plain|"})
+    return errs
+
+
+def phase_f32_protocol(rng, dev) -> tuple[dict, dict]:
+    """The f32 protocol on the card: matrix products in full f32 (no
+    TF32), then a single n = 4096 and a 16 × 1024 stack, inline, against
+    the card's f64 slogdet. Returns the single run's launches and the
+    stack's."""
+    import repro_torch
+    from repro_torch.kernels import ops
+
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "TF32 matmul on")
+    check(torch.get_float32_matmul_precision() == "highest",
+          f"f32 matmul precision {torch.get_float32_matmul_precision()}")
+    # lu_nserver's Schur terms are torch.matmul: an f32 product summed in
+    # f32 errs by at most K·2^-24·|A|·|B| elementwise; held normwise to
+    # K·2^-24·max|A·B|, which TF32 (operands rounded to 2^-11) misses
+    # by an order of magnitude at K = 1024
+    k = SEQ_BLOCK
+    a, b = (torch.from_numpy(rng.standard_normal((k, k))).to(dev, torch.float32)
+            for _ in range(2))
+    exact = a.double() @ b.double()
+    mm_err = float(((a @ b).double() - exact).abs().max())
+    mm_bound = k * 2.0**-24 * float(exact.abs().max())
+    check(mm_err <= mm_bound, f"f32 matmul err {mm_err} > {mm_bound}")
+
+    def run_and_check(m, label):
+        res, launches = run_counted(ops, lambda: repro_torch.outsource_determinant(
+            m, N_SERVERS, dtype="float32"))
+        want = slogdet_det(torch.from_numpy(m).to(dev))
+        got_dets = res.dets if m.ndim == 3 else [res.det]
+        wants = want if m.ndim == 3 else [want]
+        dlog = [g.logabs - w.logabs for g, w in zip(got_dets, wants)]
+        check(bool(np.all(res.verified)), f"f32 {label} verified {res.verified}")
+        check(all(g.sign == w.sign for g, w in zip(got_dets, wants)),
+              f"f32 {label} signs")
+        check(max(abs(d) for d in dlog) <= F32_DLOG, f"f32 {label} dlog {dlog}")
+        warm, warm_s = wall(lambda: repro_torch.outsource_determinant(
+            m, N_SERVERS, dtype="float32"))
+        check(bool(np.all(warm.verified)), f"f32 {label} warm run")
+        return res, launches, {
+            "verified": int(np.sum(res.verified)),
+            "max_abs_dlogabs": max(abs(d) for d in dlog),
+            "residual": float(np.max(res.residual)),
+            "eps": float(np.max(res.report.verdict.eps)),
+            "launches": launches, "warm_wall_s": warm_s,
+            "warm_timings": timings(warm)}
+
+    single, launches, single_line = run_and_check(
+        dominant(rng, (SINGLE_N, SINGLE_N)), "single")
+    check(launches["ced"] == 1, f"f32 ced launches {launches['ced']}")
+    for name, count in expected_launches(SINGLE_N).items():
+        check(launches[name] == count, f"f32 {name} launches {launches[name]}")
+    _, batch_launches, batch_line = run_and_check(
+        dominant(rng, (BATCH, BATCH_N, BATCH_N)), "batch")
+    emit({"phase": "f32_protocol", "servers": N_SERVERS, "dtype": "float32",
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "float32_matmul_precision": torch.get_float32_matmul_precision(),
+          "matmul_1024_max_abs_err": mm_err, "matmul_bound": mm_bound,
+          "single": {"n": SINGLE_N, "rotate_k": single.meta.rotate_k,
+                     **single_line},
+          "batch": {"shape": [BATCH, BATCH_N, BATCH_N], **batch_line}})
+    return launches, batch_launches
+
+
+def phase_sequential_routes(rng, dev) -> dict:
+    """lu_blocked(x32, 1024), plain f32 (the f32 Schur route) and mixed
+    (acc_dtype=float64), at n = 4096: warm wall, launches by kernel, the
+    device kernels' routes, and each one's distance from the f64
+    factorization. Returns {route: launches}."""
+    from repro_torch.core.lu import lu_blocked
+    from repro_torch.kernels import ops
+
+    x = torch.from_numpy(dominant(rng, (SINGLE_N, SINGLE_N))).to(dev)
+    x32 = x.float()
+    l64, u64 = lu_blocked(x, SEQ_BLOCK)
+    nb, panels = SINGLE_N // SEQ_BLOCK, SEQ_BLOCK // INNER
+    want_counts = {"ced": 0, "lu_panel": nb * panels,
+                   "trsm_lower": nb * (panels - 1) + nb * (nb - 1) // 2,
+                   "trsm_upper_right": nb * (panels - 1) + nb * (nb - 1) // 2,
+                   "schur_update": sum(k * k for k in range(nb))
+                   + nb * (panels - 1), "flash_attention": 0}
+    out, lines = {}, {}
+    for route, acc, targs in (("f32", None, "float, float"),
+                              ("f32_f64", torch.float64, "float, double")):
+        (l, u), launches = run_counted(
+            ops, lambda: lu_blocked(x32, SEQ_BLOCK, acc_dtype=acc))
+        check(launches == want_counts, f"lu_blocked {route} launches {launches}")
+        kernels = route_kernels(lambda: lu_blocked(x32, SEQ_BLOCK, acc_dtype=acc))
+        check(SCHUR_KERNEL[route] in kernels
+              and all(f"<{targs}" in k or k == SCHUR_KERNEL[route]
+                      for k in kernels),
+              f"lu_blocked {route} ran {kernels}")
+        residual = float((l.double() @ u.double() - x32.double()).abs().max()
+                         / x32.double().abs().max())
+        dist = max(float((f.double() - g).abs().max() / g.abs().max())
+                   for f, g in ((l, l64), (u, u64)))
+        _, warm_s = wall(lambda: lu_blocked(x32, SEQ_BLOCK, acc_dtype=acc))
+        out[route] = launches
+        lines[route] = {"launches": launches, "kernels": kernels,
+                        "residual": residual, "distance_from_f64": dist,
+                        "warm_wall_s": warm_s}
+    check(lines["f32_f64"]["residual"] < lines["f32"]["residual"],
+          "mixed lu_blocked residual not below plain f32's")
+    check(lines["f32_f64"]["distance_from_f64"] < lines["f32"]["distance_from_f64"],
+          "mixed lu_blocked not nearer the f64 factors than plain f32")
+    emit({"phase": "sequential_routes", "n": SINGLE_N, "block": SEQ_BLOCK,
+          "residual": "max|L·U - X| / max|X| in f64",
+          "distance_from_f64": "max over L, U of max|F - F64| / max|F64|, "
+                               "F64 the f64 lu_blocked of the same matrix",
+          **lines})
+    return out
+
+
+def healed_factors(session, result) -> bool:
+    """Whether the factors Session.collect healed on this run and
+    Decipher read (RecoveryReport.factors) are the honest sweep's of the
+    same session, bit for bit."""
+    from repro_torch.core.lu import lu_nserver
+
+    rep = result.report.recovery
+    honest = lu_nserver(session.x_aug, N_SERVERS)[:2]
+    return (rep is not None and rep.ok and rep.rounds >= 1
+            and same_factors(rep.factors, honest))
+
+
+def phase_recovery(rng, dev, multiprocess: dict) -> dict:
+    """Verification-driven recovery at n = 4096 f64, N = 4, standby 1: a
+    reported tamper by server 2 on the inline and thread-pool transports
+    (worker processes: `multiprocess`, from phase 10's workers), an
+    in-band tamper of 1e-3·max|U| by server 2 inline, and a 16 × 1024 f32
+    stack with one matrix's strip dropped."""
+    import repro_torch
+    from repro_torch import ServerFault, SPDCClient, ThreadPoolTransport
+    from repro_torch.api import InlineTransport
+    from repro_torch.core.faults import _tamper_position
+    from repro_torch.core.lu import lu_block_row
+    from repro_torch.kernels import ops
+
+    m = dominant(rng, (SINGLE_N, SINGLE_N))
+    honest = repro_torch.outsource_determinant(m, N_SERVERS)
+    check(honest.verified, "recovery phase honest run")
+    reported = ServerFault(**REPORTED_TAMPER_KW)
+    healer = SPDCClient(recover=True, standby=1)
+    inline_session = healer.open_session(m, N_SERVERS, faults=reported)
+    inline, launches = run_counted(ops, inline_session.run)
+    line = {"inline_reported_server2": recovery_case(inline, honest, "inline")}
+    check(healed_factors(inline_session, inline),
+          "inline healed factors differ from the honest run's")
+    # what one re-dispatched shard costs: server 2's block row computed
+    # in place, and the same re-dispatch as the inline transport runs it
+    # (a ShardTask through host memory, an EdgeServer on the card, the
+    # strips back), beside the whole sweep
+    session = healer.open_session(m, N_SERVERS)
+    inline_tp = InlineTransport()
+    (_, u_sweep), sweep_s = wall(lambda: inline_tp.sweep(session.x_aug,
+                                                         N_SERVERS))
+    _, row_s = wall(lambda: lu_block_row(session.x_aug, u_sweep, 2, N_SERVERS))
+    _, repair_s = wall(lambda: inline_tp.repair(
+        session._repair_task(2, 1, u_sweep), replacement=N_SERVERS))
+    line["shard_cost_server2"] = {"sweep_s": sweep_s, "lu_block_row_s": row_s,
+                                  "inline_repair_s": repair_s}
+    with ThreadPoolTransport() as tp:
+        pooled, pool_launches = run_counted(
+            ops, lambda: healer.open_session(m, N_SERVERS,
+                                             faults=reported).run(tp))
+    line["threadpool_reported_server2"] = recovery_case(pooled, honest,
+                                                        "threadpool")
+    line["multiprocess_reported_server2"] = multiprocess
+    # in band: the entry server 2's fault hits moves by 1e-3·max|U|
+    # (x -> x(1 + g) + g), and the relay carries it downstream. Verified
+    # under q1: q3 reads only the diagonal of L·U, which the downstream
+    # servers keep consistent with the poisoned row (phase 11)
+    b = SINGLE_N // N_SERVERS
+    q1_healer = SPDCClient(method="q1", recover=True, standby=1)
+    q1_honest = repro_torch.outsource_determinant(m, N_SERVERS, method="q1")
+    session = healer.open_session(m, N_SERVERS)
+    u_honest = InlineTransport().sweep(session.x_aug, N_SERVERS)[1]
+    probe = ServerFault(server=2, mode="single", in_band=True)
+    r, c = _tamper_position(probe, block=b, n=SINGLE_N, factor="u")
+    entry = float(u_honest[2 * b + r, c])
+    gain = 1e-3 * float(u_honest.abs().max()) / (entry + 1.0)
+    in_band_fault = ServerFault(server=2, mode="single", in_band=True,
+                                magnitude=gain)
+    in_band_session = q1_healer.open_session(m, N_SERVERS,
+                                             faults=in_band_fault)
+    in_band, in_band_launches = run_counted(ops, in_band_session.run)
+    line["inline_in_band_server2_q1"] = {
+        **recovery_case(in_band, q1_honest, "inline in-band"),
+        "magnitude": gain, "entry": entry, "shift": gain * (entry + 1.0)}
+    check(healed_factors(in_band_session, in_band),
+          "inline in-band healed factors differ from the honest run's")
+    stack = dominant(rng, (BATCH, BATCH_N, BATCH_N))
+    bad = BATCH // 3
+    f32, f32_launches = run_counted(ops, lambda: repro_torch.outsource_determinant(
+        stack, N_SERVERS, dtype="float32", recover=True, standby=1,
+        faults=ServerFault(server=2, kind="dropout", matrices=(bad,))))
+    want = slogdet_det(torch.from_numpy(stack).to(dev))
+    rep = f32.report.recovery
+    check(bool(np.all(f32.verified)) and rep is not None and rep.ok,
+          f"f32 stack recovery {f32.verified}")
+    check([e.matrices for e in rep.events] == [(bad,)],
+          f"f32 stack spliced {[e.matrices for e in rep.events]}")
+    dlog = [g.logabs - w.logabs for g, w in zip(f32.dets, want)]
+    check(all(g.sign == w.sign for g, w in zip(f32.dets, want))
+          and max(abs(d) for d in dlog) <= F32_DLOG, f"f32 stack dets {dlog}")
+    line["f32_stack_dropout_server2"] = {
+        "shape": [BATCH, BATCH_N, BATCH_N], "matrix": bad,
+        "verified": int(np.sum(f32.verified)), "rounds": rep.rounds,
+        "spliced": [list(e.matrices) for e in rep.events],
+        "max_abs_dlogabs": max(abs(d) for d in dlog),
+        "collect_s": f32.report.timings.collect_s,
+        "dispatch_s": f32.report.timings.dispatch_s}
+    for other in (pool_launches, in_band_launches, f32_launches):
+        for name in launches:
+            launches[name] += other[name]
+    emit({"phase": "recovery", "n": SINGLE_N, "servers": N_SERVERS,
+          "dtype": "float64", "standby": 1, **line,
+          "healed_bit_equal_to_honest": {"inline_reported": True,
+                                         "inline_in_band": True},
+          "launches": launches})
+    return launches
 
 
 def flash_inputs(rng, dev, dtype, b, hq, hkv, sq, sk, d, cache_len=None):
@@ -1179,41 +1599,46 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict) -> dict:
     entries: list[dict] = []
 
     def case(kernel, plain, library, reps, plain_reps, nbytes, ops_count,
-             dtype=f64, expect_launches=None) -> dict:
+             dtype=f64, expect_launches=None, peak=None) -> dict:
         """Device ms and CUDA launches per call of the kernel, the ms of
         its plain version and the library call at one shape, beside the
-        bound; CUDA-event times in event_ms. The launches are the
-        profiled calls' device events per call, rounded, and held to
+        bound (operations at `peak`'s rate, default `dtype`'s);
+        CUDA-event times in event_ms, and the profiler windows each
+        timing took in profile_windows. The launches are the profiled
+        calls' device events per call, rounded, and held to
         `expect_launches` (the wrapper's formula) where given. Should
         the profiler still miss an event, a wrapper off its formula is
         off on every call, so at most a quarter of the calls may lack
         one."""
-        bound, by = bound_ms(nbytes, ops_count, dtype)
-        ms, launches_per_call, per_call = device_profile(kernel, reps)
+        bound, by = bound_ms(nbytes, ops_count, peak or dtype)
+        ms, launches_per_call, per_call, windows = device_profile(kernel, reps)
         check(abs(per_call - launches_per_call) * reps <= reps // 4,
               f"{per_call} device events a call")
         if expect_launches is not None:
             check(launches_per_call == expect_launches,
                   f"{per_call} CUDA launches a call, formula {expect_launches}")
         kernel_event = event_ms(kernel, reps)
-        plain_ms, plain_event = timed(plain, plain_reps)
-        lib_ms, lib_event = timed(library, reps) if library else (None, None)
+        plain_ms, plain_event, plain_windows = timed(plain, plain_reps)
+        lib_ms, lib_event, lib_windows = (timed(library, reps) if library
+                                          else (None, None, None))
         return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                 "bound_ms": bound, "bound_by": by,
                 "cuda_launches_per_call": launches_per_call,
                 "device_events_per_call": per_call,
                 "event_ms": {"kernel": kernel_event, "plain": plain_event,
-                             "library": lib_event}}
+                             "library": lib_event},
+                "profile_windows": {"kernel": windows, "plain": plain_windows,
+                                    "library": lib_windows}}
 
     def row(name, source, replaces, shape, kernel, plain, library, reps,
             plain_reps, nbytes, ops_count, dtype=f64, expect_launches=None,
-            **extra):
+            peak=None, **extra):
         entries.append({
             "name": name, "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "shape": shape,
             "dtype": str(dtype).removeprefix("torch."),
             **case(kernel, plain, library, reps, plain_reps, nbytes,
-                   ops_count, dtype, expect_launches),
+                   ops_count, dtype, expect_launches, peak),
             **extra,
         })
 
@@ -1352,9 +1777,104 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict) -> dict:
              "(decode_case's cuda_launches_per_call); the library call "
              "(scaled_dot_product_attention) is a yardstick the port never "
              "calls")
+    # the f32 routes the f32 protocol and plain f32 lu_blocked run, and
+    # the mixed routes (both pairs; mixed lu_blocked runs f32 -> f64):
+    # the bound counts the storage type's bytes and the arithmetic
+    # type's operations
+    m32 = torch.from_numpy(rng.standard_normal((n, n))).to(dev, torch.float32)
+    v32 = torch.from_numpy(rng.uniform(0.5, 2.0, n)).to(dev, torch.float32)
+    row("ced:f32", "ced.cu", "src/repro/kernels/ced.py:69", [n, n],
+        lambda: ops.ced(m32, v32, 1), lambda: ref.ced_ref(m32, v32, 1), None,
+        20, 10, (2 * n * n + n) * 4, n * n, dtype=torch.float32,
+        note="the f32 protocol's Cipher")
+    w = b - INNER
+    tile_ops = float((np.arange(INNER) + 2 * np.arange(INNER) ** 2).sum())
+    routes = [(name, st, acc, targs) for name, st, acc, targs in MIXED_ROUTES]
+    routes.append(("f32", torch.float32, None, "float, float"))
+    for route, st, acc, targs in routes:
+        size = torch.finfo(st).bits // 8
+        arith = acc or st
+        cases = route_cases(rng, dev, st)
+        f32_lib = acc is None
+
+        def names_of(kernel_fn, want=f"<{targs}"):
+            found = route_kernels(kernel_fn)
+            check(bool(found) and all(want in k for k in found),
+                  f"route {route} ran {found}")
+            return found
+
+        (tile,), (stack,) = cases["lu_panel"].values()
+        lib_panel = ((lambda t: lambda: torch.linalg.lu_factor_ex(t, pivot=False))
+                     if f32_lib else (lambda t: None))
+        panel = lambda t: lambda: ops.lu_panel(t, acc_dtype=acc)
+        plain_panel = lambda t: lambda: ref.lu_panel_ref(t, acc)
+        batch_case = case(panel(stack), plain_panel(stack), lib_panel(stack),
+                          50, 10, 2 * BATCH * INNER * INNER * size,
+                          BATCH * tile_ops, arith, expect_launches=1)
+        row(f"lu_panel:{route}", "lu_panel.cu",
+            "src/repro/kernels/lu_panel.py:52", [INNER, INNER], panel(tile),
+            plain_panel(tile), lib_panel(tile), 50, 10,
+            2 * INNER * INNER * size, tile_ops, arith, expect_launches=1,
+            batch_case={"shape": [BATCH, INNER, INNER], **batch_case},
+            kernels=names_of(panel(tile)), storage=str(st),
+            arithmetic=str(arith))
+        for kernel, source, tri_bytes, ops_of in (
+                ("trsm_lower", "src/repro/kernels/trsm.py:74",
+                 lambda k: k * (k - 1) / 2, lambda k, mm: k * (k - 1) * mm),
+                ("trsm_upper_right", "src/repro/kernels/trsm.py:114",
+                 lambda k: k * (k + 1) / 2, lambda k, mm: k * k * mm)):
+            (tri, rhs), (stri, srhs) = cases[kernel].values()
+            call = lambda t, r: lambda: getattr(ops, kernel)(t, r, acc_dtype=acc)
+            plain = lambda t, r: lambda: getattr(ref, f"{kernel}_ref")(t, r, acc)
+            if not f32_lib:
+                lib = lambda t, r: None
+            elif kernel == "trsm_lower":
+                lib = lambda t, r: lambda: torch.linalg.solve_triangular(
+                    t, r, upper=False, unitriangular=True)
+            else:
+                lib = lambda t, r: lambda: torch.linalg.solve_triangular(
+                    t, r, upper=True, left=False)
+            strip_case = case(call(stri, srhs), plain(stri, srhs),
+                              lib(stri, srhs), 50, 10,
+                              (tri_bytes(INNER) + 2 * INNER * w) * size,
+                              ops_of(INNER, w), arith,
+                              expect_launches=trsm.cuda_launches(INNER))
+            row(f"{kernel}:{route}", "trsm.cu", source, [b, b, b],
+                call(tri, rhs), plain(tri, rhs), lib(tri, rhs), 10, 3,
+                (tri_bytes(b) + 2 * b * b) * size, ops_of(b, b), arith,
+                expect_launches=trsm.cuda_launches(b),
+                strip_case={"shape": [INNER, INNER, w], **strip_case},
+                kernels=names_of(call(tri, rhs)), storage=str(st),
+                arithmetic=str(arith))
+        (cs, as_, bs), (ic, ia, ib) = cases["schur_update"].values()
+        upd = lambda c, a, bb: lambda: ops.schur_update(c, a, bb, acc_dtype=acc)
+        plain_upd = lambda c, a, bb: lambda: ref.schur_update_ref(c, a, bb, acc)
+        # one PyTorch call computes the same function where the route's
+        # sum is the storage type's own (f32), or f32 for bf16 (addmm)
+        lib_upd = ((lambda c, a, bb: lambda: torch.addmm(c, a, bb, alpha=-1))
+                   if acc != torch.float64 else (lambda c, a, bb: None))
+        # products of bf16/f16 operands are exact in f32, summed in f32:
+        # what the tensor cores' bf16/f16 route computes, so the bound
+        # takes that rate; the panel and the solves multiply f32
+        # intermediates and stay at the f32 rate
+        schur_peak = st if st in (torch.bfloat16, torch.float16) else arith
+        inner_case = case(upd(ic, ia, ib), plain_upd(ic, ia, ib),
+                          lib_upd(ic, ia, ib), 50, 10,
+                          (2 * w * w + 2 * INNER * w) * size, 2 * w * w * INNER,
+                          arith, expect_launches=1, peak=schur_peak)
+        row(f"schur_update:{route}", "schur.cu", "src/repro/kernels/gemm.py:46",
+            [b, b, b], upd(cs, as_, bs), plain_upd(cs, as_, bs),
+            lib_upd(cs, as_, bs), 20, 20, 4 * b * b * size, 2 * b * b * b,
+            arith, expect_launches=1, peak=schur_peak,
+            inner_case={"shape": [w, INNER, w], **inner_case},
+            kernels=names_of(upd(cs, as_, bs), SCHUR_KERNEL[route]),
+            storage=str(st), arithmetic=str(arith))
     for e in entries:
         e.update(route="cuda", launches=launches[e["name"]],
                  max_abs_err=errs[e["name"]])
+        if e["launches"] is None:
+            e["launches_note"] = ("no path of the port runs this route, so "
+                                  "the run has no launch count for it")
     return {"kernels": entries}
 
 
@@ -1373,6 +1893,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(args.seed)
+    # the f32, mixed-route and recovery phases draw from a stream of their
+    # own, so the earlier phases keep their inputs
+    rng_routes = np.random.default_rng([args.seed, 1])
     dev = torch.device("cuda", torch.cuda.current_device())
 
     phase_build()
@@ -1387,12 +1910,25 @@ def main() -> int:
         "padded": (phase_padded(rng, dev), MAIN_PATH),
         "tamper": (phase_tamper(rng), MAIN_PATH),
     }
-    errs["schur_update"] = phase_schur(rng, dev)
+    schur_errs = phase_schur(rng, dev)
+    errs["schur_update"] = schur_errs[torch.float64]
+    errs["schur_update:f32"] = schur_errs[torch.float32]
     per_phase["sequential"] = (phase_sequential(rng, dev), SEQUENTIAL_PATH)
     per_phase["role_split"] = (phase_role_split(rng, dev), MAIN_PATH)
     # the workers launch the server kernels in their own processes
-    per_phase["multiprocess"] = (phase_multiprocess(rng, dev), CLIENT_PATH)
+    mp_launches, mp_recovery = phase_multiprocess(rng, dev, rng_routes)
+    per_phase["multiprocess"] = (mp_launches, CLIENT_PATH)
     per_phase["faults"] = (phase_faults(rng), MAIN_PATH)
+    errs.update(phase_routes(rng_routes, dev))
+    errs["ced:f32"] = errs["ced"]  # phase 2's CED cases include f32
+    f32_single, f32_batch = phase_f32_protocol(rng_routes, dev)
+    per_phase["f32_single"] = (f32_single, MAIN_PATH)
+    per_phase["f32_batch"] = (f32_batch, MAIN_PATH)
+    seq_routes = phase_sequential_routes(rng_routes, dev)
+    per_phase["sequential_f32"] = (seq_routes["f32"], SEQUENTIAL_PATH)
+    per_phase["sequential_f32_f64"] = (seq_routes["f32_f64"], SEQUENTIAL_PATH)
+    per_phase["recovery"] = (phase_recovery(rng_routes, dev, mp_recovery),
+                             MAIN_PATH)
     errs["flash_attention"] = phase_flash(rng, dev)
     per_phase["serve"] = (phase_serve(rng, dev, args.seed), SERVE_PATH)
     for phase, (launches, path) in per_phase.items():
@@ -1402,8 +1938,18 @@ def main() -> int:
     launches = dict(per_phase["single"][0])
     launches["schur_update"] = per_phase["sequential"][0]["schur_update"]
     launches["flash_attention"] = per_phase["serve"][0]["flash_attention"]
+    # each route's row: its launches on the path that runs it (the f32
+    # protocol's single run, plain f32 and mixed lu_blocked); no path
+    # runs the bf16 -> f32 routes, so their rows carry launches null
+    for name in ("ced", "lu_panel", "trsm_lower", "trsm_upper_right"):
+        launches[f"{name}:f32"] = f32_single[name]
+    for name in SEQUENTIAL_PATH:
+        launches[f"{name}:f32_f64"] = seq_routes["f32_f64"][name]
+        launches[f"{name}:bf16_f32"] = None
+    launches["schur_update:f32"] = seq_routes["f32"]["schur_update"]
     line = kernels_line(rng, dev, launches, errs, strips)
-    emit({"phase": "run", "wall_s": time.perf_counter() - started})
+    emit({"phase": "run", "wall_s": time.perf_counter() - started,
+          "profile_windows": PROFILE_WINDOWS})
     emit(line)
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

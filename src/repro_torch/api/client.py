@@ -16,13 +16,20 @@ probes verify against. What leaves the session is only what
 `Session.tasks()` emits: per-server ShardTasks holding encrypted block
 rows and dispatch sub-seeds, boundary-checked as they are minted.
 `Session.collect()` authenticates the factors (a full pair, or the
-servers' ShardResults) with a secret-keyed probe and deciphers.
+servers' ShardResults) with a secret-keyed probe, then, when the client
+opted into recovery (`recover=True`), runs the verification-driven
+re-dispatch loop (distrib.recovery): the session mints new ShardTasks
+for the blamed servers (a fresh sub-seed per attempt, the verified
+upstream U rows attached) and runs them on replacement workers through
+the same transport, then deciphers. Servers still never talk backwards;
+the client re-issues work.
 
 Ported here: one matrix and same-size stacks, on the inline, thread-pool
-and multiprocess transports, with simulated fault plans; `Session.start`
-and `SPDCClient.run_pipelined` overlap one session's wire time with the
-next one's PMOP. Mixed-size lists (ROADMAP A11), verification-driven
-recovery (A8) and rateless dispatch (A9) raise NotImplementedError.
+and multiprocess transports, with simulated fault plans, recovery with
+N + r standbys and the straggler deadline; `Session.start` and
+`SPDCClient.run_pipelined` overlap one session's wire time with the next
+one's PMOP. Mixed-size lists (ROADMAP A11) and rateless dispatch (A9)
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -75,6 +82,9 @@ _FULL_CHECK_ELEMS = 1 << 20
 
 _NUMPY_DTYPES = {torch.float64: np.float64, torch.float32: np.float32,
                  torch.float16: np.float16}
+#: the compute dtypes the protocol is verified in; the panel and
+#: triangular-solve kernels take no half-precision storage on their own
+_PROTOCOL_DTYPES = (torch.float64, torch.float32)
 
 
 def _equilibrate_augment(x, rng, *, padding, equilibrate):
@@ -104,7 +114,13 @@ class SPDCClient:
     mode: str = "ewd"
     method: str = "q3"
     faithful_sign: bool = False
+    #: heal a rejected result by re-dispatching the blamed shards
     recover: bool = False
+    #: spare servers provisioned for recovery (ServerPool)
+    standby: int = 0
+    #: rounds a delayed server may lag before it counts as dropped out
+    #: (core.faults.resolve_delays); None waits for any delay
+    straggler_deadline: int | None = None
     dtype: Any = "float64"
     growth_safe: bool | None = None
     equilibrate: bool | None = None
@@ -120,8 +136,6 @@ class SPDCClient:
     def __post_init__(self):
         from ..core.protocol import _resolve_growth_controls, resolve_dtype
 
-        if self.recover:
-            raise NotImplementedError("verification-driven recovery: ROADMAP A8")
         if self.rateless:
             raise NotImplementedError("rateless dispatch: ROADMAP A9")
         self.device = resolve_device(self.device)
@@ -203,8 +217,14 @@ class SPDCClient:
         """
         if isinstance(m, (list, tuple)):
             raise NotImplementedError("mixed-size lists: ROADMAP A11")
+        if self.dtype not in _PROTOCOL_DTYPES:
+            raise ValueError(
+                f"dtype {self.dtype} is not a verified protocol dtype "
+                "(float64 or float32): the servers' panel and triangular-"
+                "solve kernels compute half precision only as mixed "
+                "routes (ROADMAP B7)")
         t0 = time.perf_counter()
-        plan = resolve_delays(normalize_plan(faults), None)
+        plan = resolve_delays(normalize_plan(faults), self.straggler_deadline)
         m_host = self._host_copy(m)
         m_dev = torch.from_numpy(m_host).to(self.device)
         if m_host.ndim == 3 and m_host.shape[-1] == m_host.shape[-2]:
@@ -332,6 +352,40 @@ class Session:
         self._assert_boundary(out, check_boundary)
         return out
 
+    def _repair_task(self, server: int, attempt: int, u) -> ShardTask:
+        """A verification-driven re-issue of one blamed block row: a
+        fresh dispatch sub-seed and the verified upstream U rows attached
+        (the replacement is stateless and the culprit's relay is not
+        trusted)."""
+        from ..distrib.recovery import dispatch_subseed
+
+        b, s0 = self.block, server * self.block
+        return ShardTask(
+            server=server,
+            num_servers=self.num_servers,
+            x_row=self.x_aug[..., s0 : s0 + b, :]
+            .detach().to("cpu", copy=True).numpy(),
+            subseed=dispatch_subseed(self.digest, server, attempt),
+            style="nserver",
+            attempt=attempt,
+            u_upstream=u[..., :s0, :].detach().to("cpu", copy=True).numpy(),
+            session_id=self.session_id,
+        )
+
+    def _repair_dispatch(self, transport):
+        """recover_lu's dispatch hook: each re-dispatch minted by
+        `_repair_task` and run on its replacement through `transport`;
+        the strips come back as tensors on the session's device."""
+        dev, dt = self.x_aug.device, self.x_aug.dtype
+
+        def dispatch(x, u_now, server, attempt, replacement):
+            res = transport.repair(self._repair_task(server, attempt, u_now),
+                                   replacement=replacement)
+            return (torch.tensor(np.asarray(res.l_row), dtype=dt, device=dev),
+                    torch.tensor(np.asarray(res.u_row), dtype=dt, device=dev))
+
+        return dispatch
+
     def _assert_boundary(self, tasks, check_boundary) -> None:
         """No plaintext, no key material, no unexpected fields — checked
         at the moment messages are minted, not left to code review."""
@@ -408,7 +462,7 @@ class Session:
             l, u = self._assemble(results)
         synchronize(self.x_aug.device)
         self._dispatch_s = time.perf_counter() - t0
-        return self.collect((l, u))
+        return self.collect((l, u), transport=transport)
 
     def start(self, transport=None) -> "PendingResult":
         """Nonblocking dispatch: ship this session's Parallelize stage and
@@ -460,14 +514,16 @@ class Session:
 
     # -- verify and decipher -------------------------------------------------
 
-    def collect(self, results):
-        """Authenticate → Decipher. results: an (L, U) pair of full
-        factors, or a list of ShardResults to assemble. Returns
-        core.protocol.SPDCResult / SPDCBatchResult."""
+    def collect(self, results, *, transport=None):
+        """Authenticate → (recovery) → Decipher. results: an (L, U) pair
+        of full factors, or a list of ShardResults to assemble; transport:
+        where recovery re-dispatches (default: the client's, else
+        inline). Returns core.protocol.SPDCResult / SPDCBatchResult."""
         from ..core.protocol import (
             SessionTimings, SPDCBatchResult, SPDCReport, SPDCResult,
             _probe_rng,
         )
+        from ..distrib.recovery import recover_lu
 
         t_collect = time.perf_counter()
         if (isinstance(results, tuple) and len(results) == 2
@@ -481,12 +537,22 @@ class Session:
             l, u, self.x_aug, num_servers=self.num_servers,
             method=self.client.method, rng=_probe_rng(self.digest),
         )
+        report = None
+        if self.client.recover and not bool(np.all(verdict.ok)):
+            l, u, verdict, report = recover_lu(
+                l, u, self.x_aug, num_servers=self.num_servers,
+                method=self.client.method, standby=self.client.standby,
+                digest=self.digest, verdict=verdict,
+                dispatch=self._repair_dispatch(
+                    self._resolve_transport(transport)),
+            )
         comm = nserver_comm_model(self.n_aug, self.num_servers)
 
         def build_report() -> SPDCReport:
             collect_s = time.perf_counter() - t_collect
             return SPDCReport(
                 verdict=verdict,
+                recovery=report,
                 timings=SessionTimings(
                     pmop_s=self._pmop_s,
                     dispatch_s=self._dispatch_s,
@@ -532,8 +598,8 @@ class PendingResult:
 
     `result(timeout=)` blocks on the in-flight Parallelize stage (expiry
     raises TransportTimeout and the dispatch keeps running), then runs
-    `Session.collect` on the calling thread: authenticate and decipher
-    touch session secrets and stay on the client thread.
+    `Session.collect` on the calling thread: authenticate, recovery and
+    decipher touch session secrets and stay on the client thread.
     """
 
     session: Session
@@ -546,4 +612,4 @@ class PendingResult:
 
     def result(self, timeout: float | None = None):
         out = self.transport.result(self.future, timeout)
-        return self.session.collect(out)
+        return self.session.collect(out, transport=self.transport)

@@ -18,8 +18,9 @@ not ported; naming them raises NotImplementedError.
 Dispatch surface: ``start(task, worker_id) -> Future`` ships one
 ShardTask to one worker; ``result(future, timeout)`` resolves it;
 ``submit`` is the blocking facade; ``factor(tasks)`` runs one session's
-whole relay sweep. Verification-driven re-dispatch (``repair``) waits for
-recovery (ROADMAP A8).
+whole relay sweep; ``repair(task, replacement=)`` runs one
+verification-driven re-dispatch (distrib.recovery) on a replacement
+worker, honestly: faults bind to initial dispatches only.
 
 One-way model: for the message transports the relay is run by the
 transport — task i executes only after i−1's result, and its
@@ -152,6 +153,11 @@ class Transport:
         """Run one session's initial ShardTasks (the full sweep)."""
         raise NotImplementedError
 
+    def repair(self, task: ShardTask, *, replacement: int) -> ShardResult:
+        """Run one verification-driven re-dispatch on worker
+        `replacement` (a standby or a healthy neighbour)."""
+        raise NotImplementedError
+
     def driver_submit(self, fn, *args) -> Future:
         """Run `fn(*args)` on this transport's driver threads — the
         mechanism behind `Session.start`. 4 drivers
@@ -244,6 +250,10 @@ class InlineTransport(Transport):
         self._ensure_open()
         return _run_relay(tasks, lambda t, wid: self._edge(wid).run(t, faults))
 
+    def repair(self, task, *, replacement):
+        self._ensure_open()
+        return self._edge(replacement).run(task)
+
     def start(self, task, worker_id, *, faults=(), timeout=None):
         """Synchronous start: compute now, return a completed Future."""
         self._ensure_open()
@@ -321,6 +331,10 @@ class ThreadPoolTransport(Transport):
             return self._pool.submit(self._edge(wid).run, t, faults).result()
 
         return _run_relay(tasks, execute)
+
+    def repair(self, task, *, replacement):
+        self._ensure_open()
+        return self._pool.submit(self._edge(replacement).run, task).result()
 
     def start(self, task, worker_id, *, faults=(), timeout=None):
         """Future[ShardResult] on the shared pool. Threads cannot be
@@ -510,6 +524,13 @@ class MultiprocessTransport(Transport):
     def factor(self, tasks, faults=()):
         self._ensure_open()
         return _run_relay(tasks, lambda t, wid: self._run_on(t, wid, faults))
+
+    def repair(self, task, *, replacement):
+        """The re-dispatch runs on worker process `replacement`, spawned
+        at first use like any other (a standby id gets a process of its
+        own)."""
+        self._ensure_open()
+        return self._run_on(task, replacement)
 
     def start(self, task, worker_id, *, faults=(), timeout=None):
         """Future[ShardResult]: the blocking request-reply runs on an IO

@@ -62,3 +62,35 @@ def augment(a: torch.Tensor, p: int, *,
         out[..., n:, :n] = torch.as_tensor(r, dtype=a.dtype, device=a.device)
     out[..., n:, n:] = torch.eye(p, dtype=a.dtype, device=a.device)
     return out
+
+
+def augment_block_row(a: torch.Tensor, p: int, row0: int, rows: int, *,
+                      rng: np.random.Generator | None = None) -> torch.Tensor:
+    """Rows [row0, row0 + rows) of `augment(a, p, rng=rng)` without
+    building the whole augmented matrix.
+
+    Recovery re-derives one server's shard, a (..., rows, n + p) strip,
+    when it re-dispatches after a localized fault, so the client need not
+    keep the augmented ciphertext. `rng` must be a fresh generator seeded
+    as the one `augment` drew from (`border_rng` of the same digest): the
+    whole R block is drawn again, so the rows are bit-equal to the slice
+    of the full augmentation.
+    """
+    n = a.shape[-1]
+    if not 0 <= row0 <= row0 + rows <= n + p:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) outside n+p={n + p}")
+    if p == 0:
+        return a[..., row0 : row0 + rows, :]
+    batch = tuple(a.shape[:-2])
+    out = torch.zeros((*batch, rows, n + p), dtype=a.dtype, device=a.device)
+    top = max(min(row0 + rows, n) - row0, 0)
+    if top:
+        out[..., :top, :n] = a[..., row0 : row0 + top, :]
+    if rows > top:
+        b0 = max(row0, n) - n
+        if rng is not None:
+            r = rng.uniform(-1.0, 1.0, (*batch, p, n))[..., b0 : b0 + rows - top, :]
+            out[..., top:, :n] = torch.as_tensor(r, dtype=a.dtype, device=a.device)
+        eye = torch.eye(p, dtype=a.dtype, device=a.device)
+        out[..., top:, n:] = eye[b0 : b0 + rows - top]
+    return out

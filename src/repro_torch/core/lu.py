@@ -50,10 +50,10 @@ from .faults import apply_faults, corrupt_strip, split_plan
 # ---------------------------------------------------------------------------
 # one tile
 # ---------------------------------------------------------------------------
-def _doolittle_compact(a: torch.Tensor) -> torch.Tensor:
+def _doolittle_compact(a: torch.Tensor, acc_dtype=None) -> torch.Tensor:
     """Doolittle elimination of (..., b, b) tiles without pivoting, in the
     compact form: strict-lower multipliers + U in one array."""
-    return ops.lu_panel(a)
+    return ops.lu_panel(a, acc_dtype=acc_dtype)
 
 
 def _split_compact(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -63,15 +63,18 @@ def _split_compact(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return l, torch.triu(a)
 
 
-def lu_unblocked(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Doolittle LU without pivoting on (..., n, n) → (L, U). On CUDA the
-    tile must fit one block's shared memory (kernels/lu_panel.py)."""
-    return _split_compact(_doolittle_compact(a))
+def lu_unblocked(a: torch.Tensor, *, acc_dtype=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Doolittle LU without pivoting on (..., n, n) → (L, U), eliminated
+    in acc_dtype where given. On CUDA the tile must fit one block's
+    shared memory (kernels/lu_panel.py)."""
+    return _split_compact(_doolittle_compact(a, acc_dtype))
 
 
-def _trsm_right_upper(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _trsm_right_upper(u: torch.Tensor, b: torch.Tensor,
+                      acc_dtype=None) -> torch.Tensor:
     """Solve Z U = B → Z = B U⁻¹; batch-aware."""
-    return ops.trsm_upper_right(u, b)
+    return ops.trsm_upper_right(u, b, acc_dtype=acc_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +86,8 @@ def _matmul_update(c: torch.Tensor, a: torch.Tensor,
 
 
 def lu_panel_blocked(
-    a: torch.Tensor, inner: int = 32, update=_matmul_update
+    a: torch.Tensor, inner: int = 32, update=_matmul_update, *,
+    acc_dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Blocked factorization of a (..., b, b) diagonal tile.
 
@@ -93,21 +97,23 @@ def lu_panel_blocked(
     chain is ceil(b/inner) panels instead of b rank-1 steps. A ragged
     tail gets a short final panel. `update(c, a, b)` returns c − a·b:
     a torch.matmul by default, ops.schur_update on lu_blocked's tiles.
-    Works on a copy of `a`.
+    acc_dtype: the panels and strips compute in it and store at a's
+    dtype (pass an `update` that does the same). Works on a copy of `a`.
     """
     b = a.shape[-1]
     if b <= inner:
-        return _split_compact(_doolittle_compact(a))
+        return _split_compact(_doolittle_compact(a, acc_dtype))
     a = a.clone()
     for s0 in range(0, b, inner):
         s1 = min(s0 + inner, b)
-        diag = _doolittle_compact(a[..., s0:s1, s0:s1])
+        diag = _doolittle_compact(a[..., s0:s1, s0:s1], acc_dtype)
         a[..., s0:s1, s0:s1] = diag
         if s1 < b:
             # the kernels read only the triangle they need, so the
             # compact tile serves as both L_kk and U_kk
-            u_right = ops.trsm_lower(diag, a[..., s0:s1, s1:])
-            l_below = _trsm_right_upper(diag, a[..., s1:, s0:s1])
+            u_right = ops.trsm_lower(diag, a[..., s0:s1, s1:],
+                                     acc_dtype=acc_dtype)
+            l_below = _trsm_right_upper(diag, a[..., s1:, s0:s1], acc_dtype)
             a[..., s0:s1, s1:] = u_right
             a[..., s1:, s0:s1] = l_below
             a[..., s1:, s1:] = update(a[..., s1:, s1:], l_below, u_right)
@@ -120,13 +126,15 @@ PANEL_BLOCK_THRESHOLD = 64
 
 
 def lu_diag_factor(
-    a: torch.Tensor, inner: int = 32, update=_matmul_update
+    a: torch.Tensor, inner: int = 32, update=_matmul_update, *,
+    acc_dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Factor a diagonal tile: blocked for b >= PANEL_BLOCK_THRESHOLD,
-    one Doolittle tile below it."""
+    one Doolittle tile below it; computed in acc_dtype where given."""
     if a.shape[-1] >= PANEL_BLOCK_THRESHOLD:
-        return lu_panel_blocked(a, inner=inner, update=update)
-    return lu_unblocked(a)
+        return lu_panel_blocked(a, inner=inner, update=update,
+                                acc_dtype=acc_dtype)
+    return lu_unblocked(a, acc_dtype=acc_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -145,12 +153,17 @@ def lu_blocked(
     The reference's kernel route factors each diagonal tile with one
     panel launch; the port's panel kernel holds at most a 170-wide f64
     tile, so the tile goes through lu_diag_factor, the same factorization
-    in another order, with its inner updates on the Schur kernel too. The
-    mixed-precision ``acc_dtype`` variant is not
-    ported yet. Leaves `a` untouched.
+    in another order, with its inner updates on the Schur kernel too.
+
+    acc_dtype: the mixed variant (DESIGN.md §6.4) — every panel, strip
+    and update computes in the wider acc_dtype and stores at a's dtype:
+    float32 with torch.float64, or bfloat16/float16 with torch.float32
+    (kernels.routes.ROUTES; any other pair raises TypeError). A diagonal tile
+    of 64 or more rows is factored blocked, so its entries are rounded
+    to a's dtype between its 32-wide inner steps, where the reference's
+    kernel route factors the whole tile in one wide launch (ROADMAP §C).
+    Leaves `a` untouched.
     """
-    if acc_dtype is not None:
-        raise NotImplementedError("the mixed acc_dtype variant: ROADMAP A6")
     n = a.shape[-1]
     if n % block != 0:
         raise ValueError(f"n={n} not divisible by block={block}")
@@ -163,18 +176,24 @@ def lu_blocked(
     blocks = [[a[tile(i, j)] for j in range(nb)] for i in range(nb)]
     l_out = torch.zeros_like(a)
     u_out = torch.zeros_like(a)
+    def update(c, l, u):
+        return ops.schur_update(c, l, u, acc_dtype=acc_dtype)
+
     for k in range(nb):
-        lkk, ukk = lu_diag_factor(blocks[k][k], update=ops.schur_update)
+        lkk, ukk = lu_diag_factor(blocks[k][k], update=update,
+                                  acc_dtype=acc_dtype)
         l_out[tile(k, k)], u_out[tile(k, k)] = lkk, ukk
-        u_row = {j: ops.trsm_lower(lkk, blocks[k][j]) for j in range(k + 1, nb)}
-        l_col = {i: ops.trsm_upper_right(ukk, blocks[i][k])
+        u_row = {j: ops.trsm_lower(lkk, blocks[k][j], acc_dtype=acc_dtype)
+                 for j in range(k + 1, nb)}
+        l_col = {i: ops.trsm_upper_right(ukk, blocks[i][k],
+                                         acc_dtype=acc_dtype)
                  for i in range(k + 1, nb)}
         for j, ukj in u_row.items():
             u_out[tile(k, j)] = ukj
         for i, lik in l_col.items():
             l_out[tile(i, k)] = lik
             for j, ukj in u_row.items():
-                blocks[i][j] = ops.schur_update(blocks[i][j], lik, ukj)
+                blocks[i][j] = update(blocks[i][j], lik, ukj)
     return l_out, u_out
 
 

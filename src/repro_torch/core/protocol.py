@@ -103,9 +103,11 @@ class OpRecord:
 @dataclass
 class SPDCReport:
     """The typed diagnostics surface on a protocol result: the
-    Authenticate verdict, the recovery and rateless reports (None until
-    those features are ported), the phase timings, and per-op records of
-    multi-op sessions."""
+    Authenticate verdict, the recovery report (a
+    distrib.recovery.RecoveryReport when recovery ran, else None), the
+    rateless fleet report (None until rateless dispatch is ported,
+    ROADMAP A9), the phase timings, and per-op records of multi-op
+    sessions."""
 
     verdict: Verdict | None = None
     recovery: object | None = None
@@ -173,6 +175,8 @@ def outsource_determinant(
     tamper=None,
     faults=None,
     recover: bool = False,
+    standby: int = 0,
+    straggler_deadline: int | None = None,
     dtype="float64",
     growth_safe: bool | None = None,
     equilibrate: bool | None = None,
@@ -196,8 +200,16 @@ def outsource_determinant(
     faults: a core.faults plan (a ServerFault or an iterable of them)
         played by the servers: in the sweep on the inline transport,
         worker-side on the message transports. The verdict names the
-        culprit; recovery is not ported.
-    dtype: compute dtype, "float64" (default) or "float32".
+        culprit.
+    recover: heal a rejected result by re-dispatching the blamed shards
+        (distrib.recovery; DESIGN.md §4), reported on
+        `report.recovery`.
+    standby: spare servers recovery may re-dispatch to, before it falls
+        back to the culprit's healthy neighbour.
+    straggler_deadline: rounds a delayed server may lag (round-denominated
+        delay faults) before it counts as dropped out; None waits.
+    dtype: compute dtype, "float64" (default) or "float32". float16 and
+        bfloat16 are not verified protocol dtypes and raise.
     growth_safe / equilibrate: growth controls (DESIGN.md §6); None = on
         below float64, off for float64.
     transport: None or "inline" (the fused in-process sweep),
@@ -208,8 +220,8 @@ def outsource_determinant(
         (RuntimeError without one), "cpu" for the plain path.
 
     Not ported yet, and raising NotImplementedError: mixed-size lists
-    (ROADMAP A11), recover= (A8), rateless= and the socket transport
-    (A9), distributed= and the shardmap transport (A12).
+    (ROADMAP A11), rateless= and the socket transport (A9),
+    distributed= and the shardmap transport (A12).
 
     Returns SPDCResult for one matrix, SPDCBatchResult for a stack.
     """
@@ -219,7 +231,8 @@ def outsource_determinant(
         raise NotImplementedError("the shard_map pipeline: ROADMAP A12")
     client = SPDCClient(
         lambda1=lambda1, lambda2=lambda2, mode=mode, method=method,
-        faithful_sign=faithful_sign, recover=recover, dtype=dtype,
+        faithful_sign=faithful_sign, recover=recover, standby=standby,
+        straggler_deadline=straggler_deadline, dtype=dtype,
         growth_safe=growth_safe, equilibrate=equilibrate,
         rateless=rateless, device=device,
     )

@@ -21,6 +21,7 @@ import subprocess
 import time
 from pathlib import Path
 
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("ced", "lu_panel", "trsm", "schur", "flash_attn")
@@ -48,8 +49,11 @@ def nvcc() -> str:
 
 
 def target(name: str) -> Path:
-    """The library path for csrc/<name>.cu at its current content."""
+    """The library path for csrc/<name>.cu at its current content and
+    that of the headers beside it."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

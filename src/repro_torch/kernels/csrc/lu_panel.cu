@@ -34,7 +34,15 @@
 // threads. The wrapper picks the kernel by b (lu_panel.py:route). The
 // input may be a strided view (batch, row and column strides); the output
 // is contiguous.
+// Mixed variant (the reference's acc_dtype): both kernels take a storage
+// type TS and an arithmetic type TA. The tile is widened as it loads,
+// eliminated in registers or shared memory at TA and rounded to TS once,
+// as it is stored: float tiles with double arithmetic, bfloat16 and half
+// tiles with float arithmetic. The block kernel's tile is held at TA, so
+// its widest tile is set by TA's size (170 for double arithmetic).
 #include <cuda_runtime.h>
+
+#include "precision.cuh"
 
 namespace {
 
@@ -46,15 +54,15 @@ constexpr int WARP_TILES = 4;           // tiles (warps) per block
 constexpr unsigned FULL = 0xffffffffu;
 
 // Warp w of block x factors tile WARP_TILES x + w of the batch.
-template <typename T>
+template <typename TS, typename TA>
 __global__ void __launch_bounds__(32 * WARP_TILES)
-lu_warp_kernel(const T* __restrict__ a, long long sb, long long sr,
-               long long sc, T* __restrict__ out, int batch, int b) {
-  __shared__ T stage[WARP_TILES][WARP_ROWS * WARP_LD];
+lu_warp_kernel(const TS* __restrict__ a, long long sb, long long sr,
+               long long sc, TS* __restrict__ out, int batch, int b) {
+  __shared__ TA stage[WARP_TILES][WARP_ROWS * WARP_LD];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const long long tile = static_cast<long long>(blockIdx.x) * WARP_TILES + w;
   if (tile >= batch) return;  // the whole warp
-  T* s = stage[w];
+  TA* s = stage[w];
   a += tile * sb;
   out += tile * b * b;
   // x: this lane's row; past b the tile is the identity (below). Every
@@ -62,11 +70,12 @@ lu_warp_kernel(const T* __restrict__ a, long long sb, long long sr,
   // consecutive lanes on the unit-stride axis: a row-major tile goes
   // through s to turn columns into rows, a column-major one is read by
   // rows directly.
-  T x[WARP_ROWS];
+  TA x[WARP_ROWS];
   if (sc == 1 || sr != 1) {
 #pragma unroll
     for (int r = 0; r < WARP_ROWS; ++r) {
-      x[r] = (r < b && lane < b) ? a[r * sr + lane * sc] : T(r == lane);
+      x[r] = (r < b && lane < b) ? widen<TS, TA>(a[r * sr + lane * sc])
+                                 : TA(r == lane);
     }
 #pragma unroll
     for (int r = 0; r < WARP_ROWS; ++r) s[r * WARP_LD + lane] = x[r];
@@ -76,7 +85,8 @@ lu_warp_kernel(const T* __restrict__ a, long long sb, long long sr,
   } else {
 #pragma unroll
     for (int j = 0; j < WARP_ROWS; ++j) {
-      x[j] = (j < b && lane < b) ? a[lane * sr + j * sc] : T(j == lane);
+      x[j] = (j < b && lane < b) ? widen<TS, TA>(a[lane * sr + j * sc])
+                                 : TA(j == lane);
     }
   }
   // Step k: lane k's row is final; every lane divides its column k by the
@@ -87,13 +97,13 @@ lu_warp_kernel(const T* __restrict__ a, long long sb, long long sr,
   // entries see exactly the operations of a b-step elimination.
 #pragma unroll
   for (int k = 0; k < WARP_ROWS - 1; ++k) {
-    const T pivot = __shfl_sync(FULL, x[k], k);
+    const TA pivot = __shfl_sync(FULL, x[k], k);
     const bool below = lane > k;
-    const T mult = x[k] / pivot;
+    const TA mult = x[k] / pivot;
     x[k] = below ? mult : x[k];
 #pragma unroll
     for (int j = k + 1; j < WARP_ROWS; ++j) {
-      const T u = __shfl_sync(FULL, x[j], k);
+      const TA u = __shfl_sync(FULL, x[j], k);
       if (below) x[j] -= x[k] * u;
     }
   }
@@ -103,26 +113,26 @@ lu_warp_kernel(const T* __restrict__ a, long long sb, long long sr,
   if (lane < b) {
 #pragma unroll
     for (int r = 0; r < WARP_ROWS; ++r) {
-      if (r < b) out[r * b + lane] = s[r * WARP_LD + lane];
+      if (r < b) out[r * b + lane] = narrow<TS, TA>(s[r * WARP_LD + lane]);
     }
   }
 }
 
-template <typename T>
-__global__ void lu_panel_kernel(const T* __restrict__ a, long long sb,
+template <typename TS, typename TA>
+__global__ void lu_panel_kernel(const TS* __restrict__ a, long long sb,
                                 long long sr, long long sc,
-                                T* __restrict__ out, int b) {
+                                TS* __restrict__ out, int b) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
+  TA* s = reinterpret_cast<TA*>(smem_raw);
   const int bb = b * b;
   a += blockIdx.x * sb;
   out += static_cast<long long>(blockIdx.x) * bb;
   for (int idx = threadIdx.x; idx < bb; idx += blockDim.x) {
-    s[idx] = a[(idx / b) * sr + (idx % b) * sc];
+    s[idx] = widen<TS, TA>(a[(idx / b) * sr + (idx % b) * sc]);
   }
   __syncthreads();
   for (int k = 0; k < b - 1; ++k) {
-    const T pivot = s[k * b + k];
+    const TA pivot = s[k * b + k];
     for (int i = k + 1 + threadIdx.x; i < b; i += blockDim.x) {
       s[i * b + k] = s[i * b + k] / pivot;
     }
@@ -136,62 +146,60 @@ __global__ void lu_panel_kernel(const T* __restrict__ a, long long sb,
     __syncthreads();
   }
   for (int idx = threadIdx.x; idx < bb; idx += blockDim.x) {
-    out[idx] = s[idx];
+    out[idx] = narrow<TS, TA>(s[idx]);
   }
 }
 
-template <typename T>
-int launch(const T* a, long long sb, long long sr, long long sc, T* out,
+template <typename TS, typename TA>
+int launch(const TS* a, long long sb, long long sr, long long sc, TS* out,
            int batch, int b, cudaStream_t stream) {
-  const size_t smem = sizeof(T) * static_cast<size_t>(b) * b;
+  const size_t smem = sizeof(TA) * static_cast<size_t>(b) * b;
   if (smem > DEFAULT_SMEM) {
     const cudaError_t err = cudaFuncSetAttribute(
-        lu_panel_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lu_panel_kernel<TS, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  lu_panel_kernel<T><<<batch, THREADS, smem, stream>>>(a, sb, sr, sc, out, b);
+  lu_panel_kernel<TS, TA><<<batch, THREADS, smem, stream>>>(a, sb, sr, sc,
+                                                            out, b);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_warp(const T* a, long long sb, long long sr, long long sc, T* out,
-                int batch, int b, cudaStream_t stream) {
+template <typename TS, typename TA>
+int launch_warp(const TS* a, long long sb, long long sr, long long sc,
+                TS* out, int batch, int b, cudaStream_t stream) {
   const int blocks = (batch - 1) / WARP_TILES + 1;  // batch >= 1
-  lu_warp_kernel<T><<<blocks, 32 * WARP_TILES, 0, stream>>>(a, sb, sr, sc,
-                                                             out, batch, b);
+  lu_warp_kernel<TS, TA><<<blocks, 32 * WARP_TILES, 0, stream>>>(
+      a, sb, sr, sc, out, batch, b);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// a: `batch` b x b tiles at element strides (sb, sr, sc); out: `batch`
+// contiguous b x b compact factors. lu_panel_<route>: one block a tile,
+// any b that fits; lu_panel_warp_<route>: one warp a tile, b <= 32. The
+// route names the storage type, then the arithmetic type where it is
+// wider. Each returns cudaGetLastError().
+#define LU_PANEL_ENTRIES(ROUTE, TS, TA)                                      \
+  int lu_panel_##ROUTE(const TS* a, long long sb, long long sr,            \
+                       long long sc, TS* out, int batch, int b,            \
+                       cudaStream_t stream) {                              \
+    return launch<TS, TA>(a, sb, sr, sc, out, batch, b, stream);           \
+  }                                                                        \
+  int lu_panel_warp_##ROUTE(const TS* a, long long sb, long long sr,       \
+                            long long sc, TS* out, int batch, int b,       \
+                            cudaStream_t stream) {                         \
+    return launch_warp<TS, TA>(a, sb, sr, sc, out, batch, b, stream);      \
+  }
+
 extern "C" {
 
-// a: `batch` b x b tiles at element strides (sb, sr, sc); out: `batch`
-// contiguous b x b compact factors. lu_panel_*: one block a tile, any
-// b that fits; lu_panel_warp_*: one warp a tile, b <= 32. Each returns
-// cudaGetLastError().
-int lu_panel_f64(const double* a, long long sb, long long sr, long long sc,
-                 double* out, int batch, int b, cudaStream_t stream) {
-  return launch(a, sb, sr, sc, out, batch, b, stream);
-}
-
-int lu_panel_f32(const float* a, long long sb, long long sr, long long sc,
-                 float* out, int batch, int b, cudaStream_t stream) {
-  return launch(a, sb, sr, sc, out, batch, b, stream);
-}
-
-int lu_panel_warp_f64(const double* a, long long sb, long long sr,
-                      long long sc, double* out, int batch, int b,
-                      cudaStream_t stream) {
-  return launch_warp(a, sb, sr, sc, out, batch, b, stream);
-}
-
-int lu_panel_warp_f32(const float* a, long long sb, long long sr,
-                      long long sc, float* out, int batch, int b,
-                      cudaStream_t stream) {
-  return launch_warp(a, sb, sr, sc, out, batch, b, stream);
-}
+LU_PANEL_ENTRIES(f64, double, double)
+LU_PANEL_ENTRIES(f32, float, float)
+LU_PANEL_ENTRIES(f32_f64, float, double)
+LU_PANEL_ENTRIES(bf16_f32, __nv_bfloat16, float)
+LU_PANEL_ENTRIES(f16_f32, __half, float)
 
 const char* spdc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -17,8 +17,8 @@
 // tiles (K = 32, from 992 x 992 down) move C and OUT and do little else:
 // 16.3 MB, 4.9 us at 992 x 32 x 992.
 //
-// What the design does about it. f64 (schur_dmma_kernel), the only type a
-// path calls:
+// What the design does about it. f64 (schur_dmma_kernel<double>), the
+// route of the f64 paths:
 //  * the f64 tensor cores: a block of 8 warps owns a 128 x 64 tile of
 //    OUT, each warp a 32 x 32 tile of it, summed by the sm_90 mma.sync f64
 //    shape m16n8k4 (DMMA) in registers. Timed once at 1024^3 on the H100,
@@ -45,14 +45,25 @@
 // reads 48 KB of A and B from L2 per slice (PERF.md); TMA copies
 // or clusters sharing tiles are the next step.
 // f32, bf16 and f16 (schur_kernel) take the FMA kernel of the first
-// port, a route by type: no path calls them yet and they are untimed.
+// port, a route by type: plain f32 lu_blocked calls the f32 route.
 // A block of 16 x 16 threads owns a 64 x 64 tile of OUT and walks K in
 // steps of 16 through shared memory, each thread a 4 x 4 register tile of
 // FMA sums (f32 accumulates in f32, bf16 and f16 are widened to f32 and
 // rounded once on store), subtracted from C at the end.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
+// Mixed f32 -> f64 (the reference's acc_dtype=float64): the DMMA kernel
+// with f32 operands, schur_dmma_kernel<float>. cp.async copies bytes and
+// cannot widen, so the ring holds f32 tiles (16-byte copies of four
+// elements; row strides of 36 and 72 floats keep the fragment reads of
+// all 32 lanes on distinct banks) and each fragment is widened to f64 as
+// it is read from shared memory. Every product is summed over all of K in
+// f64, subtracted from C in f64 and rounded to f32 once. The reference's
+// Pallas kernel instead rounds each 128-deep chunk's product to f32
+// before it subtracts it (gemm.py:33); the port sums all of K wide,
+// accumulating "in a wider dtype" as DESIGN.md §6.4 states the variant's
+// intent (ROADMAP §C).
 #include <cuda_runtime.h>
+
+#include "precision.cuh"
 
 namespace {
 
@@ -62,32 +73,6 @@ constexpr int BK = 16;   // depth of one shared-memory step
 constexpr int TD = 16;   // threads per block side
 constexpr int RT = BM / TD;  // register tile side (4)
 constexpr int NT = TD * TD;  // threads per block
-
-template <typename T, typename Acc>
-__device__ __forceinline__ Acc widen(T v) {
-  return static_cast<Acc>(v);
-}
-template <>
-__device__ __forceinline__ float widen<__nv_bfloat16, float>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <>
-__device__ __forceinline__ float widen<__half, float>(__half v) {
-  return __half2float(v);
-}
-
-template <typename T, typename Acc>
-__device__ __forceinline__ T narrow(Acc v) {
-  return static_cast<T>(v);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16, float>(float v) {
-  return __float2bfloat16(v);
-}
-template <>
-__device__ __forceinline__ __half narrow<__half, float>(float v) {
-  return __float2half(v);
-}
 
 // Block (x, y, z) computes OUT[z][64 y : 64 y + 64, 64 x : 64 x + 64].
 template <typename T, typename Acc>
@@ -206,10 +191,20 @@ constexpr int DN = 64;             // columns of OUT per block
 constexpr int DK = 32;             // depth of one pipeline stage
 constexpr int STAGES = 3;          // K slices in flight
 constexpr int DTHREADS = 256;      // 8 warps: 4 (rows) x 2 (columns)
-constexpr int A_LD = DK + 4;       // row strides in doubles: the 16 lanes of
-constexpr int B_LD = DN + 4;       // a half warp read 16 distinct banks
-constexpr int STAGE_DOUBLES = DM * A_LD + DK * B_LD;
-constexpr size_t DMMA_SMEM = STAGES * STAGE_DOUBLES * sizeof(double);
+
+// The ring's layout for operands stored as TS (double, or float on the
+// mixed route): row strides in elements chosen so the fragment reads
+// below hit distinct banks (doubles: the 16 lanes of a half warp; floats:
+// all 32 lanes, rows g apart by 4 banks in A and columns t apart by 8 in
+// B); VEC elements make one 16-byte copy.
+template <typename TS>
+struct Ring {
+  static constexpr int A_LD = DK + 4;
+  static constexpr int B_LD = DN + (sizeof(TS) == 8 ? 4 : 8);
+  static constexpr int STAGE = DM * A_LD + DK * B_LD;
+  static constexpr int VEC = 16 / static_cast<int>(sizeof(TS));
+  static constexpr size_t SMEM = STAGES * STAGE * sizeof(TS);
+};
 
 // A warp's 32 x 32 tile as four 8-row groups r by four 8-column groups
 // ni: acc[r][ni][e] is row 8 r + g, column 8 ni + 2 t + e (g = lane / 4,
@@ -232,16 +227,20 @@ __device__ __forceinline__ void dmma(double (&acc)[4][4][2],
   }
 }
 
-__device__ __forceinline__ void cp_async8(double* s, const double* g,
-                                          bool pred) {
+// One element of BYTES (4 or 8), read where pred holds and zero-filled
+// otherwise; legal at any element offset.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_elem(void* s, const void* g,
+                                              bool pred) {
   const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(sa),
-               "l"(g), "r"(pred ? 8 : 0));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(sa),
+               "l"(g), "n"(BYTES), "r"(pred ? BYTES : 0));
 }
 
-// 16 bytes, two elements, of which `bytes` (16, 8 or 0) are read and the
-// rest zero-filled; L2 only (.cg), and both addresses 16-byte aligned.
-__device__ __forceinline__ void cp_async16(double* s, const double* g,
+// 16 bytes, of which `bytes` (a multiple of the element size, at most 16)
+// are read and the rest zero-filled; L2 only (.cg), and both addresses
+// 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* s, const void* g,
                                            int bytes) {
   const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
@@ -258,34 +257,38 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // True where an operand can be staged 16 bytes at a time: unit stride
-// along the staged axis (A's k, B's n), an even row stride and a 16-byte
-// aligned start, as every block of lu_blocked's 4096 x 4096 matrix has.
-__device__ __forceinline__ bool pairs(const double* p, long long rows,
+// along the staged axis (A's k, B's n), a row stride a whole number of
+// 16-byte vectors and a 16-byte aligned start, as every block of
+// lu_blocked's 4096 x 4096 matrix has.
+template <typename TS>
+__device__ __forceinline__ bool pairs(const TS* p, long long rows,
                                       long long unit) {
-  return unit == 1 && (rows & 1) == 0 &&
+  return unit == 1 && rows % Ring<TS>::VEC == 0 &&
          (reinterpret_cast<unsigned long long>(p) & 15) == 0;
 }
 
 // Issue the copies of K slice [k0, k0 + DK): A rows [m0, m0 + DM) into
 // sa[r * A_LD + q], B columns [n0, n0 + DN) into sb[q * B_LD + s]; zeros
 // past m, n and k (the masked copies read nothing, from a valid address).
-// An operand that `pairs` goes two elements a copy; any other, strided,
-// transposed or at an odd offset, one element a copy (8-byte cp.async.ca,
-// legal at any element offset), consecutive threads along its unit-stride
-// axis.
+// An operand that `pairs` goes VEC elements a copy; any other, strided,
+// transposed or at an odd offset, one element a copy (cp.async.ca, legal
+// at any element offset), consecutive threads along its unit-stride axis.
+template <typename TS>
 __device__ __forceinline__ void load_slice(
-    double* sa, double* sb, const double* a, long long ar, long long ac,
-    bool a_pairs, const double* b, long long br, long long bc, bool b_pairs,
-    int m0, int n0, int k0, int m, int n, int k) {
+    TS* sa, TS* sb, const TS* a, long long ar, long long ac, bool a_pairs,
+    const TS* b, long long br, long long bc, bool b_pairs, int m0, int n0,
+    int k0, int m, int n, int k) {
+  constexpr int A_LD = Ring<TS>::A_LD, B_LD = Ring<TS>::B_LD;
+  constexpr int VEC = Ring<TS>::VEC, SIZE = static_cast<int>(sizeof(TS));
   const int tid = threadIdx.x;
   if (a_pairs) {
 #pragma unroll
-    for (int j = 0; j < DM * DK / 2 / DTHREADS; ++j) {
+    for (int j = 0; j < DM * DK / VEC / DTHREADS; ++j) {
       const int e = tid + j * DTHREADS;
-      const int r = e / (DK / 2), q = 2 * (e % (DK / 2));
+      const int r = e / (DK / VEC), q = VEC * (e % (DK / VEC));
       const bool ok = m0 + r < m && k0 + q < k;
       cp_async16(sa + r * A_LD + q, ok ? a + (m0 + r) * ar + k0 + q : a,
-                 ok ? (k0 + q + 1 < k ? 16 : 8) : 0);
+                 ok ? min(VEC, k - k0 - q) * SIZE : 0);
     }
   } else {
     const bool along_k = ac == 1 || ar != 1;
@@ -295,18 +298,18 @@ __device__ __forceinline__ void load_slice(
       const int r = along_k ? e / DK : e % DM;
       const int q = along_k ? e % DK : e / DM;
       const bool ok = m0 + r < m && k0 + q < k;
-      cp_async8(sa + r * A_LD + q, ok ? a + (m0 + r) * ar + (k0 + q) * ac : a,
-                ok);
+      cp_async_elem<SIZE>(sa + r * A_LD + q,
+                          ok ? a + (m0 + r) * ar + (k0 + q) * ac : a, ok);
     }
   }
   if (b_pairs) {
 #pragma unroll
-    for (int j = 0; j < DK * DN / 2 / DTHREADS; ++j) {
+    for (int j = 0; j < DK * DN / VEC / DTHREADS; ++j) {
       const int e = tid + j * DTHREADS;
-      const int q = e / (DN / 2), c = 2 * (e % (DN / 2));
+      const int q = e / (DN / VEC), c = VEC * (e % (DN / VEC));
       const bool ok = k0 + q < k && n0 + c < n;
       cp_async16(sb + q * B_LD + c, ok ? b + (k0 + q) * br + n0 + c : b,
-                 ok ? (n0 + c + 1 < n ? 16 : 8) : 0);
+                 ok ? min(VEC, n - n0 - c) * SIZE : 0);
     }
   } else {
     const bool along_n = bc == 1 || br != 1;
@@ -316,42 +319,51 @@ __device__ __forceinline__ void load_slice(
       const int q = along_n ? e / DN : e % DK;
       const int c = along_n ? e % DN : e / DK;
       const bool ok = k0 + q < k && n0 + c < n;
-      cp_async8(sb + q * B_LD + c, ok ? b + (k0 + q) * br + (n0 + c) * bc : b,
-                ok);
+      cp_async_elem<SIZE>(sb + q * B_LD + c,
+                          ok ? b + (k0 + q) * br + (n0 + c) * bc : b, ok);
     }
   }
 }
 
 // The warp's 32 x 32 tile gains the product of one K slice in shared
-// memory, four k at a time, k ascending.
-__device__ __forceinline__ void slice_product(const double* sa,
-                                              const double* sb,
+// memory, four k at a time, k ascending; fragments are widened to f64 as
+// they are read.
+template <typename TS>
+__device__ __forceinline__ void slice_product(const TS* sa, const TS* sb,
                                               double (&acc)[4][4][2]) {
+  constexpr int A_LD = Ring<TS>::A_LD, B_LD = Ring<TS>::B_LD;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const double* arow = sa + (32 * (warp >> 1) + g) * A_LD + t;
-  const double* bcol = sb + t * B_LD + 32 * (warp & 1) + g;
+  const TS* arow = sa + (32 * (warp >> 1) + g) * A_LD + t;
+  const TS* bcol = sb + t * B_LD + 32 * (warp & 1) + g;
 #pragma unroll
   for (int kk = 0; kk < DK; kk += 4) {
     double fa[4], fb[4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) fa[r] = arow[8 * r * A_LD + kk];
+    for (int r = 0; r < 4; ++r) {
+      fa[r] = widen<TS, double>(arow[8 * r * A_LD + kk]);
+    }
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) fb[ni] = bcol[kk * B_LD + 8 * ni];
+    for (int ni = 0; ni < 4; ++ni) {
+      fb[ni] = widen<TS, double>(bcol[kk * B_LD + 8 * ni]);
+    }
     dmma(acc, fa, fb);
   }
 }
 
-// Block (x, y, z) computes OUT[z][128 y : 128 y + 128, 64 x : 64 x + 64].
+// Block (x, y, z) computes OUT[z][128 y : 128 y + 128, 64 x : 64 x + 64]
+// from operands stored as TS, summed in f64 and stored as TS.
+template <typename TS>
 __global__ void __launch_bounds__(DTHREADS)
-schur_dmma_kernel(const double* __restrict__ c, long long cb, long long cr,
-                  long long cc, const double* __restrict__ a, long long ab,
-                  long long ar, long long ac, const double* __restrict__ b,
+schur_dmma_kernel(const TS* __restrict__ c, long long cb, long long cr,
+                  long long cc, const TS* __restrict__ a, long long ab,
+                  long long ar, long long ac, const TS* __restrict__ b,
                   long long bb, long long br, long long bc,
-                  double* __restrict__ out, long long ob, long long orr,
+                  TS* __restrict__ out, long long ob, long long orr,
                   long long oc, int m, int n, int k) {
+  constexpr int A_LD = Ring<TS>::A_LD, STAGE = Ring<TS>::STAGE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* ring = reinterpret_cast<double*>(smem_raw);
+  TS* ring = reinterpret_cast<TS*>(smem_raw);
   c += blockIdx.z * cb;
   a += blockIdx.z * ab;
   b += blockIdx.z * bb;
@@ -363,7 +375,7 @@ schur_dmma_kernel(const double* __restrict__ c, long long cb, long long cr,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < slices) {
-      double* stage = ring + s * STAGE_DOUBLES;
+      TS* stage = ring + s * STAGE;
       load_slice(stage, stage + DM * A_LD, a, ar, ac, a_pairs, b, br, bc,
                  b_pairs, m0, n0, s * DK, m, n, k);
     }
@@ -382,7 +394,8 @@ schur_dmma_kernel(const double* __restrict__ c, long long cb, long long cr,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int gc = col0 + 8 * ni + e;
-        cv[r][ni][e] = (gr < m && gc < n) ? c[gr * cr + gc * cc] : 0.0;
+        cv[r][ni][e] =
+            (gr < m && gc < n) ? widen<TS, double>(c[gr * cr + gc * cc]) : 0.0;
         acc[r][ni][e] = 0.0;
       }
     }
@@ -392,12 +405,12 @@ schur_dmma_kernel(const double* __restrict__ c, long long cb, long long cr,
     __syncthreads();  // everyone's have, and slice kt - 1 is read
     const int next = kt + STAGES - 1;
     if (next < slices) {
-      double* stage = ring + (next % STAGES) * STAGE_DOUBLES;
+      TS* stage = ring + (next % STAGES) * STAGE;
       load_slice(stage, stage + DM * A_LD, a, ar, ac, a_pairs, b, br, bc,
                  b_pairs, m0, n0, next * DK, m, n, k);
     }
     cp_async_commit();
-    const double* stage = ring + (kt % STAGES) * STAGE_DOUBLES;
+    const TS* stage = ring + (kt % STAGES) * STAGE;
     slice_product(stage, stage + DM * A_LD, acc);
   }
 #pragma unroll
@@ -409,23 +422,28 @@ schur_dmma_kernel(const double* __restrict__ c, long long cb, long long cr,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int gc = col0 + 8 * ni + e;
-        if (gc < n) out[gr * orr + gc * oc] = cv[r][ni][e] - acc[r][ni][e];
+        if (gc < n) {
+          out[gr * orr + gc * oc] = narrow<TS, double>(cv[r][ni][e] -
+                                                       acc[r][ni][e]);
+        }
       }
     }
   }
 }
 
-int launch_dmma(const double* c, long long cb, long long cr, long long cc,
-                const double* a, long long ab, long long ar, long long ac,
-                const double* b, long long bb, long long br, long long bc,
-                double* out, long long ob, long long orr, long long oc,
+template <typename TS>
+int launch_dmma(const TS* c, long long cb, long long cr, long long cc,
+                const TS* a, long long ab, long long ar, long long ac,
+                const TS* b, long long bb, long long br, long long bc,
+                TS* out, long long ob, long long orr, long long oc,
                 int batch, int m, int n, int k, cudaStream_t stream) {
+  constexpr size_t SMEM = Ring<TS>::SMEM;
   const cudaError_t err = cudaFuncSetAttribute(
-      schur_dmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(DMMA_SMEM));
+      schur_dmma_kernel<TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + DN - 1) / DN, (m + DM - 1) / DM, batch);
-  schur_dmma_kernel<<<grid, DTHREADS, DMMA_SMEM, stream>>>(
+  schur_dmma_kernel<TS><<<grid, DTHREADS, SMEM, stream>>>(
       c, cb, cr, cc, a, ab, ar, ac, b, bb, br, bc, out, ob, orr, oc, m, n,
       k);
   return static_cast<int>(cudaGetLastError());
@@ -448,8 +466,9 @@ int launch_dmma(const double* c, long long cb, long long cr, long long cc,
 
 extern "C" {
 
-SCHUR_ENTRY(schur_f64, double, launch_dmma)
+SCHUR_ENTRY(schur_f64, double, launch_dmma<double>)
 SCHUR_ENTRY(schur_f32, float, (launch<float, float>))
+SCHUR_ENTRY(schur_f32_f64, float, launch_dmma<float>)
 SCHUR_ENTRY(schur_bf16, __nv_bfloat16, (launch<__nv_bfloat16, float>))
 SCHUR_ENTRY(schur_f16, __half, (launch<__half, float>))
 

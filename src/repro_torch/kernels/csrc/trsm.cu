@@ -44,7 +44,23 @@
 // transport's factors bit-equal to the fused sweep's. The leaf is a
 // substitution, with a true division by the diagonal, not a multiply by
 // an inverted tile.
+// Mixed variant (the reference's acc_dtype, which solves a whole tile in
+// the wide type and stores it narrow once): the solver takes a storage
+// type TS and an arithmetic type TA, float with double or bfloat16 and
+// half with float. Between launches the solve keeps its rows in a TA
+// workspace W (n x m, allocated by the wrapper), never in the narrow
+// output: each update writes the trailing rows to W, each leaf solves
+// rows of W (of B, widened, for the first) and writes them wide to W,
+// for the updates after it, and narrow to X, once. The triangle is
+// widened as it is staged. The double updates stay on DMMA, the float
+// ones on the FMA pipes. The default routes pass X itself as W (TS = TA),
+// so their launches are unchanged. Every column still sees the same
+// operations whatever m, so the split property above holds for both.
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "precision.cuh"
 
 namespace {
 
@@ -56,26 +72,28 @@ constexpr int TILE_LD = TILE + 4; // f64 fragment reads conflict-free
 constexpr int UPD_THREADS = 256;
 constexpr unsigned FULL = 0xffffffffu;
 
-// s[r * LD + c] = g[(r0 + r) sr + (c0 + c) sc] for r < nr, c < nc of a
-// ROWS x COLS tile, zero elsewhere; consecutive threads along the
-// unit-stride axis of g. Every thread issues all its loads before its
-// first store, so a tile costs one memory latency, not one per element.
-template <typename T, int ROWS, int COLS, int THREADS, int LD>
-__device__ __forceinline__ void stage(T* s, const T* __restrict__ g,
+// s[r * LD + c] = g[(r0 + r) sr + (c0 + c) sc], widened to TA, for
+// r < nr, c < nc of a ROWS x COLS tile, zero elsewhere; consecutive
+// threads along the unit-stride axis of g. Every thread issues all its
+// loads before its first store, so a tile costs one memory latency, not
+// one per element.
+template <typename TA, typename TG, int ROWS, int COLS, int THREADS, int LD>
+__device__ __forceinline__ void stage(TA* s, const TG* __restrict__ g,
                                       long long sr, long long sc, int r0,
                                       int c0, int nr, int nc) {
   constexpr int PER = ROWS * COLS / THREADS;
   static_assert(ROWS * COLS % THREADS == 0, "tile not split evenly");
   const bool along_cols = sc == 1 || sr != 1;
-  T v[PER];
+  TA v[PER];
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
     const int e = threadIdx.x + j * THREADS;
     const int r = along_cols ? e / COLS : e % ROWS;
     const int c = along_cols ? e % COLS : e / ROWS;
     v[j] = (r < nr && c < nc)
-               ? g[(r0 + r) * sr + static_cast<long long>(c0 + c) * sc]
-               : T(0);
+               ? widen<TG, TA>(
+                     g[(r0 + r) * sr + static_cast<long long>(c0 + c) * sc])
+               : TA(0);
   }
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
@@ -87,38 +105,48 @@ __device__ __forceinline__ void stage(T* s, const T* __restrict__ g,
 }
 
 // Solve the leaf rows [r0, r0 + nr) of matrix blockIdx.z for the columns
-// [LEAF_COLS x, LEAF_COLS x + LEAF_COLS): x = T_leaf^-1 src (rows of src
-// already hold b minus every earlier leaf's contribution).
-template <typename T, bool UNIT>
+// [LEAF_COLS x, LEAF_COLS x + LEAF_COLS): w = T_leaf^-1 src (rows of src
+// already hold b minus every earlier leaf's contribution), and x = w
+// rounded to TS where the route is mixed (w is x otherwise).
+template <typename TS, typename TA, typename TSRC, bool UNIT>
 __global__ void __launch_bounds__(32 * LEAF_COLS)
-leaf_kernel(const T* __restrict__ t, long long tb, long long tr,
-            long long tc, const T* src, long long sb, long long sr,
-            long long sc, T* x, long long xb, long long xr, long long xc,
-            int r0, int nr, int m) {
-  __shared__ T ts[LEAF * LEAF_LD];
+leaf_kernel(const TS* __restrict__ t, long long tb, long long tr,
+            long long tc, const TSRC* src, long long sb, long long sr,
+            long long sc, TA* w, long long wb, long long wr, long long wc,
+            TS* x, long long xb, long long xr, long long xc, int r0, int nr,
+            int m) {
+  constexpr bool MIXED = !std::is_same<TS, TA>::value;
+  __shared__ TA ts[LEAF * LEAF_LD];
   t += blockIdx.z * tb;
   src += blockIdx.z * sb;
+  w += blockIdx.z * wb;
   x += blockIdx.z * xb;
-  stage<T, LEAF, LEAF, 32 * LEAF_COLS, LEAF_LD>(ts, t, tr, tc, r0, r0, nr,
-                                                nr);
+  stage<TA, TS, LEAF, LEAF, 32 * LEAF_COLS, LEAF_LD>(ts, t, tr, tc, r0, r0,
+                                                     nr, nr);
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int col = blockIdx.x * LEAF_COLS + (threadIdx.x >> 5);
   if (col >= m) return;
   const long long cs = static_cast<long long>(col);
   const int i0 = lane, i1 = lane + 32;
-  T a0 = i0 < nr ? src[(r0 + i0) * sr + cs * sc] : T(0);
-  T a1 = i1 < nr ? src[(r0 + i1) * sr + cs * sc] : T(0);
+  TA a0 = i0 < nr ? widen<TSRC, TA>(src[(r0 + i0) * sr + cs * sc]) : TA(0);
+  TA a1 = i1 < nr ? widen<TSRC, TA>(src[(r0 + i1) * sr + cs * sc]) : TA(0);
   for (int k = 0; k < nr; ++k) {
-    T xk = __shfl_sync(FULL, k < 32 ? a0 : a1, k & 31);
+    TA xk = __shfl_sync(FULL, k < 32 ? a0 : a1, k & 31);
     if (!UNIT) xk = xk / ts[k * LEAF_LD + k];
     if (i0 == k) a0 = xk;
     if (i1 == k) a1 = xk;
     if (i0 > k && i0 < nr) a0 -= ts[i0 * LEAF_LD + k] * xk;
     if (i1 > k && i1 < nr) a1 -= ts[i1 * LEAF_LD + k] * xk;
   }
-  if (i0 < nr) x[(r0 + i0) * xr + cs * xc] = a0;
-  if (i1 < nr) x[(r0 + i1) * xr + cs * xc] = a1;
+  if (i0 < nr) {
+    w[(r0 + i0) * wr + cs * wc] = a0;
+    if (MIXED) x[(r0 + i0) * xr + cs * xc] = narrow<TS, TA>(a0);
+  }
+  if (i1 < nr) {
+    w[(r0 + i1) * wr + cs * wc] = a1;
+    if (MIXED) x[(r0 + i1) * xr + cs * xc] = narrow<TS, TA>(a1);
+  }
 }
 
 __device__ __forceinline__ void dmma(double& d0, double& d1, double a,
@@ -184,32 +212,34 @@ __device__ __forceinline__ void tile_product(const float* as,
   }
 }
 
-// x[rows r1 + 64 y ..., cols 64 x ...] = src - T[those rows, r0 : r0 + k]
-// x[r0 : r0 + k, those cols], for the trailing rows [r1, n).
-template <typename T>
+// w[rows r1 + 64 y ..., cols 64 x ...] = src - T[those rows, r0 : r0 + k]
+// w[r0 : r0 + k, those cols], for the trailing rows [r1, n).
+template <typename TS, typename TA, typename TSRC>
 __global__ void __launch_bounds__(UPD_THREADS)
-update_kernel(const T* __restrict__ t, long long tb, long long tr,
-              long long tc, const T* src, long long sb, long long sr,
-              long long sc, T* x, long long xb, long long xr, long long xc,
+update_kernel(const TS* __restrict__ t, long long tb, long long tr,
+              long long tc, const TSRC* src, long long sb, long long sr,
+              long long sc, TA* w, long long wb, long long wr, long long wc,
               int r0, int k, int r1, int n, int m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* as = reinterpret_cast<T*>(smem_raw);
-  T* bs = as + TILE * TILE_LD;
+  TA* as = reinterpret_cast<TA*>(smem_raw);
+  TA* bs = as + TILE * TILE_LD;
   t += blockIdx.z * tb;
   src += blockIdx.z * sb;
-  x += blockIdx.z * xb;
+  w += blockIdx.z * wb;
   const int row0 = r1 + blockIdx.y * TILE;
   const int col0 = blockIdx.x * TILE;
   const int nr = min(TILE, n - row0);
   const int nc = min(TILE, m - col0);
-  stage<T, TILE, TILE, UPD_THREADS, TILE_LD>(as, t, tr, tc, row0, r0, nr, k);
-  stage<T, TILE, TILE, UPD_THREADS, TILE_LD>(bs, x, xr, xc, r0, col0, k, nc);
+  stage<TA, TS, TILE, TILE, UPD_THREADS, TILE_LD>(as, t, tr, tc, row0, r0,
+                                                  nr, k);
+  stage<TA, TA, TILE, TILE, UPD_THREADS, TILE_LD>(bs, w, wr, wc, r0, col0, k,
+                                                  nc);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
   const int wy = warp >> 2, wx = warp & 3;
   // this thread's elements of src, fetched while the product runs (src
-  // may be x itself, so all reads come before any write)
-  T cv[4][2][2];
+  // may be w itself, so all reads come before any write)
+  TA cv[4][2][2];
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
     const int r = 32 * wy + 8 * mi + g;
@@ -220,17 +250,18 @@ update_kernel(const T* __restrict__ t, long long tb, long long tr,
         const int c = 16 * wx + 8 * ni + 2 * tq + e;
         cv[mi][ni][e] =
             (r < nr && c < nc)
-                ? src[(row0 + r) * sr + static_cast<long long>(col0 + c) * sc]
-                : T(0);
+                ? widen<TSRC, TA>(src[(row0 + r) * sr +
+                                      static_cast<long long>(col0 + c) * sc])
+                : TA(0);
       }
     }
   }
   __syncthreads();
-  T acc[4][2][2];
+  TA acc[4][2][2];
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
-    for (int ni = 0; ni < 2; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = T(0);
+    for (int ni = 0; ni < 2; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = TA(0);
   }
   tile_product(as, bs, k, acc);
 #pragma unroll
@@ -244,44 +275,68 @@ update_kernel(const T* __restrict__ t, long long tb, long long tr,
       for (int e = 0; e < 2; ++e) {
         const int c = 16 * wx + 8 * ni + 2 * tq + e;
         if (c >= nc) continue;
-        x[gr * xr + (col0 + c) * xc] = cv[mi][ni][e] - acc[mi][ni][e];
+        w[gr * wr + (col0 + c) * wc] = cv[mi][ni][e] - acc[mi][ni][e];
       }
     }
   }
 }
 
-template <typename T>
-int launch(const T* t, long long tb, long long tr, long long tc, const T* b,
-           long long bb, long long br, long long bc, T* x, long long xb,
-           long long xr, long long xc, int batch, int n, int m, int unit,
+template <typename TS, typename TA, typename TSRC>
+cudaError_t leaf(dim3 grid, cudaStream_t stream, bool unit, const TS* t,
+                 long long tb, long long tr, long long tc, const TSRC* src,
+                 long long sb, long long sr, long long sc, TA* w,
+                 long long wb, long long wr, long long wc, TS* x,
+                 long long xb, long long xr, long long xc, int r0, int nr,
+                 int m) {
+  if (unit) {
+    leaf_kernel<TS, TA, TSRC, true><<<grid, 32 * LEAF_COLS, 0, stream>>>(
+        t, tb, tr, tc, src, sb, sr, sc, w, wb, wr, wc, x, xb, xr, xc, r0, nr,
+        m);
+  } else {
+    leaf_kernel<TS, TA, TSRC, false><<<grid, 32 * LEAF_COLS, 0, stream>>>(
+        t, tb, tr, tc, src, sb, sr, sc, w, wb, wr, wc, x, xb, xr, xc, r0, nr,
+        m);
+  }
+  return cudaGetLastError();
+}
+
+template <typename TS, typename TA>
+int launch(const TS* t, long long tb, long long tr, long long tc,
+           const TS* b, long long bb, long long br, long long bc, TS* x,
+           long long xb, long long xr, long long xc, TA* w, long long wb,
+           long long wr, long long wc, int batch, int n, int m, int unit,
            cudaStream_t stream) {
-  const int smem = static_cast<int>(2 * TILE * TILE_LD * sizeof(T));
+  const int smem = static_cast<int>(2 * TILE * TILE_LD * sizeof(TA));
   cudaError_t err = cudaFuncSetAttribute(
-      update_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      update_kernel<TS, TA, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(update_kernel<TS, TA, TA>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 leaf_grid((m + LEAF_COLS - 1) / LEAF_COLS, 1, batch);
   for (int r0 = 0; r0 < n; r0 += LEAF) {
     const int nr = min(LEAF, n - r0);
-    // the first leaf and the first update read b; everything after reads
-    // the rows of x that the first update wrote
-    const T* src = r0 == 0 ? b : x;
-    const long long sb = r0 == 0 ? bb : xb;
-    const long long sr = r0 == 0 ? br : xr;
-    const long long sc = r0 == 0 ? bc : xc;
-    if (unit) {
-      leaf_kernel<T, true><<<leaf_grid, 32 * LEAF_COLS, 0, stream>>>(
-          t, tb, tr, tc, src, sb, sr, sc, x, xb, xr, xc, r0, nr, m);
-    } else {
-      leaf_kernel<T, false><<<leaf_grid, 32 * LEAF_COLS, 0, stream>>>(
-          t, tb, tr, tc, src, sb, sr, sc, x, xb, xr, xc, r0, nr, m);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
     const int r1 = r0 + nr;
-    if (r1 >= n) break;
     const dim3 grid((m + TILE - 1) / TILE, (n - r1 + TILE - 1) / TILE, batch);
-    update_kernel<T><<<grid, UPD_THREADS, smem, stream>>>(
-        t, tb, tr, tc, src, sb, sr, sc, x, xb, xr, xc, r0, nr, r1, n, m);
+    // the first leaf and the first update read b, at TS; everything after
+    // reads the rows of w that the first update wrote, at TA
+    if (r0 == 0) {
+      err = leaf<TS, TA, TS>(leaf_grid, stream, unit, t, tb, tr, tc, b, bb,
+                             br, bc, w, wb, wr, wc, x, xb, xr, xc, r0, nr, m);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (r1 >= n) break;
+      update_kernel<TS, TA, TS><<<grid, UPD_THREADS, smem, stream>>>(
+          t, tb, tr, tc, b, bb, br, bc, w, wb, wr, wc, r0, nr, r1, n, m);
+    } else {
+      err = leaf<TS, TA, TA>(leaf_grid, stream, unit, t, tb, tr, tc, w, wb,
+                             wr, wc, w, wb, wr, wc, x, xb, xr, xc, r0, nr, m);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (r1 >= n) break;
+      update_kernel<TS, TA, TA><<<grid, UPD_THREADS, smem, stream>>>(
+          t, tb, tr, tc, w, wb, wr, wc, w, wb, wr, wc, r0, nr, r1, n, m);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -290,27 +345,30 @@ int launch(const T* t, long long tb, long long tr, long long tc, const T* b,
 
 }  // namespace
 
+// Solve T X = B for `batch` problems: T n x n lower triangular at strides
+// (tb, tr, tc), B and X n x m at strides (bb, br, bc) and (xb, xr, xc);
+// W, n x m at strides (wb, wr, wc), is the TA workspace of a mixed route
+// and X itself on a default one. unit: 1 to take T's diagonal as ones.
+// trsm_<route> names the storage type, then the arithmetic type where it
+// is wider. Returns the first launch's cudaGetLastError() that is not
+// cudaSuccess, else 0.
+#define TRSM_ENTRY(ROUTE, TS, TA)                                            \
+  int trsm_##ROUTE(const TS* t, long long tb, long long tr, long long tc,  \
+                   const TS* b, long long bb, long long br, long long bc,  \
+                   TS* x, long long xb, long long xr, long long xc, TA* w, \
+                   long long wb, long long wr, long long wc, int batch,    \
+                   int n, int m, int unit, cudaStream_t stream) {          \
+    return launch<TS, TA>(t, tb, tr, tc, b, bb, br, bc, x, xb, xr, xc, w,  \
+                          wb, wr, wc, batch, n, m, unit, stream);          \
+  }
+
 extern "C" {
 
-// Solve T X = B for `batch` problems: T n x n lower triangular at strides
-// (tb, tr, tc), B and X n x m at strides (bb, br, bc) and (xb, xr, xc).
-// unit: 1 to take T's diagonal as ones. Returns the first launch's
-// cudaGetLastError() that is not cudaSuccess, else 0.
-int trsm_f64(const double* t, long long tb, long long tr, long long tc,
-             const double* b, long long bb, long long br, long long bc,
-             double* x, long long xb, long long xr, long long xc, int batch,
-             int n, int m, int unit, cudaStream_t stream) {
-  return launch(t, tb, tr, tc, b, bb, br, bc, x, xb, xr, xc, batch, n, m,
-                unit, stream);
-}
-
-int trsm_f32(const float* t, long long tb, long long tr, long long tc,
-             const float* b, long long bb, long long br, long long bc,
-             float* x, long long xb, long long xr, long long xc, int batch,
-             int n, int m, int unit, cudaStream_t stream) {
-  return launch(t, tb, tr, tc, b, bb, br, bc, x, xb, xr, xc, batch, n, m,
-                unit, stream);
-}
+TRSM_ENTRY(f64, double, double)
+TRSM_ENTRY(f32, float, float)
+TRSM_ENTRY(f32_f64, float, double)
+TRSM_ENTRY(bf16_f32, __nv_bfloat16, float)
+TRSM_ENTRY(f16_f32, __half, float)
 
 const char* spdc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

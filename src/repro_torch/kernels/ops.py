@@ -6,7 +6,16 @@ ref.py. Any other device raises.
 
 `LAUNCHES[name]` counts the kernel launches each wrapper made (plain
 versions never count), so a run can show that its path went through the
-kernels; `reset_launches()` zeroes every count.
+kernels; `reset_launches()` zeroes every count. A mixed route counts
+under its kernel's name.
+
+`acc_dtype` (lu_panel, the two triangular solves, schur_update) selects
+the reference's mixed variant, on both devices: narrow storage, wide
+arithmetic, one rounding on store. None, or the storage dtype itself,
+is the default route. The pairs ported are those of routes.ROUTES:
+float32 storage with float64 arithmetic and bfloat16/float16 storage
+with float32 arithmetic (for schur_update the latter is its default
+route); any other pair raises TypeError.
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ from . import ref
 from .ced import ced_cuda
 from .flash_attn import check_operands, flash_attention_cuda
 from .lu_panel import lu_panel_cuda
+from .routes import accumulator
 from .schur import schur_update_cuda
 from .trsm import trsm_lower_cuda, trsm_upper_right_cuda
 
@@ -55,45 +65,53 @@ def ced(m: torch.Tensor, v: torch.Tensor, k: int, *, mode: str = "ewd",
     return ref.ced_ref(m, v, k, mode=mode, growth_safe=growth_safe)
 
 
-def lu_panel(a: torch.Tensor) -> torch.Tensor:
+def lu_panel(a: torch.Tensor, *, acc_dtype=None) -> torch.Tensor:
     """Compact no-pivot LU of a (..., b, b) tile: strict-lower
-    multipliers plus U. Leaves `a` untouched."""
+    multipliers plus U, eliminated in acc_dtype where given. Leaves `a`
+    untouched."""
+    acc = accumulator("lu_panel", a.dtype, acc_dtype)
     if _on_cuda(a):
-        out = lu_panel_cuda(a)
+        out = lu_panel_cuda(a, acc)
         LAUNCHES["lu_panel"] += 1
         return out
-    return ref.lu_panel_ref(a)
+    return ref.lu_panel_ref(a, acc)
 
 
-def trsm_lower(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """X = L⁻¹B, L unit lower; only l's strict lower triangle is read."""
+def trsm_lower(l: torch.Tensor, b: torch.Tensor, *,
+               acc_dtype=None) -> torch.Tensor:
+    """X = L⁻¹B, L unit lower; only l's strict lower triangle is read.
+    Solved in acc_dtype where given."""
+    acc = accumulator("trsm_lower", b.dtype, acc_dtype)
     if _on_cuda(l, b):
-        out = trsm_lower_cuda(l, b)
+        out = trsm_lower_cuda(l, b, acc)
         LAUNCHES["trsm_lower"] += 1
         return out
-    return ref.trsm_lower_ref(l, b)
+    return ref.trsm_lower_ref(l, b, acc)
 
 
-def trsm_upper_right(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def trsm_upper_right(u: torch.Tensor, b: torch.Tensor, *,
+                     acc_dtype=None) -> torch.Tensor:
     """Z = B·U⁻¹, U upper with a non-unit diagonal; only u's upper
-    triangle is read."""
+    triangle is read. Solved in acc_dtype where given."""
+    acc = accumulator("trsm_upper_right", b.dtype, acc_dtype)
     if _on_cuda(u, b):
-        out = trsm_upper_right_cuda(u, b)
+        out = trsm_upper_right_cuda(u, b, acc)
         LAUNCHES["trsm_upper_right"] += 1
         return out
-    return ref.trsm_upper_right_ref(u, b)
+    return ref.trsm_upper_right_ref(u, b, acc)
 
 
-def schur_update(c: torch.Tensor, a: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
+def schur_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
+                 acc_dtype=None) -> torch.Tensor:
     """C − A·B into a fresh tensor; (…, M, K)·(…, K, N), batch-aware.
     float64/float32 accumulate in their own type, bfloat16/float16 in
-    float32."""
+    float32, float32 in float64 with acc_dtype=torch.float64."""
+    acc = accumulator("schur_update", c.dtype, acc_dtype)
     if _on_cuda(c, a, b):
-        out = schur_update_cuda(c, a, b)
+        out = schur_update_cuda(c, a, b, acc)
         LAUNCHES["schur_update"] += 1
         return out
-    return ref.schur_update_ref(c, a, b)
+    return ref.schur_update_ref(c, a, b, acc)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -4,6 +4,10 @@ Each function computes what its CUDA kernel computes, in the kernel's
 own operation order, with ordinary batched tensor ops over any leading
 batch dims. `ops` runs these for tensors on the CPU; `chip_smoke.py`
 holds each kernel against its plain version on the card.
+
+The panel, triangular-solve and Schur versions take `acc_dtype`, the
+mixed variant of the reference's kernels: with a wider acc_dtype they
+compute in it and cast to the storage dtype once, at the end.
 """
 from __future__ import annotations
 
@@ -26,49 +30,63 @@ def ced_ref(m: torch.Tensor, v: torch.Tensor, k: int, mode: str = "ewd",
     return x.contiguous()
 
 
-def lu_panel_ref(a: torch.Tensor) -> torch.Tensor:
+def _wide(t: torch.Tensor, acc_dtype) -> torch.Tensor:
+    """A copy of t in the arithmetic dtype (acc_dtype, else t's own)."""
+    return t.to(acc_dtype or t.dtype, copy=True)
+
+
+def lu_panel_ref(a: torch.Tensor, acc_dtype=None) -> torch.Tensor:
     """No-pivot Doolittle of (..., b, b) tiles in compact form: the
-    strict-lower multipliers and U in one array. Does not modify `a`."""
-    a = a.clone()
-    b = a.shape[-1]
+    strict-lower multipliers and U in one array, eliminated in acc_dtype
+    where given and stored at a's dtype. Does not modify `a`."""
+    x = _wide(a, acc_dtype)
+    b = x.shape[-1]
     for k in range(b - 1):
-        a[..., k + 1:, k] = a[..., k + 1:, k] / a[..., k, k, None]
-        a[..., k + 1:, k + 1:] -= a[..., k + 1:, k, None] * a[..., k, None, k + 1:]
-    return a
+        x[..., k + 1:, k] = x[..., k + 1:, k] / x[..., k, k, None]
+        x[..., k + 1:, k + 1:] -= x[..., k + 1:, k, None] * x[..., k, None, k + 1:]
+    return x.to(a.dtype)
 
 
-def trsm_lower_ref(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """X = L⁻¹B by forward substitution. Reads only the strict lower
-    triangle of l (the unit diagonal is implied), so the compact LU form
-    may be passed as is. l is (..., n, n), b is (..., n, m)."""
-    x = b.clone()
+def trsm_lower_ref(l: torch.Tensor, b: torch.Tensor,
+                   acc_dtype=None) -> torch.Tensor:
+    """X = L⁻¹B by forward substitution, in acc_dtype where given, stored
+    at b's dtype. Reads only the strict lower triangle of l (the unit
+    diagonal is implied), so the compact LU form may be passed as is.
+    l is (..., n, n), b is (..., n, m)."""
+    x = _wide(b, acc_dtype)
+    l = l.to(x.dtype)
     n = l.shape[-1]
     for k in range(n - 1):
         x[..., k + 1:, :] -= l[..., k + 1:, k, None] * x[..., k, None, :]
-    return x
+    return x.to(b.dtype)
 
 
-def trsm_upper_right_ref(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Z = B·U⁻¹ by substitution over the columns of B. Reads only the
-    upper triangle of u, diagonal included. u is (..., n, n), b is
-    (..., m, n)."""
-    z = b.clone()
+def trsm_upper_right_ref(u: torch.Tensor, b: torch.Tensor,
+                         acc_dtype=None) -> torch.Tensor:
+    """Z = B·U⁻¹ by substitution over the columns of B, in acc_dtype
+    where given, stored at b's dtype. Reads only the upper triangle of
+    u, diagonal included. u is (..., n, n), b is (..., m, n)."""
+    z = _wide(b, acc_dtype)
+    u = u.to(z.dtype)
     n = u.shape[-1]
     for k in range(n):
         z[..., :, k] = z[..., :, k] / u[..., k, k, None]
         z[..., :, k + 1:] -= z[..., :, k, None] * u[..., k, None, k + 1:]
-    return z
+    return z.to(b.dtype)
 
 
-def schur_update_ref(c: torch.Tensor, a: torch.Tensor,
-                     b: torch.Tensor) -> torch.Tensor:
-    """C − A·B in the accumulation dtype: bfloat16 and float16 are widened
-    to float32 and the result rounded once to the input dtype; float32
-    and float64 compute in their own type. c is (..., M, N), a (..., M, K),
-    b (..., K, N); the result is a new tensor."""
-    if c.dtype in (torch.bfloat16, torch.float16):
-        return (c.float() - a.float() @ b.float()).to(c.dtype)
-    return c - a @ b
+def schur_update_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                     acc_dtype=None) -> torch.Tensor:
+    """C − A·B in the accumulation dtype: acc_dtype where given, else
+    float32 for bfloat16 and float16 and the input dtype for float32 and
+    float64; the whole of K is summed there and the result rounded once
+    to the input dtype. c is (..., M, N), a (..., M, K), b (..., K, N);
+    the result is a new tensor."""
+    if acc_dtype is None and c.dtype in (torch.bfloat16, torch.float16):
+        acc_dtype = torch.float32
+    if acc_dtype is None or acc_dtype == c.dtype:
+        return c - a @ b
+    return (c.to(acc_dtype) - a.to(acc_dtype) @ b.to(acc_dtype)).to(c.dtype)
 
 
 #: the masked-score sentinel of the reference's kernel (flash_attn.py:23)

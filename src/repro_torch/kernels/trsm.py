@@ -5,7 +5,10 @@ CUDA solver handles both: Z = B·U⁻¹ is handed over as Uᵀ Zᵀ = Bᵀ by
 swapping strides, and every operand goes with its strides, so strided
 views need no copy. One wrapper call puts `cuda_launches(n)` kernels on
 the stream: a 64-row leaf solve per leaf and a trailing update between
-consecutive leaves.
+consecutive leaves. `acc_dtype` selects the mixed variant (the
+reference's acc_dtype, routes.ROUTES): the solve runs in the wider type,
+its intermediate rows kept in a workspace of that type, and the result
+is stored at B's type.
 """
 from __future__ import annotations
 
@@ -13,18 +16,17 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, routes
 
 _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     f"trsm_{suffix}": (
         _INT,
         (_PTR, _LL, _LL, _LL, _PTR, _LL, _LL, _LL, _PTR, _LL, _LL, _LL,
-         _INT, _INT, _INT, _INT, _PTR),
+         _PTR, _LL, _LL, _LL, _INT, _INT, _INT, _INT, _PTR),
     )
-    for suffix in ("f32", "f64")
+    for suffix in set(routes.ROUTES["trsm_lower"].values())
 }
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _MAX_GRID_Z = 65535
 #: rows of one leaf of csrc/trsm.cu's blocked solve
 LEAF = 64
@@ -36,13 +38,15 @@ def cuda_launches(n: int) -> int:
     return 2 * -(-n // LEAF) - 1 if n > 0 else 0
 
 
-def _check(kernel: str, tri: torch.Tensor, rhs: torch.Tensor) -> int:
-    """Validate a (…, n, n) triangle against its right-hand side; returns
-    the batch size."""
+def _check(kernel: str, tri: torch.Tensor, rhs: torch.Tensor,
+           acc_dtype: torch.dtype | None) -> int:
+    """Validate a (…, n, n) triangle against its right-hand side and the
+    route; returns the batch size."""
     if tri.device.type != "cuda" or rhs.device != tri.device:
         raise ValueError(f"{kernel} needs CUDA operands, got {tri.device}/{rhs.device}")
-    if tri.dtype not in _SUFFIX or rhs.dtype != tri.dtype:
-        raise TypeError(f"{kernel} takes float32/float64, got {tri.dtype}/{rhs.dtype}")
+    if rhs.dtype != tri.dtype:
+        raise TypeError(f"{kernel}: operands of one dtype, got {tri.dtype}/{rhs.dtype}")
+    routes.suffix(kernel, tri.dtype, acc_dtype)
     if tri.ndim not in (2, 3) or rhs.ndim != tri.ndim:
         raise ValueError(f"{kernel} needs two 2-D or two 3-D operands")
     if tri.shape[-1] != tri.shape[-2]:
@@ -64,41 +68,54 @@ def _strides(t: torch.Tensor, transpose: bool) -> tuple[int, int, int]:
 
 
 def _launch(kernel, tri, rhs, out, *, transpose: bool, n: int, m: int,
-            unit: bool, batch: int) -> None:
+            unit: bool, batch: int, acc_dtype) -> None:
+    suffix = routes.suffix(kernel, tri.dtype, acc_dtype)
+    if acc_dtype is None:
+        work, work_strides = out, _strides(out, transpose)
+    else:
+        # the solver's n x m orientation, contiguous
+        work = torch.empty((batch, n, m), dtype=acc_dtype, device=out.device)
+        work_strides = (n * m, m, 1)
     lib = build.library("trsm", _SIGNATURES)
     with torch.cuda.device(tri.device):
-        code = getattr(lib, f"trsm_{_SUFFIX[tri.dtype]}")(
+        code = getattr(lib, f"trsm_{suffix}")(
             tri.data_ptr(), *_strides(tri, transpose),
             rhs.data_ptr(), *_strides(rhs, transpose),
             out.data_ptr(), *_strides(out, transpose),
+            work.data_ptr(), *work_strides,
             batch, n, m, int(unit), torch.cuda.current_stream().cuda_stream,
         )
     build.check_launch(lib, kernel, code)
 
 
-def trsm_lower_cuda(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def trsm_lower_cuda(l: torch.Tensor, b: torch.Tensor,
+                    acc_dtype: torch.dtype | None = None) -> torch.Tensor:
     """X = L⁻¹B for L (…, n, n) unit lower — only its strict lower
-    triangle is read — and B (…, n, m), at any strides."""
-    batch = _check("trsm_lower", l, b)
+    triangle is read — and B (…, n, m), at any strides; solved in
+    `acc_dtype` where given, stored at B's dtype."""
+    batch = _check("trsm_lower", l, b, acc_dtype)
     n, m = b.shape[-2], b.shape[-1]
     if n != l.shape[-1]:
         raise ValueError(f"trsm_lower: L {tuple(l.shape)} vs B {tuple(b.shape)}")
     out = torch.empty(b.shape, dtype=b.dtype, device=b.device)
     if batch and n and m:
         _launch("trsm_lower", l, b, out, transpose=False, n=n, m=m,
-                unit=True, batch=batch)
+                unit=True, batch=batch, acc_dtype=acc_dtype)
     return out
 
 
-def trsm_upper_right_cuda(u: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def trsm_upper_right_cuda(u: torch.Tensor, b: torch.Tensor,
+                          acc_dtype: torch.dtype | None = None
+                          ) -> torch.Tensor:
     """Z = B·U⁻¹ for U (…, n, n) upper with a non-unit diagonal — only
-    its upper triangle is read — and B (…, m, n), at any strides."""
-    batch = _check("trsm_upper_right", u, b)
+    its upper triangle is read — and B (…, m, n), at any strides; solved
+    in `acc_dtype` where given, stored at B's dtype."""
+    batch = _check("trsm_upper_right", u, b, acc_dtype)
     m, n = b.shape[-2], b.shape[-1]
     if n != u.shape[-1]:
         raise ValueError(f"trsm_upper_right: U {tuple(u.shape)} vs B {tuple(b.shape)}")
     out = torch.empty(b.shape, dtype=b.dtype, device=b.device)
     if batch and n and m:
         _launch("trsm_upper_right", u, b, out, transpose=True, n=n, m=m,
-                unit=False, batch=batch)
+                unit=False, batch=batch, acc_dtype=acc_dtype)
     return out

@@ -19,7 +19,9 @@ exp(s − m) against each key tile's running max, the plain version against
 the row's final max) and the whole within ||err|| <= eps ||want||, so an
 error in a large share of the outputs fails even where each is small
 (both sides accumulate in f32; chip_smoke.py's bf16 prefill read max|err|
-0.0039, one ulp of an output in [0.5, 1)).
+0.0039, one ulp of an output in [0.5, 1)). The mixed acc_dtype routes
+within 4 storage ulps of max|plain|: both round once to the storage type
+from wide values that differ in summation order only.
 """
 import numpy as np
 import pytest
@@ -661,3 +663,125 @@ def test_panel_and_schur_launch_once_per_call(cuda, case):
     if case == "schur-f64-inner":
         c, a, b = x[32:, 32:], x[32:, :32], x[:32, 32:]
     assert _profiled_launches(lambda: ops.schur_update(c, a, b)) == 1
+
+
+# --------------------------------------------------- mixed acc_dtype routes
+#: (storage, arithmetic) of the mixed routes; a route and its plain
+#: version round once to the storage type from wide values that differ in
+#: summation order only: within 4 storage ulps of max|plain|
+MIXED = [(torch.float32, torch.float64), (torch.bfloat16, torch.float32),
+         (torch.float16, torch.float32)]
+MIXED_IDS = ["f32-f64", "bf16-f32", "f16-f32"]
+
+
+def _close_ulps(got, want, dtype, ulps=4):
+    assert got.dtype == want.dtype == dtype
+    _close(got.double(), want.double(), ulps * torch.finfo(dtype).eps)
+
+
+@pytest.mark.parametrize("st,acc", MIXED, ids=MIXED_IDS)
+@pytest.mark.parametrize("shape", [(32, 32), (16, 32, 32), (48, 48), (100, 100)])
+def test_lu_panel_mixed_matches_plain(cuda, st, acc, shape):
+    a = torch.from_numpy(_dominant(shape, 3)).to(cuda, st)
+    _close_ulps(ops.lu_panel(a, acc_dtype=acc), ref.lu_panel_ref(a, acc), st)
+
+
+@pytest.mark.parametrize("st,acc", MIXED, ids=MIXED_IDS)
+@pytest.mark.parametrize("n,m,batch", [(1024, 1024, None), (32, 992, None),
+                                        (100, 70, 3)])
+def test_trsm_mixed_match_plain(cuda, st, acc, n, m, batch):
+    lead = () if batch is None else (batch,)
+    l, u = (torch.from_numpy(t).to(cuda, st) for t in _triangles(lead, n, 5))
+    b = torch.from_numpy(_rand((*lead, n, m), 6)).to(cuda, st)
+    b2 = torch.from_numpy(_rand((*lead, m, n), 7)).to(cuda, st)
+    _close_ulps(ops.trsm_lower(l, b, acc_dtype=acc),
+                ref.trsm_lower_ref(l, b, acc), st)
+    _close_ulps(ops.trsm_upper_right(u, b2, acc_dtype=acc),
+                ref.trsm_upper_right_ref(u, b2, acc), st)
+
+
+def test_trsm_mixed_columns_bit_equal_across_splits(cuda):
+    """The mixed route keeps the split property: a call over m columns
+    equals calls over its halves, bit for bit."""
+    l, u = (torch.from_numpy(t).to(cuda, torch.float32)
+            for t in _triangles((), 300, 8))
+    b = torch.from_numpy(_rand((300, 200), 9)).to(cuda, torch.float32)
+    whole = ops.trsm_lower(l, b, acc_dtype=torch.float64)
+    halves = torch.cat([ops.trsm_lower(l, b[:, :77], acc_dtype=torch.float64),
+                        ops.trsm_lower(l, b[:, 77:], acc_dtype=torch.float64)],
+                       dim=1)
+    assert torch.equal(whole, halves)
+
+
+@pytest.mark.parametrize("st,acc", MIXED[:1], ids=MIXED_IDS[:1])
+@pytest.mark.parametrize("m,k,n,batch", [(1024, 1024, 1024, None),
+                                         (992, 32, 992, None),
+                                         (130, 37, 70, 3)])
+def test_schur_mixed_matches_plain(cuda, st, acc, m, k, n, batch):
+    lead = () if batch is None else (batch,)
+    c, a, b = (torch.from_numpy(_rand((*lead, *s), i)).to(cuda, st)
+               for i, s in enumerate([(m, n), (m, k), (k, n)]))
+    got = ops.schur_update(c, a, b, acc_dtype=acc)
+    _close_ulps(got, ref.schur_update_ref(c, a, b, acc), st)
+
+
+@pytest.mark.parametrize("which", ["a", "b", "c", "all"])
+def test_schur_mixed_column_major_and_odd_offsets(cuda, which):
+    """The mixed route stages f32 tiles four elements a copy where rows
+    allow, one element otherwise: transposed views and views at odd
+    offsets take the element path."""
+    big = torch.from_numpy(_rand((3, 301, 301), 13)).to(cuda, torch.float32)
+    c, a, b = big[0, 1:201, 3:131], big[1, 5:205, 7:71], big[2, 2:66, 1:129]
+    if which in ("a", "all"):
+        a = big[1, 5:69, 7:207].t()
+    if which in ("b", "all"):
+        b = big[2, 2:130, 1:65].t()
+    if which in ("c", "all"):
+        c = big[0, 1:129, 3:203].t()
+    got = ops.schur_update(c, a, b, acc_dtype=torch.float64)
+    _close_ulps(got, ref.schur_update_ref(c, a, b, torch.float64),
+                torch.float32)
+
+
+def test_mixed_panel_block_route_holds_wide_tiles(cuda):
+    """An f32 tile computed in f64 is held at f64 in shared memory: 170
+    wide at most, where the f32 route takes 241."""
+    a = torch.eye(171, dtype=torch.float32, device=cuda)
+    assert torch.equal(ops.lu_panel(a), a)
+    with pytest.raises(ValueError, match="blocked"):
+        ops.lu_panel(a, acc_dtype=torch.float64)
+
+
+def test_lu_blocked_mixed_on_card_matches_cpu(cuda):
+    from repro_torch.core.lu import lu_blocked
+
+    x = _dominant((256, 256), 10).astype(np.float32)
+    got = lu_blocked(torch.from_numpy(x).to(cuda), 64, acc_dtype=torch.float64)
+    want = lu_blocked(torch.from_numpy(x), 64, acc_dtype=torch.float64)
+    for g, w in zip(got, want):
+        _close_ulps(g.cpu(), w, torch.float32)
+
+
+def test_recovery_on_card_heals_to_honest_factors(cuda):
+    """A block tamper by server 2 in the inline sweep, healed on the
+    card: the determinant of the honest run, bit for bit."""
+    import repro_torch
+
+    m = _dominant((256, 256), 11)
+    honest = repro_torch.outsource_determinant(m, 4)
+    res = repro_torch.outsource_determinant(
+        m, 4, faults=repro_torch.ServerFault(server=2, mode="block",
+                                            magnitude=0.3),
+        recover=True, standby=1)
+    assert res.verified and res.report.recovery.servers_replaced == (2,)
+    assert res.det == honest.det
+
+
+def test_f32_protocol_on_card(cuda):
+    import repro_torch
+
+    m = _dominant((512, 512), 12)
+    res = repro_torch.outsource_determinant(m, 4, dtype="float32")
+    sign, logabs = np.linalg.slogdet(m)
+    assert res.verified and res.det.sign == sign
+    assert abs(res.det.logabs - logabs) <= 1e-4

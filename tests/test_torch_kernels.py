@@ -21,7 +21,7 @@ from repro.kernels import ops as r_ops
 from repro_torch.core import cipher as t_cipher
 from repro_torch.core import keygen as t_keygen
 from repro_torch.core import seed as t_seed
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, ops, ref, routes
 from repro_torch.kernels.ced import ced_cuda
 from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.kernels.lu_panel import lu_panel_cuda, max_tile
@@ -341,3 +341,191 @@ def test_build_without_nvcc_raises(monkeypatch):
         pytest.skip("a CUDA toolkit is installed at its default location")
     with pytest.raises(RuntimeError, match="nvcc"):
         build.build()
+
+
+# ------------------------------------------------- mixed acc_dtype routes
+#: (port storage, port arithmetic, reference storage, reference arithmetic)
+MIXED = {
+    "f32->f64": (torch.float32, torch.float64, jnp.float32, jnp.float64),
+    "bf16->f32": (torch.bfloat16, torch.float32, jnp.bfloat16, jnp.float32),
+}
+
+
+def _pair(x, mixed):
+    """The same numpy array rounded to the pair's storage type, as a port
+    tensor and a reference array (bf16 goes through torch, which numpy
+    cannot hold)."""
+    st, _, jst, _ = MIXED[mixed]
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(st)
+    return t, jnp.asarray(t.float().numpy(), dtype=jst)
+
+
+def _within_ulps(got, want, dtype, ulps=4):
+    """|got − want| <= ulps · eps(storage) · max|want|: both round once to
+    the storage type at the same point, from wide values that differ by
+    summation order only."""
+    got = got.float().double().numpy()
+    want = np.asarray(want, dtype=np.float64)
+    assert got.shape == want.shape
+    eps = torch.finfo(dtype).eps
+    assert np.abs(got - want).max() <= ulps * eps * np.abs(want).max()
+
+
+@pytest.mark.parametrize("mixed", list(MIXED))
+@pytest.mark.parametrize("shape", [(32, 32), (48, 48), (3, 32, 32)],
+                         ids=["32", "48", "batched"])
+def test_lu_panel_mixed_matches_pallas(mixed, shape):
+    st, acc, _, jacc = MIXED[mixed]
+    t, j = _pair(_dominant(shape, shape[-1] + 1), mixed)
+    want = r_ops._lu_panel_compact(j, interpret=True, acc_dtype=jacc)
+    got = ops.lu_panel(t, acc_dtype=acc)
+    assert got.dtype == st
+    _within_ulps(got, want, st)
+
+
+@pytest.mark.parametrize("mixed", list(MIXED))
+def test_lu_panel_mixed_reads_strided_views(mixed):
+    """The panel loop passes a[..., s0:s1, s0:s1] views of its tile."""
+    st, acc, _, jacc = MIXED[mixed]
+    t, j = _pair(_dominant((64, 64), 9), mixed)
+    view = t[16:48, 16:48]
+    assert not view.is_contiguous()
+    want = r_ops._lu_panel_compact(j[16:48, 16:48], interpret=True,
+                                   acc_dtype=jacc)
+    _within_ulps(ops.lu_panel(view, acc_dtype=acc), want, st)
+
+
+@pytest.mark.parametrize("mixed", list(MIXED))
+@pytest.mark.parametrize("lead", [(), (2,)], ids=["2d", "batched"])
+def test_trsm_mixed_match_pallas(mixed, lead):
+    st, acc, _, jacc = MIXED[mixed]
+    n, m = 48, 64
+    l = np.tril(_rand((*lead, n, n), 1), -1) / n + np.eye(n)
+    u = np.triu(_rand((*lead, n, n), 2)) + n * np.eye(n)
+    (tl, jl), (tu, ju) = _pair(l, mixed), _pair(u, mixed)
+    (tb, jb), (tb2, jb2) = _pair(_rand((*lead, n, m), 3), mixed), \
+        _pair(_rand((*lead, m, n), 4), mixed)
+    _within_ulps(ops.trsm_lower(tl, tb, acc_dtype=acc),
+                 r_ops.trsm_lower(jl, jb, interpret=True, acc_dtype=jacc), st)
+    _within_ulps(ops.trsm_upper_right(tu, tb2, acc_dtype=acc),
+                 r_ops.trsm_upper_right(ju, jb2, interpret=True,
+                                        acc_dtype=jacc), st)
+
+
+@pytest.mark.parametrize("mixed", list(MIXED))
+def test_trsm_mixed_read_strided_views_of_the_compact_tile(mixed):
+    """lu_panel_blocked solves against the compact tile's triangle and
+    its strips, all views of one matrix."""
+    st, acc, _, jacc = MIXED[mixed]
+    t, j = _pair(_dominant((96, 96), 5), mixed)
+    tri, right, below = t[:32, :32], t[:32, 32:], t[32:, :32]
+    jtri = j[:32, :32]
+    jl = jnp.tril(jtri, -1) + jnp.eye(32, dtype=jtri.dtype)
+    _within_ulps(ops.trsm_lower(tri, right, acc_dtype=acc),
+                 r_ops.trsm_lower(jl, j[:32, 32:], interpret=True,
+                                  acc_dtype=jacc), st)
+    _within_ulps(ops.trsm_upper_right(tri, below, acc_dtype=acc),
+                 r_ops.trsm_upper_right(jnp.triu(jtri), j[32:, :32],
+                                        interpret=True, acc_dtype=jacc), st)
+
+
+@pytest.mark.parametrize("mixed", list(MIXED))
+@pytest.mark.parametrize("lead,m,k,n", [((), 64, 256, 96), ((2,), 32, 48, 64),
+                                        ((), 96, 32, 96)],
+                         ids=["2d-K256", "batched", "inner-K32"])
+def test_schur_mixed_matches_pallas(mixed, lead, m, k, n):
+    """Pallas rounds each 128-deep chunk's product to the storage type
+    before it subtracts; the port sums all of K wide and rounds once. So
+    the bound is elementwise (2⌈K/128⌉ + 1)·u·(|C| + |A|·|B|), u the
+    storage type's unit roundoff."""
+    st, acc, _, jacc = MIXED[mixed]
+    (tc, jc), (ta, ja), (tb, jb) = (_pair(_rand((*lead, *s), i), mixed)
+                                    for i, s in enumerate([(m, n), (m, k),
+                                                           (k, n)]))
+    got = ops.schur_update(tc, ta, tb, acc_dtype=acc)
+    assert got.dtype == st
+    want = np.asarray(r_ops.schur_update(jc, ja, jb, acc_dtype=jacc),
+                      dtype=np.float64)
+    c, a, b = (x.float().double().numpy() for x in (tc, ta, tb))
+    scale = np.abs(c) + np.abs(a) @ np.abs(b)
+    u = torch.finfo(st).eps / 2
+    bound = (2 * -(-k // 128) + 1) * u * scale
+    assert np.all(np.abs(got.float().double().numpy() - want) <= bound)
+
+
+def test_schur_mixed_f32_sums_all_of_k_wide():
+    """The port's mixed Schur is C − A·B computed in f64 and rounded to
+    f32 once: within half an f32 ulp of the f64 result."""
+    (tc, _), (ta, _), (tb, _) = (_pair(_rand(s, i), "f32->f64")
+                                 for i, s in enumerate([(64, 64), (64, 512),
+                                                        (512, 64)]))
+    got = ops.schur_update(tc, ta, tb, acc_dtype=torch.float64)
+    exact = tc.double() - ta.double() @ tb.double()
+    assert torch.equal(got, exact.float())
+
+
+@pytest.mark.parametrize("kernel", ["lu_panel", "trsm_lower",
+                                    "trsm_upper_right", "schur_update"])
+def test_acc_dtype_pairs_default_and_refused(kernel):
+    """None or the storage type is the default route; the ported pairs
+    are f32 → f64 and bf16/f16 → f32 (for schur_update the latter is its
+    default); any other pair raises TypeError naming its ROADMAP item."""
+    f16, bf16, f32, f64 = torch.float16, torch.bfloat16, torch.float32, torch.float64
+    for dtype in (f32, f64):
+        assert ops.accumulator(kernel, dtype, None) is None
+        assert ops.accumulator(kernel, dtype, dtype) is None
+    assert ops.accumulator(kernel, f32, f64) == f64
+    half = None if kernel == "schur_update" else f32
+    assert ops.accumulator(kernel, bf16, f32) is half
+    assert ops.accumulator(kernel, f16, f32) is half
+    for dtype, acc in ((bf16, f64), (f16, f64), (f64, f32), (f32, f16)):
+        with pytest.raises(TypeError, match="B7"):
+            ops.accumulator(kernel, dtype, acc)
+    x = torch.eye(8, dtype=f16)
+    call = {"lu_panel": lambda: ops.lu_panel(x, acc_dtype=f64),
+            "trsm_lower": lambda: ops.trsm_lower(x, x, acc_dtype=f64),
+            "trsm_upper_right": lambda: ops.trsm_upper_right(x, x, acc_dtype=f64),
+            "schur_update": lambda: ops.schur_update(x, x, x, acc_dtype=f64)}
+    with pytest.raises(TypeError, match="B7"):
+        call[kernel]()
+
+
+@pytest.mark.parametrize("kernel", sorted(routes.ROUTES))
+def test_route_table_names_every_entry_point(kernel):
+    """One table holds the routes: every (storage, arithmetic) pair of a
+    kernel resolves to an entry point its wrapper binds, the default
+    route of each storage type included, and the build layer knows no
+    dtypes."""
+    from repro_torch.kernels import lu_panel, schur, trsm
+
+    bound = {"lu_panel": lu_panel._SIGNATURES, "trsm_lower": trsm._SIGNATURES,
+             "trsm_upper_right": trsm._SIGNATURES,
+             "schur_update": schur._SIGNATURES}[kernel]
+    prefix = {"lu_panel": "lu_panel_", "schur_update": "schur_"}.get(
+        kernel, "trsm_")
+    for (storage, arith), suffix in routes.ROUTES[kernel].items():
+        assert prefix + suffix in bound
+        acc = routes.accumulator(kernel, storage, arith)
+        assert routes.suffix(kernel, storage, acc) == suffix
+        assert routes.suffix(kernel, storage, arith) == suffix
+    assert not hasattr(build, "torch")
+
+
+def test_mixed_panel_route_keys_off_the_accumulator():
+    """The block route holds its tile at the arithmetic type, so an f32
+    tile computed in f64 fits up to 170 wide, not f32's 241."""
+    from repro_torch.kernels import lu_panel
+
+    assert max_tile(torch.float32) == 241
+    assert lu_panel.route(200, torch.float32) == "block"
+    with pytest.raises(ValueError, match="blocked"):
+        lu_panel.route(200, torch.float64)
+    for suffix in ("f32_f64", "bf16_f32", "f16_f32"):
+        assert suffix in routes.ROUTES["lu_panel"].values()
+    with pytest.raises(TypeError, match="no CUDA route"):
+        routes.suffix("lu_panel", torch.float16, None)
+    # the mixed Schur route runs the f64 DMMA kernel's 128-row blocks
+    from repro_torch.kernels import schur
+
+    assert schur.rows_per_block(torch.float32, torch.float64) == 128
+    assert schur.rows_per_block(torch.float32) == 64

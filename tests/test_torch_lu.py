@@ -124,8 +124,66 @@ def test_lu_blocked_leaves_input_and_refuses_what_it_lacks():
     np.testing.assert_allclose((l @ u).numpy(), x.numpy(), atol=1e-12)
     with pytest.raises(ValueError, match="divisible"):
         t_lu.lu_blocked(x, 12)
-    with pytest.raises(NotImplementedError, match="A6"):
-        t_lu.lu_blocked(x, 8, acc_dtype=torch.float64)
+    # the mixed variant: f32 in, f32 out, the input untouched; a pair
+    # with no route (f64 storage, f32 arithmetic) is refused
+    x32 = x.float()
+    before32 = x32.clone()
+    l32, u32 = t_lu.lu_blocked(x32, 8, acc_dtype=torch.float64)
+    assert torch.equal(x32, before32)
+    assert l32.dtype == u32.dtype == torch.float32
+    with pytest.raises(TypeError, match="B7"):
+        t_lu.lu_blocked(x, 8, acc_dtype=torch.float32)
+
+
+# ------------------------------------------------- lu_blocked, mixed variant
+#: f32 factors of the two mixed routes: within 8 f32 ulps of max|factor|
+MIXED_TOL = 8 * 2.0**-24
+
+
+def _mixed_factors(x):
+    """(port mixed, reference mixed, port plain f32, f64) factor pairs of
+    lu_blocked(x as f32, 32): the reference's kernel route in interpret
+    mode, which factors each 32-wide diagonal tile in one wide launch, as
+    the port's block-32 tiles are one Doolittle tile too."""
+    x32 = x.astype(np.float32)
+    port = t_lu.lu_blocked(torch.from_numpy(x32), 32, acc_dtype=torch.float64)
+    want = r_lu.lu_blocked(jnp.asarray(x32), 32, use_kernels=True,
+                           interpret=True, acc_dtype=jnp.float64)
+    plain = t_lu.lu_blocked(torch.from_numpy(x32), 32)
+    f64 = t_lu.lu_blocked(torch.from_numpy(x32.astype(np.float64)), 32)
+    as_np = lambda pair: tuple(np.asarray(f, dtype=np.float64) for f in pair)
+    return (as_np([f.numpy() for f in port]), as_np(want),
+            as_np([f.numpy() for f in plain]), as_np([f.numpy() for f in f64]))
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (2, 64, 64)], ids=["2d", "batched"])
+def test_lu_blocked_mixed_matches_reference_and_beats_plain_f32(shape):
+    port, want, plain, f64 = _mixed_factors(_dominant(shape, 64))
+    for got, ref_f in zip(port, want):
+        assert np.abs(got - ref_f).max() <= MIXED_TOL * np.abs(ref_f).max()
+
+    def dist(pair):
+        return max(np.abs(a - b).max() / np.abs(b).max()
+                   for a, b in zip(pair, f64))
+
+    assert dist(port) <= 2 * dist(want)
+    assert dist(port) < dist(plain)
+
+
+def test_lu_blocked_mixed_blocked_tiles_round_between_inner_steps():
+    """Above 64 rows a diagonal tile is factored blocked, its entries
+    rounded to f32 between 32-wide steps; still nearer the f64
+    factorization than the plain f32 route."""
+    x = _dominant((128, 128), 3).astype(np.float32)
+    f64 = t_lu.lu_blocked(torch.from_numpy(x).double(), 128)
+    mixed = t_lu.lu_blocked(torch.from_numpy(x), 128, acc_dtype=torch.float64)
+    plain = t_lu.lu_blocked(torch.from_numpy(x), 128)
+
+    def dist(pair):
+        return max(float((a.double() - b).abs().max() / b.abs().max())
+                   for a, b in zip(pair, f64))
+
+    assert dist(mixed) < dist(plain)
 
 
 # --------------------------------------------------------------- lu_block_row

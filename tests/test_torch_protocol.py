@@ -245,9 +245,27 @@ def test_float32_protocol_verifies():
     assert got.det.allclose(Determinant(float(sign), float(logabs)))
 
 
+@pytest.mark.parametrize("kwargs,replaced", [
+    ({"recover": True}, ()),
+    ({"faults": ServerFault(server=1), "recover": True}, (1,)),
+], ids=["honest", "tampered"])
+def test_recover_flag_runs_recovery(kwargs, replaced):
+    """recover=True (ROADMAP A8, ported): an honest run needs no
+    re-dispatch and reports none; a tampering server's shard is
+    re-dispatched and the result verifies."""
+    m = _matrix(8, 0)
+    got = repro_torch.outsource_determinant(m, 2, device=CPU, **kwargs)
+    assert got.verified
+    if replaced:
+        assert got.report.recovery.ok
+        assert got.report.recovery.servers_replaced == replaced
+    else:
+        assert got.report.recovery is None
+    sign, logabs = np.linalg.slogdet(m)
+    assert got.det.allclose(Determinant(float(sign), float(logabs)))
+
+
 @pytest.mark.parametrize("kwargs,item", [
-    ({"recover": True}, "A8"),
-    ({"faults": ServerFault(server=1), "recover": True}, "A8"),
     ({"rateless": True}, "A9"),
     ({"transport": "shardmap"}, "A12"),
     ({"transport": "socket"}, "A9"),
