@@ -83,11 +83,38 @@ inputs), the f32 and mixed-precision slice and recovery, before phase 12:
   determinant equal to the honest one at rtol 1e-10, collect_s beside
   the honest dispatch_s.
 
+Then, from a third random stream, the socket and rateless phases, on four
+port WorkerDaemons spawned (never forked, after this process built the
+kernels) on Unix sockets, each computing on the card and serving any
+worker id:
+
+- socket: n = 4096 f64, N = 4, q3 through `SocketTransport(addresses)`:
+  verified, factors bit-equal to the inline sweep's, the determinant
+  equal to the inline one, no server kernel launched in this process;
+  the daemons' spawn and the first sweep timed apart from a warm run by
+  a second SocketTransport, whose HELLO counters (connections,
+  frames_served) show the same daemons served both; per task the frame
+  sizes and the daemon round trip beside the same task run in process;
+- rateless on the same daemons: n = 4096 f64 with RatelessConfig() (F = 8
+  strips of 512 rows) bit-equal to `lu_nserver(x_aug, 8)` on the card with
+  no strip computed inline, the strips each worker served; a 16 x 1024
+  stack in four lanes; the reference's acceptance case on a 5 x 1024
+  stack (worker 1 a Pareto straggler, worker 2 a block tamperer):
+  verified, determinants equal to the honest run's at rtol 1e-10, the
+  streamed factors passing Q2 and Q3, worker 2 quarantined, worker 1
+  serving fewer strips than each healthy worker.
+
+The daemons' kernel launches happen in their processes and are not
+counted here; bit-equality with the inline sweep shows they ran the
+kernels' arithmetic on the card. The client's CED launch is counted.
+
 The kernels line then has a row per route besides the default f64 rows:
 "<kernel>:f32" (the f32 routes the f32 paths run), "<kernel>:f32_f64"
 (the mixed routes mixed lu_blocked runs) and "<kernel>:bf16_f32" (no
 path runs them: launches null, with a note), each with the device
-kernels' template names the profiler reports. Each timing names the
+kernels' template names the profiler reports, and "flash_attention:f32"
+(the f32 kernel at the prefill and decode shapes, launched by phase 13's
+f32 runs). Each timing names the
 profiler windows it took (profile_windows); the run line counts the
 timings that needed more than one.
 
@@ -217,6 +244,13 @@ REPORTED_TAMPER_KW = {"server": 2, "mode": "block", "magnitude": 0.3}
 #: the recovery phase's worker-process case: n (the honest relay through
 #: four worker processes takes seconds a pass at n = 4096)
 MP_RECOVERY_N = 1024
+#: the rateless phase's stacks of BATCH_N matrices: the stack run in
+#: lanes, and the reference's acceptance case (tests/test_rateless.py
+#: runs it on 5 x 32)
+RATELESS_STACK, ACCEPT_STACK = 16, 5
+#: seconds a socket daemon may take to bind (torch import, the kernels'
+#: load, the CUDA context), and a connection to come up
+DAEMON_BIND_S = 300.0
 
 #: device_events' padding before a timed loop: launches and seconds
 WARM_LAUNCHES, WARM_PAUSE_S = 64, 0.01
@@ -951,6 +985,234 @@ def phase_multiprocess(rng, dev, rng_new) -> tuple[dict, dict]:
     return pmop, recovery
 
 
+def spawn_daemons(count: int, root: str) -> tuple[list, list, float]:
+    """`count` port WorkerDaemons on Unix sockets under `root`, each in a
+    spawned process on the card, serving any worker id. Returns the
+    addresses, the processes and the seconds until all had bound (a
+    daemon binds once it has loaded the kernels this process built and
+    created its CUDA context)."""
+    import multiprocessing as mp
+
+    from repro_torch.api.socket_transport import _daemon_main
+
+    ctx = mp.get_context("spawn")
+    addrs = [f"unix://{root}/w{i}.sock" for i in range(count)]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_daemon_main, args=(a, None, "cuda"),
+                         daemon=True, name=f"chip-smoke-sockd-{i}")
+             for i, a in enumerate(addrs)]
+    for proc in procs:
+        proc.start()
+    deadline = t0 + DAEMON_BIND_S
+    for a, proc in zip(addrs, procs):
+        path = a.removeprefix("unix://")
+        while not Path(path).exists():
+            check(proc.is_alive(), f"daemon {a} exited ({proc.exitcode})")
+            check(time.perf_counter() < deadline, f"daemon {a} never bound")
+            time.sleep(0.05)
+    return addrs, procs, time.perf_counter() - t0
+
+
+def hellos(transport) -> list:
+    """Each worker's daemon counters, as its connection's HELLO read
+    them."""
+    return [{k: transport.hello(w)[k] for k in ("connections", "frames_served")}
+            for w in range(N_SERVERS)]
+
+
+def phase_socket(rng, dev, addrs, spawn_s) -> dict:
+    """The warm daemons through SocketTransport: n = 4096, N = 4, q3.
+    Returns the client's launches of the first sweep."""
+    from repro_torch.api import EdgeServer, InlineTransport, SPDCClient
+    from repro_torch.api.socket_transport import SocketTransport
+    from repro_torch.kernels import ops
+
+    phase_t0 = time.perf_counter()
+    m = dominant(rng, (SINGLE_N, SINGLE_N))
+    client = SPDCClient()
+    inline_session = client.open_session(m, N_SERVERS)
+    inline = InlineTransport().sweep(inline_session.x_aug, N_SERVERS)
+    inline_out = inline_session.collect(inline)
+    with SocketTransport(addrs, connect_timeout=DAEMON_BIND_S) as t1:
+        def first_run():
+            session = client.open_session(m, N_SERVERS)
+            results, seconds = wall(lambda: t1.factor(session.tasks()))
+            return session, results, seconds
+
+        (session, results, first_s), launches = counted(ops, first_run)
+        for name in SERVER_PATH:
+            check(launches[name] == 0,
+                  f"the client launched {name} on the socket sweep")
+        check(same_factors(session._assemble(results), inline),
+              "socket factors differ from the inline sweep's")
+        out = session.collect(results)
+        check(out.verified and out.det == inline_out.det,
+              f"socket det {out.det} vs inline {inline_out.det}")
+        first = hellos(t1)
+        per_task = request_costs(session, t1, EdgeServer)
+    with SocketTransport(addrs, connect_timeout=DAEMON_BIND_S) as t2:
+        warm, warm_s = wall(lambda: client.open_session(m, N_SERVERS).run(t2))
+        check(warm.verified and warm.det == inline_out.det, "socket warm run")
+        second = hellos(t2)
+    for w, (a, b) in enumerate(zip(first, second)):
+        check(b["connections"] > a["connections"] and b["frames_served"] > 0,
+              f"worker {w}: a second client reached other daemons: {a} {b}")
+    want = slogdet_det(torch.from_numpy(m).to(dev))
+    check(out.det.allclose(want), f"socket det {out.det} vs {want}")
+    emit({"phase": "socket", "n": SINGLE_N, "servers": N_SERVERS,
+          "daemons": len(addrs), "dtype": "float64", "method": "q3",
+          "verified": out.verified, "bit_equal_to_inline": True,
+          "det_equal_to_inline": True, "spawn_s": spawn_s,
+          "first_sweep_s": first_s, "warm_wall_s": warm_s,
+          "warm_timings": timings(warm),
+          "hello_first_client": first, "hello_second_client": second,
+          "per_task": per_task, "client_launches": launches,
+          "phase_s": time.perf_counter() - phase_t0})
+    return launches
+
+
+def phase_rateless(rng, dev, addrs) -> dict:
+    """Rateless dispatch on the socket phase's daemons: an honest n = 4096
+    run (F = 8 strips of 512 rows) bit-equal to lu_nserver(x_aug, 8), a
+    16 x 1024 stack in lanes, and the reference's acceptance case on a
+    5 x 1024 stack (a Pareto straggler and a block tamperer). Returns the
+    client's launches of the honest run."""
+    import repro_torch
+    from repro_torch import ServerFault
+    from repro_torch.api import SPDCClient
+    from repro_torch.api.socket_transport import SocketTransport
+    from repro_torch.configs import RatelessConfig
+    from repro_torch.core.lu import lu_nserver
+    from repro_torch.core.verify import authenticate
+    from repro_torch.distrib.rateless import run_rateless
+    from repro_torch.kernels import ops
+
+    def per_worker(rpt, key="completed"):
+        return {w: h[key] for w, h in sorted(rpt.workers.items())}
+
+    phase_t0 = time.perf_counter()
+    m = dominant(rng, (SINGLE_N, SINGLE_N))
+    client = SPDCClient(rateless=RatelessConfig())
+    with SocketTransport(addrs, connect_timeout=DAEMON_BIND_S) as t:
+        def honest_run():
+            session = client.open_session(m, N_SERVERS)
+            factors, session._dispatch_s = wall(lambda: session._rateless(t))
+            return session, factors
+
+        ((session, (l, u)), wall_s), launches = counted(
+            ops, lambda: wall(honest_run))
+        rpt = session.fleet_report
+        out = session.collect((l, u), transport=t)
+        strips = session.partitions
+        check(strips == 2 * N_SERVERS and session.strip_block == SINGLE_N // strips,
+              f"rateless grid {strips} x {session.strip_block}")
+        check(rpt.inline_strips == 0, f"inline strips {rpt.inline_strips}")
+        for name in SERVER_PATH:
+            check(launches[name] == 0,
+                  f"the client launched {name} on the honest rateless run")
+        wl, wu, _ = lu_nserver(session.x_aug, strips)
+        check(same_factors((l, u), (wl, wu)),
+              "rateless factors differ from lu_nserver(x_aug, F)")
+        want = slogdet_det(torch.from_numpy(m).to(dev))
+        check(out.verified and out.det.allclose(want),
+              f"rateless det {out.det} vs {want}")
+        honest = {"n": SINGLE_N, "strips": strips,
+                  "strip_rows": session.strip_block, "verified": out.verified,
+                  "bit_equal_to_lu_nserver": True, "wall_s": wall_s,
+                  "timings": timings(out), "dispatches": rpt.dispatches,
+                  "retries": rpt.retries, "inline_strips": rpt.inline_strips,
+                  "strips_by_worker": per_worker(rpt),
+                  "ewma_latency_s": per_worker(rpt, "ewma_latency_s")}
+
+        stack = dominant(rng, (RATELESS_STACK, BATCH_N, BATCH_N))
+        res, stack_s = wall(lambda: repro_torch.outsource_determinant(
+            stack, N_SERVERS, rateless=True, transport=t))
+        swant = slogdet_det(torch.from_numpy(stack).to(dev))
+        check(bool(res.verified.all()), f"rateless stack {res.verified}")
+        check(all(g.allclose(w) for g, w in zip(res.dets, swant)),
+              "rateless stack dets")
+        srpt = res.report.fleet
+        check(srpt.lanes == min(RATELESS_STACK, N_SERVERS), f"lanes {srpt.lanes}")
+        lanes = {"shape": [RATELESS_STACK, BATCH_N, BATCH_N],
+                 "verified": int(res.verified.sum()), "lanes": srpt.lanes,
+                 "wall_s": stack_s, "timings": timings(res),
+                 "dispatches": srpt.dispatches,
+                 "inline_strips": srpt.inline_strips,
+                 "strips_by_worker": per_worker(srpt)}
+
+        # the reference's acceptance case (tests/test_rateless.py)
+        acc = dominant(rng, (ACCEPT_STACK, BATCH_N, BATCH_N))
+        clean = repro_torch.outsource_determinant(acc, N_SERVERS, rateless=True,
+                                                  transport=t)
+        check(bool(clean.verified.all()), "acceptance stack, honest run")
+        cfg = RatelessConfig(request_timeout_s=0.35, probation_cooldown_s=60.0)
+        plan = (ServerFault(server=1, kind="delay", delay_s=0.25,
+                            delay_dist="pareto", delay_alpha=2.5),
+                ServerFault(server=2, kind="tamper", mode="block",
+                            magnitude=0.5))
+        healer = SPDCClient(rateless=cfg, recover=True)
+        asession = healer.open_session(acc, N_SERVERS, faults=plan)
+        (al, au, arpt), acc_s = wall(lambda: run_rateless(
+            asession, t, cfg, healer.fleet, faults=asession.plan))
+        lt, ut = asession._on_device(al, au)
+        for method in ("q2", "q3"):
+            v = authenticate(lt, ut, asession.x_aug,
+                             num_servers=asession.partitions, method=method)
+            check(bool(np.all(v.ok)), f"acceptance factors fail {method}")
+        asession.fleet_report = arpt
+        aout = asession.collect((lt, ut), transport=t)
+        check(bool(aout.verified.all()), f"acceptance {aout.verified}")
+        check(all(g.sign == w.sign and math.isclose(
+            g.logabs, w.logabs, rel_tol=1e-10, abs_tol=0.0)
+            for g, w in zip(aout.dets, clean.dets)), "acceptance dets")
+        done = per_worker(arpt)
+        tamperer = arpt.workers[2]
+        check(tamperer["quarantined"] and tamperer["completed"] == 0,
+              f"tamperer {tamperer}")
+        check(done[1] < min(done[0], done[3]), f"straggler served {done}")
+        check(sum(done.values()) + arpt.inline_strips
+              == arpt.num_strips * arpt.lanes, f"strips {done}")
+        acceptance = {"shape": [ACCEPT_STACK, BATCH_N, BATCH_N],
+                      "verified": int(aout.verified.sum()), "wall_s": acc_s,
+                      "q2_q3_pass_on_streamed_factors": True,
+                      "max_dlogabs_vs_honest": max(
+                          abs(g.logabs - w.logabs)
+                          for g, w in zip(aout.dets, clean.dets)),
+                      "strips_by_worker": done,
+                      "quarantined": [w for w, h in sorted(arpt.workers.items())
+                                      if h["quarantined"]],
+                      "dispatches": arpt.dispatches, "retries": arpt.retries,
+                      "timeouts": arpt.timeouts,
+                      "tampered_strips": arpt.tampered_strips,
+                      "inline_strips": arpt.inline_strips}
+    emit({"phase": "rateless", "servers": N_SERVERS, "daemons": len(addrs),
+          "dtype": "float64", "honest": honest, "stack": lanes,
+          "acceptance": acceptance, "client_launches": launches,
+          "phase_s": time.perf_counter() - phase_t0})
+    return launches
+
+
+def phase_daemons(rng, dev) -> tuple[dict, dict]:
+    """Spawn the socket phases' daemons, run both phases on them, stop
+    them. Returns the socket and rateless phases' client launches."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-sock-")
+    procs = []
+    try:
+        addrs, procs, spawn_s = spawn_daemons(N_SERVERS, root)
+        socket_launches = phase_socket(rng, dev, addrs, spawn_s)
+        rateless_launches = phase_rateless(rng, dev, addrs)
+    finally:
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            proc.join(timeout=10)
+        shutil.rmtree(root, ignore_errors=True)
+    return socket_launches, rateless_launches
+
+
 def witness_matrix(seed: int, n: int) -> np.ndarray:
     """standard_normal rounded to multiples of 2^-16, plus n·I. Every
     partial sum of its entries is exact in float64, so SeedGen's mean, and
@@ -1375,9 +1637,9 @@ def flash_inputs(rng, dev, dtype, b, hq, hkv, sq, sk, d, cache_len=None):
     return q, k, v
 
 
-def phase_flash(rng, dev) -> float:
+def phase_flash(rng, dev) -> tuple[float, float]:
     """The flash kernel against its plain version; returns the largest
-    error over the cases."""
+    error over the cases, and over the f32 cases."""
     from repro_torch.kernels import ops, ref
 
     (hq, hkv, d), b, s = FLASH_HEADS, PREFILL_BATCH, PREFILL_LEN
@@ -1396,7 +1658,7 @@ def phase_flash(rng, dev) -> float:
                {"causal": True}),
               ("fully masked rows, Sq 8 > Sk 4", torch.float32,
                (1, 4, 2, 8, 4, d), {"causal": True})]
-    worst = 0.0
+    worst = worst_f32 = 0.0
     for label, dtype, shape, kw in cases:
         q, k, v = flash_inputs(rng, dev, dtype, *shape)
         got = ops.flash_attention(q, k, v, **kw)
@@ -1418,7 +1680,9 @@ def phase_flash(rng, dev) -> float:
         emit(line)
         check(reading["within"], f"flash_attention {label} {dtype}: {reading}")
         worst = max(worst, reading["max_abs_err"])
-    return worst
+        if dtype == torch.float32:
+            worst_f32 = max(worst_f32, reading["max_abs_err"])
+    return worst, worst_f32
 
 
 def flash_compare(got, want, v) -> dict:
@@ -1474,11 +1738,14 @@ def decode_against_prefill(ops, model, cfg, tokens) -> dict:
           f"decode flash launches {launches['flash_attention']}")
     return {"rel_err": rel_err(got, want, cfg.vocab_size),
             "max_abs_logits": float(want[:, :cfg.vocab_size].abs().max()),
-            "decode_steps": s, "decode_s": seconds}
+            "decode_steps": s, "decode_s": seconds,
+            "flash_launches": launches["flash_attention"]}
 
 
-def phase_serve(rng, dev, seed: int) -> dict:
-    """LM serving of tinyllama-1.1b at full width and depth on the card."""
+def phase_serve(rng, dev, seed: int) -> tuple[dict, int]:
+    """LM serving of tinyllama-1.1b at full width and depth on the card.
+    Returns the greedy run's launches and the f32 flash launches (the
+    f32 decode against prefill and the f32 card prefill)."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -1564,7 +1831,7 @@ def phase_serve(rng, dev, seed: int) -> dict:
                      "sample": out[0, :24].tolist()},
           "launches": gen_launches, "phase_s": time.perf_counter() - phase_t0})
     emit(profile)
-    return gen_launches
+    return gen_launches, f32["flash_launches"] + card_launches["flash_attention"]
 
 
 def serve_profile(model, prefill, batch) -> dict:
@@ -1777,6 +2044,31 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict) -> dict:
              "(decode_case's cuda_launches_per_call); the library call "
              "(scaled_dot_product_attention) is a yardstick the port never "
              "calls")
+    # the same shapes in f32 (the FMA kernel, one launch a call), which
+    # the serve phase's f32 decode against prefill and f32 prefill run
+    f32 = torch.float32
+    q, k, v = flash_inputs(rng, dev, f32, fb, hq, hkv, s, s, d)
+    qd, kd, vd = flash_inputs(rng, dev, f32, fb, hq, hkv, 1, s, d, s + 128)
+    decode_case = case(
+        lambda: ops.flash_attention(qd, kd, vd),
+        lambda: ref.flash_attention_ref(qd, kd, vd),
+        lambda: sdpa(qd, kd, vd, enable_gqa=True), 50, 10,
+        4 * (2 * fb * hq * d + 2 * fb * hkv * s * d), 4 * fb * hq * s * d,
+        f32, expect_launches=flash_attn.cuda_launches(qd, kd))
+    row("flash_attention:f32", "flash_attn.cu",
+        "src/repro/kernels/flash_attn.py:79", [fb, hq, s, d],
+        lambda: ops.flash_attention(q, k, v, causal=True),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True),
+        lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10, 3,
+        4 * (2 * fb * hq * s * d + 2 * fb * hkv * s * d),
+        2 * fb * hq * s * s * d, dtype=f32, kv_shape=[fb, hkv, s, d],
+        expect_launches=flash_attn.cuda_launches(q, k),
+        decode_case={"q": [fb, hq, 1, d], "kv_prefix": [fb, hkv, s, d],
+                     **decode_case},
+        note="launches from the serve phase's f32 runs (decode against "
+             "prefill over 128 tokens, and the f32 card prefill); f32 on "
+             "the FMA pipes, one launch a call, prefill and decode; the "
+             "bound at the f32 rate")
     # the f32 routes the f32 protocol and plain f32 lu_blocked run, and
     # the mixed routes (both pairs; mixed lu_blocked runs f32 -> f64):
     # the bound counts the storage type's bytes and the arithmetic
@@ -1896,6 +2188,8 @@ def main() -> int:
     # the f32, mixed-route and recovery phases draw from a stream of their
     # own, so the earlier phases keep their inputs
     rng_routes = np.random.default_rng([args.seed, 1])
+    # and so do the socket and rateless phases
+    rng_socket = np.random.default_rng([args.seed, 2])
     dev = torch.device("cuda", torch.cuda.current_device())
 
     phase_build()
@@ -1929,8 +2223,13 @@ def main() -> int:
     per_phase["sequential_f32_f64"] = (seq_routes["f32_f64"], SEQUENTIAL_PATH)
     per_phase["recovery"] = (phase_recovery(rng_routes, dev, mp_recovery),
                              MAIN_PATH)
-    errs["flash_attention"] = phase_flash(rng, dev)
-    per_phase["serve"] = (phase_serve(rng, dev, args.seed), SERVE_PATH)
+    # the daemons launch the server kernels in their own processes
+    socket_launches, rateless_launches = phase_daemons(rng_socket, dev)
+    per_phase["socket"] = (socket_launches, CLIENT_PATH)
+    per_phase["rateless"] = (rateless_launches, CLIENT_PATH)
+    errs["flash_attention"], errs["flash_attention:f32"] = phase_flash(rng, dev)
+    serve_launches, f32_flash_launches = phase_serve(rng, dev, args.seed)
+    per_phase["serve"] = (serve_launches, SERVE_PATH)
     for phase, (launches, path) in per_phase.items():
         for name in path:
             check(launches[name] > 0, f"{name} never launched in phase {phase}")
@@ -1947,6 +2246,8 @@ def main() -> int:
         launches[f"{name}:f32_f64"] = seq_routes["f32_f64"][name]
         launches[f"{name}:bf16_f32"] = None
     launches["schur_update:f32"] = seq_routes["f32"]["schur_update"]
+    check(f32_flash_launches > 0, "flash_attention never launched in f32")
+    launches["flash_attention:f32"] = f32_flash_launches
     line = kernels_line(rng, dev, launches, errs, strips)
     emit({"phase": "run", "wall_s": time.perf_counter() - started,
           "profile_windows": PROFILE_WINDOWS})

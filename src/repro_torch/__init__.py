@@ -6,7 +6,10 @@ layout module for module so each file's reference sits at the same
 relative path. It imports torch, numpy and the standard library only —
 never jax, never the reference package.
 
-Entry point: `outsource_determinant(m, num_servers, device=...)`. Every
+Entry point: `outsource_determinant(m, num_servers, device=...)`, with
+`transport="socket"` (or `TransportConfig("socket", addresses=...)`) to
+reach warm worker daemons (`python -m repro_torch.launch.serve_worker`)
+and `rateless=RatelessConfig(...)` for straggler-adaptive dispatch. Every
 entry point runs on the CUDA device unless the caller passes
 ``device="cpu"``; on the CPU each kernel's plain PyTorch version
 (kernels/ref.py) computes the same function.
@@ -26,6 +29,7 @@ from .core.protocol import (
     outsource_determinant,
     resolve_dtype,
 )
+from .configs.spdc import RatelessConfig
 from .core.faults import ServerFault
 from .device import resolve_device
 
@@ -33,14 +37,26 @@ __all__ = [
     "EdgeServer",
     "InlineTransport",
     "MultiprocessTransport",
+    "RatelessConfig",
     "SPDCBatchResult",
     "SPDCClient",
     "SPDCResult",
     "ServerFault",
     "Session",
+    "SocketTransport",
     "ThreadPoolTransport",
     "TransportConfig",
+    "WorkerDaemon",
     "outsource_determinant",
     "resolve_device",
     "resolve_dtype",
 ]
+
+
+def __getattr__(name):
+    # the socket transport's names resolve lazily, as in repro_torch.api
+    if name in ("SocketTransport", "WorkerDaemon"):
+        from . import api
+
+        return getattr(api, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

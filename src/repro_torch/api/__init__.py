@@ -7,9 +7,10 @@
     `run(ShardTask) → ShardResult` worker;
   * `ShardTask` / `ShardResult` (messages.py) and the codec (wire.py) —
     what crosses the boundary, as versioned pickle-free byte frames;
-  * transports (transport.py) — inline (the fused sweep), threadpool and
-    multiprocess, selected by name, `TransportConfig` or instance through
-    `resolve_transport`.
+  * transports (transport.py, socket_transport.py) — inline (the fused
+    sweep), threadpool, multiprocess and socket (warm worker daemons
+    over TCP/UDS), selected by name, `TransportConfig` or instance
+    through `resolve_transport`.
 """
 from .client import BoundaryViolation, PendingResult, Session, SPDCClient
 from .messages import (
@@ -43,6 +44,18 @@ __all__ = [
     "Transport", "TransportConfig", "TransportError", "TransportTimeout",
     "TransportWorkerDied", "TransportProtocolError",
     "InlineTransport", "ThreadPoolTransport", "MultiprocessTransport",
+    "SocketTransport", "WorkerDaemon",
     "resolve_transport", "close_all",
     "WireError", "decode_message",
 ]
+
+
+def __getattr__(name):
+    # SocketTransport/WorkerDaemon import lazily: socket_transport pulls
+    # in distrib.rateless (FleetHealth), which itself imports this
+    # package's transport module
+    if name in ("SocketTransport", "WorkerDaemon"):
+        from . import socket_transport
+
+        return getattr(socket_transport, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -24,12 +24,20 @@ upstream U rows attached) and runs them on replacement workers through
 the same transport, then deciphers. Servers still never talk backwards;
 the client re-issues work.
 
-Ported here: one matrix and same-size stacks, on the inline, thread-pool
-and multiprocess transports, with simulated fault plans, recovery with
-N + r standbys and the straggler deadline; `Session.start` and
-`SPDCClient.run_pipelined` overlap one session's wire time with the next
-one's PMOP. Mixed-size lists (ROADMAP A11) and rateless dispatch (A9)
-raise NotImplementedError.
+Rateless dispatch (`SPDCClient(rateless=True | RatelessConfig(...))`,
+distrib.rateless, DESIGN.md §8): the session over-decomposes n' into
+F = overdecompose·N strips (`Session.partitions`) and streams them to
+whichever of the N workers are free, each strip verified by a secret
+probe before the next one consumes its U rows; tasks, Authenticate and
+recovery are keyed on the F partitions, and the client's FleetHealth
+carries what one session learned about the workers into the next.
+
+Ported here: one matrix and same-size stacks, on the inline, thread-pool,
+multiprocess and socket transports, with simulated fault plans, recovery
+with N + r standbys and the straggler deadline, and rateless dispatch;
+`Session.start` and `SPDCClient.run_pipelined` overlap one session's
+wire time with the next one's PMOP. Mixed-size lists (ROADMAP A11) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from ..core.seed import Seed, seedgen, seedgen_batch
 from ..core.verify import authenticate
 from ..device import resolve_device, synchronize
 from .messages import ShardResult, ShardTask
+from .server import EdgeServer
 from .transport import TransportConfig, resolve_transport
 
 __all__ = ["SPDCClient", "Session", "PendingResult", "BoundaryViolation"]
@@ -124,6 +133,10 @@ class SPDCClient:
     dtype: Any = "float64"
     growth_safe: bool | None = None
     equilibrate: bool | None = None
+    #: rateless straggler-adaptive dispatch (DESIGN.md §8): True uses the
+    #: default RatelessConfig, or pass one. Sessions over-decompose into
+    #: F = overdecompose·N strips streamed to whichever workers are free;
+    #: straggler_deadline is ignored (there is no deadline to tune).
     rateless: Any = False
     #: default transport of this client's sessions: a name, a
     #: TransportConfig, or a Transport instance (None = inline). A config
@@ -134,10 +147,9 @@ class SPDCClient:
     device: Any = None
 
     def __post_init__(self):
+        from ..configs.spdc import RATELESS_DEFAULT, RatelessConfig
         from ..core.protocol import _resolve_growth_controls, resolve_dtype
 
-        if self.rateless:
-            raise NotImplementedError("rateless dispatch: ROADMAP A9")
         self.device = resolve_device(self.device)
         self._owns_transport = False
         if isinstance(self.transport, TransportConfig):
@@ -151,6 +163,38 @@ class SPDCClient:
             self.dtype, self.growth_safe, self.equilibrate,
             self.faithful_sign,
         )
+        if self.rateless is True:
+            self.rateless = RATELESS_DEFAULT
+        elif not self.rateless:
+            self.rateless = None
+        elif not isinstance(self.rateless, RatelessConfig):
+            raise ValueError(
+                "rateless must be a bool or a configs.spdc.RatelessConfig, "
+                f"got {self.rateless!r}"
+            )
+        # fleet health outlives sessions: what one session learned about
+        # the workers (speed, tamper history) steers the next
+        if self.rateless is not None:
+            from ..distrib.rateless import FleetHealth
+
+            self.fleet = FleetHealth(self.rateless)
+        else:
+            self.fleet = None
+
+    def _partitions(self, num_servers: int) -> int:
+        """Strips per matrix: F = overdecompose·N rateless, N classic."""
+        if self.rateless is None:
+            return num_servers
+        return num_servers * self.rateless.overdecompose
+
+    def _padding_for(self, n: int, parts: int) -> int:
+        """Identity-border padding to the partition grid; the rateless
+        grid (F strips) additionally keeps strips ≥ 2 rows — the same
+        n'/N > 1 floor the paper puts on the classic schedule."""
+        padding = padding_for_servers(n, parts)
+        if (n + padding) // parts < 2:
+            padding = 2 * parts - n
+        return padding
 
     # -- transport lifecycle -------------------------------------------------
 
@@ -224,7 +268,11 @@ class SPDCClient:
                 "solve kernels compute half precision only as mixed "
                 "routes (ROADMAP B7)")
         t0 = time.perf_counter()
-        plan = resolve_delays(normalize_plan(faults), self.straggler_deadline)
+        plan = resolve_delays(
+            normalize_plan(faults),
+            # rateless has no rounds deadline — slow servers just do less
+            None if self.rateless is not None else self.straggler_deadline,
+        )
         m_host = self._host_copy(m)
         m_dev = torch.from_numpy(m_host).to(self.device)
         if m_host.ndim == 3 and m_host.shape[-1] == m_host.shape[-2]:
@@ -246,7 +294,8 @@ class SPDCClient:
         key = keygen(self.lambda2, seed, n)
         x, meta = cipher(m, key, seed, mode=self.mode,
                          growth_safe=self.growth_safe)
-        padding = padding_for_servers(n, num_servers)
+        parts = self._partitions(num_servers)
+        padding = self._padding_for(n, parts)
         x_aug, log2_scale = _equilibrate_augment(
             x, border_rng(seed.digest), padding=padding,
             equilibrate=self.equilibrate,
@@ -255,7 +304,9 @@ class SPDCClient:
             client=self, kind="single", num_servers=num_servers,
             x_aug=x_aug, seeds=[seed], metas=[meta],
             log2_scale=float(log2_scale), n=n, padding=padding,
-            digest=seed.digest, tamper=tamper, _m_host=m_host,
+            digest=seed.digest, tamper=tamper,
+            num_strips=parts if parts != num_servers else None,
+            _m_host=m_host,
         )
 
     def _open_batch(self, m, m_host, num_servers, tamper) -> "Session":
@@ -266,7 +317,8 @@ class SPDCClient:
         v = keygen_batch(self.lambda2, seeds, n)
         x, metas = cipher_batch(m, v, seeds, mode=self.mode,
                                 growth_safe=self.growth_safe)
-        padding = padding_for_servers(n, num_servers)
+        parts = self._partitions(num_servers)
+        padding = self._padding_for(n, parts)
         x_aug, log2_scale = _equilibrate_augment(
             x, border_rng(seeds[0].digest), padding=padding,
             equilibrate=self.equilibrate,
@@ -275,7 +327,9 @@ class SPDCClient:
             client=self, kind="batch", num_servers=num_servers,
             x_aug=x_aug, seeds=seeds, metas=metas,
             log2_scale=log2_scale, n=n, padding=padding,
-            digest=_batch_digest(seeds), tamper=tamper, _m_host=m_host,
+            digest=_batch_digest(seeds), tamper=tamper,
+            num_strips=parts if parts != num_servers else None,
+            _m_host=m_host,
         )
 
 
@@ -299,6 +353,13 @@ class Session:
     digest: bytes
     plan: tuple = ()
     tamper: Any = None
+    #: rateless over-decomposition: F > N strips (None = classic, one
+    #: strip per server). The partition geometry (authenticate blocks,
+    #: strip minting, recovery) keys off `partitions`; `num_servers`
+    #: stays the physical fleet size.
+    num_strips: int | None = None
+    #: the rateless scheduler's distrib.rateless.RatelessReport
+    fleet_report: Any = None
     _m_host: np.ndarray | None = None
     # phase timings feeding SPDCReport.timings
     _pmop_s: float = 0.0
@@ -321,12 +382,23 @@ class Session:
     def block(self) -> int:
         return self.n_aug // self.num_servers
 
+    @property
+    def partitions(self) -> int:
+        """Block rows the protocol partitions n' into: F when rateless,
+        N classically. Verification, recovery and task minting all key
+        off this count — authenticate works for any divisor of n'."""
+        return self.num_strips or self.num_servers
+
+    @property
+    def strip_block(self) -> int:
+        return self.n_aug // self.partitions
+
     # -- dispatch ------------------------------------------------------------
 
     def tasks(self, *, check_boundary: bool | None = None) -> list[ShardTask]:
         """The initial ShardTasks — one encrypted block row (a host copy)
-        and dispatch sub-seed per server; u_upstream is left to the
-        transport's relay.
+        and dispatch sub-seed per partition (N classically, F when
+        rateless); u_upstream is left to the transport's relay.
 
         check_boundary: None (default) runs the structural boundary checks
         always and the full entry-level plaintext screening up to ~1M
@@ -335,13 +407,13 @@ class Session:
         """
         from ..distrib.recovery import dispatch_subseed
 
-        b = self.block
+        b = self.strip_block
         out = []
-        for i in range(self.num_servers):
+        for i in range(self.partitions):
             out.append(
                 ShardTask(
                     server=i,
-                    num_servers=self.num_servers,
+                    num_servers=self.partitions,
                     x_row=self.x_aug[..., i * b : (i + 1) * b, :]
                     .detach().to("cpu", copy=True).numpy(),
                     subseed=dispatch_subseed(self.digest, i, 0),
@@ -359,10 +431,10 @@ class Session:
         trusted)."""
         from ..distrib.recovery import dispatch_subseed
 
-        b, s0 = self.block, server * self.block
+        b, s0 = self.strip_block, server * self.strip_block
         return ShardTask(
             server=server,
-            num_servers=self.num_servers,
+            num_servers=self.partitions,
             x_row=self.x_aug[..., s0 : s0 + b, :]
             .detach().to("cpu", copy=True).numpy(),
             subseed=dispatch_subseed(self.digest, server, attempt),
@@ -375,12 +447,27 @@ class Session:
     def _repair_dispatch(self, transport):
         """recover_lu's dispatch hook: each re-dispatch minted by
         `_repair_task` and run on its replacement through `transport`;
-        the strips come back as tensors on the session's device."""
+        the strips come back as tensors on the session's device.
+
+        Recovery is re-streaming one strip: a rateless session routes the
+        re-issue to the healthiest live worker by its fleet health, or,
+        with the fleet gone, computes it here on the session's device,
+        instead of the pool's positional replacement."""
         dev, dt = self.x_aug.device, self.x_aug.dtype
+        fleet = self.client.fleet
 
         def dispatch(x, u_now, server, attempt, replacement):
-            res = transport.repair(self._repair_task(server, attempt, u_now),
-                                   replacement=replacement)
+            task = self._repair_task(server, attempt, u_now)
+            if fleet is None:
+                res = transport.repair(task, replacement=replacement)
+            else:
+                ids = tuple(range(self.num_servers))
+                live = (fleet.assignable(ids, set(), time.monotonic())
+                        or fleet.live(ids))
+                if live:
+                    res = transport.repair(task, replacement=live[0])
+                else:
+                    res = EdgeServer(None, device=dev).run(task)
             return (torch.tensor(np.asarray(res.l_row), dtype=dt, device=dev),
                     torch.tensor(np.asarray(res.u_row), dtype=dt, device=dev))
 
@@ -449,12 +536,28 @@ class Session:
             transport = self.client.transport
         return resolve_transport(transport, device=self.client.device)
 
+    def _rateless(self, transport) -> tuple[torch.Tensor, torch.Tensor]:
+        """The rateless scheduler's factors, on the session's device."""
+        from ..distrib.rateless import run_rateless
+
+        l_host, u_host, self.fleet_report = run_rateless(
+            self, transport, self.client.rateless, self.client.fleet,
+            faults=self.plan,
+        )
+        return self._on_device(l_host, u_host)
+
     def run(self, transport=None):
         """Dispatch + collect through a transport (default: the client's
-        configured one, else inline)."""
+        configured one, else inline).
+
+        Rateless sessions always take the streaming scheduler — the
+        fused sweep has no per-strip dispatch for health tracking to
+        steer (distrib.rateless; DESIGN.md §8)."""
         transport = self._resolve_transport(transport)
         t0 = time.perf_counter()
-        if transport.fused:
+        if self.num_strips is not None:
+            l, u = self._rateless(transport)
+        elif transport.fused:
             l, u = transport.sweep(self.x_aug, self.num_servers,
                                    faults=self.plan)
         else:
@@ -469,10 +572,20 @@ class Session:
         return a PendingResult whose `.result()` runs the verify/decipher
         tail. On message transports the sweep rides the transport's
         driver threads, so the caller's next `open_session` overlaps this
-        session's wire time; fused transports complete the future here."""
+        session's wire time; fused transports complete the future here.
+        A rateless session's scheduler runs on the driver threads."""
         transport = self._resolve_transport(transport)
         t0 = time.perf_counter()
-        if transport.fused:
+        if self.num_strips is not None:
+
+            def drive_rateless():
+                out = self._rateless(transport)
+                synchronize(self.x_aug.device)
+                self._dispatch_s = time.perf_counter() - t0
+                return out
+
+            future = transport.driver_submit(drive_rateless)
+        elif transport.fused:
             from concurrent.futures import Future
 
             future = Future()
@@ -497,20 +610,25 @@ class Session:
         return PendingResult(session=self, transport=transport,
                              future=future)
 
-    def _assemble(self, results) -> tuple[torch.Tensor, torch.Tensor]:
-        """Stack per-server strips into full (…, n', n') factors on the
-        session's device."""
-        byid = {r.server: r for r in results}
-        if sorted(byid) != list(range(self.num_servers)):
-            raise ValueError(
-                f"need one ShardResult per server, got {sorted(byid)}"
-            )
-        order = range(self.num_servers)
-        l = np.concatenate([np.asarray(byid[i].l_row) for i in order], axis=-2)
-        u = np.concatenate([np.asarray(byid[i].u_row) for i in order], axis=-2)
+    def _on_device(self, l, u) -> tuple[torch.Tensor, torch.Tensor]:
+        """Host factors as tensors on the session's device and dtype."""
         dev, dt = self.x_aug.device, self.x_aug.dtype
         return (torch.from_numpy(l).to(dev, dt),
                 torch.from_numpy(u).to(dev, dt))
+
+    def _assemble(self, results) -> tuple[torch.Tensor, torch.Tensor]:
+        """Stack per-partition strips into full (…, n', n') factors on
+        the session's device."""
+        byid = {r.server: r for r in results}
+        if sorted(byid) != list(range(self.partitions)):
+            raise ValueError(
+                "need one ShardResult per server (per partition: "
+                f"{self.partitions}), got {sorted(byid)}"
+            )
+        order = range(self.partitions)
+        l = np.concatenate([np.asarray(byid[i].l_row) for i in order], axis=-2)
+        u = np.concatenate([np.asarray(byid[i].u_row) for i in order], axis=-2)
+        return self._on_device(l, u)
 
     # -- verify and decipher -------------------------------------------------
 
@@ -534,25 +652,26 @@ class Session:
         if self.tamper is not None:
             l, u = self.tamper(l, u)
         verdict = authenticate(
-            l, u, self.x_aug, num_servers=self.num_servers,
+            l, u, self.x_aug, num_servers=self.partitions,
             method=self.client.method, rng=_probe_rng(self.digest),
         )
         report = None
         if self.client.recover and not bool(np.all(verdict.ok)):
             l, u, verdict, report = recover_lu(
-                l, u, self.x_aug, num_servers=self.num_servers,
+                l, u, self.x_aug, num_servers=self.partitions,
                 method=self.client.method, standby=self.client.standby,
                 digest=self.digest, verdict=verdict,
                 dispatch=self._repair_dispatch(
                     self._resolve_transport(transport)),
             )
-        comm = nserver_comm_model(self.n_aug, self.num_servers)
+        comm = nserver_comm_model(self.n_aug, self.partitions)
 
         def build_report() -> SPDCReport:
             collect_s = time.perf_counter() - t_collect
             return SPDCReport(
                 verdict=verdict,
                 recovery=report,
+                fleet=self.fleet_report,
                 timings=SessionTimings(
                     pmop_s=self._pmop_s,
                     dispatch_s=self._dispatch_s,

@@ -11,9 +11,11 @@ the wire physically is:
     thread pool, the relay threaded between them as in-memory messages.
   * ``MultiprocessTransport`` — spawned worker processes; every message
     crosses the boundary as `to_bytes()` frames over an OS pipe.
+  * ``SocketTransport`` (socket_transport.py) — warm worker daemons
+    reached over TCP or Unix sockets, the same frames length-prefixed.
 
-The shard_map pipeline (ROADMAP A12) and the socket transport (A9) are
-not ported; naming them raises NotImplementedError.
+The shard_map pipeline (ROADMAP A12) is not ported; naming it raises
+NotImplementedError.
 
 Dispatch surface: ``start(task, worker_id) -> Future`` ships one
 ShardTask to one worker; ``result(future, timeout)`` resolves it;
@@ -580,12 +582,19 @@ def _not_ported(name: str, item: str):
     return factory
 
 
+def _socket_transport(**kwargs) -> Transport:
+    # socket_transport imports this module; the factory imports it late
+    from .socket_transport import SocketTransport
+
+    return SocketTransport(**kwargs)
+
+
 _FACTORIES = {
     "inline": InlineTransport,
     "shardmap": _not_ported("shardmap", "A12"),
     "threadpool": ThreadPoolTransport,
     "multiprocess": MultiprocessTransport,
-    "socket": _not_ported("socket", "A9"),
+    "socket": _socket_transport,
 }
 
 
@@ -594,9 +603,13 @@ class TransportConfig:
     """Declarative transport spec — the third leg of `resolve_transport`.
 
     name: "inline" | "shardmap" | "threadpool" | "multiprocess" | "socket"
-        (shardmap and socket are not ported and raise when built; their
-        `program` and `addresses` fields come with them, ROADMAP A12, A9).
-    timeout: default per-request deadline (multiprocess).
+        (shardmap is not ported and raises when built; its `program`
+        field comes with it, ROADMAP A12).
+    addresses: socket only — the worker fleet's endpoints
+        ("tcp://host:port" / "unix:///path.sock"), worker_id i connecting
+        to addresses[i % len]. Empty = spawn local warm UDS daemons on
+        demand, computing on the build's device.
+    timeout: default per-request deadline (multiprocess / socket).
     max_workers: thread pool width (threadpool only).
 
     `build(device=)` returns a fresh instance the caller owns (and must
@@ -605,6 +618,7 @@ class TransportConfig:
     """
 
     name: str
+    addresses: tuple[str, ...] = ()
     timeout: float | None = None
     max_workers: int | None = None
 
@@ -614,6 +628,10 @@ class TransportConfig:
                 f"unknown transport {self.name!r}; expected one of "
                 f"{sorted(_FACTORIES)}"
             )
+        # tolerate list input without breaking hashability
+        object.__setattr__(self, "addresses", tuple(self.addresses))
+        if self.addresses and self.name != "socket":
+            raise ValueError("addresses= applies to the socket transport")
         if self.max_workers is not None and self.name != "threadpool":
             raise ValueError("max_workers= applies to threadpool")
         if self.timeout is not None and self.name not in (
@@ -627,6 +645,8 @@ class TransportConfig:
     def build(self, *, device=None) -> Transport:
         """Instantiate a fresh transport the caller owns, on `device`."""
         kwargs: dict = {}
+        if self.addresses:
+            kwargs["addresses"] = self.addresses
         if self.timeout is not None:
             kwargs["timeout"] = self.timeout
         if self.max_workers is not None:
@@ -642,9 +662,10 @@ def resolve_transport(spec=None, *, device=None) -> Transport:
     """The transport resolver — every `transport=` argument funnels here.
 
       * None          → inline;
-      * a name string from {"inline", "threadpool", "multiprocess"} → the
-        process-wide shared instance on `device` ("shardmap" and "socket"
-        raise NotImplementedError);
+      * a name string from {"inline", "threadpool", "multiprocess",
+        "socket"} → the process-wide shared instance on `device` (the
+        bare "socket" self-hosts one daemon per worker on `device`;
+        "shardmap" raises NotImplementedError);
       * a `TransportConfig` → a shared instance keyed by the config and
         the device (`config.build()` gives a fresh one);
       * a `Transport` instance → returned as is (caller-owned).

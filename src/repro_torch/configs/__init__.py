@@ -1,8 +1,9 @@
 """Config registry: get_config(name) for the 10 assigned archs, plus
 reduced smoke variants (same family, tiny dims) for CPU tests.
 
-The model configs of src/repro/configs/__init__.py; the SPDC gateway's
-configs (configs/spdc.py there) come with the gateway (ROADMAP A11).
+The model configs of src/repro/configs/__init__.py, and from configs/spdc.py
+the rateless dispatch knobs (`RatelessConfig`, `RATELESS_DEFAULT`); the
+SPDC gateway's configs come with the gateway (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from .llama4_scout_17b_a16e import LLAMA4_SCOUT
 from .mamba2_370m import MAMBA2_370M
 from .nemotron_4_340b import NEMOTRON_4_340B
 from .qwen2_vl_72b import QWEN2_VL_72B
+from .spdc import RATELESS_DEFAULT, RatelessConfig
 from .tinyllama_1_1b import TINYLLAMA_1_1B
 
 CONFIGS: dict[str, ModelConfig] = {
@@ -63,4 +65,5 @@ def smoke_config(name: str) -> ModelConfig:
 __all__ = [
     "CONFIGS", "get_config", "smoke_config", "SHAPES", "ModelConfig",
     "ShapeConfig", "cell_status", "runnable_cells",
+    "RatelessConfig", "RATELESS_DEFAULT",
 ]

@@ -105,9 +105,9 @@ class SPDCReport:
     """The typed diagnostics surface on a protocol result: the
     Authenticate verdict, the recovery report (a
     distrib.recovery.RecoveryReport when recovery ran, else None), the
-    rateless fleet report (None until rateless dispatch is ported,
-    ROADMAP A9), the phase timings, and per-op records of multi-op
-    sessions."""
+    rateless fleet report (a distrib.rateless.RatelessReport: strip
+    counts and per-worker health; None on classic sessions), the phase
+    timings, and per-op records of multi-op sessions."""
 
     verdict: Verdict | None = None
     recovery: object | None = None
@@ -213,15 +213,22 @@ def outsource_determinant(
     growth_safe / equilibrate: growth controls (DESIGN.md §6); None = on
         below float64, off for float64.
     transport: None or "inline" (the fused in-process sweep),
-        "threadpool", "multiprocess", a TransportConfig, or a Transport
-        instance; names and configs resolve to shared instances on
-        `device`.
+        "threadpool", "multiprocess", "socket" (warm worker daemons;
+        the bare name self-hosts one local daemon per worker), a
+        TransportConfig (`TransportConfig("socket", addresses=...)`
+        reaches running daemons), or a Transport instance; names and
+        configs resolve to shared instances on `device`.
+    rateless: straggler-adaptive streaming dispatch (DESIGN.md §8) —
+        True or a configs.spdc.RatelessConfig. The session
+        over-decomposes into F = overdecompose·N strips streamed to
+        whichever workers are free, each verified by a secret probe;
+        straggler_deadline is ignored. The scheduler's report rides
+        `report.fleet`.
     device: where the protocol computes; None = the CUDA device
         (RuntimeError without one), "cpu" for the plain path.
 
     Not ported yet, and raising NotImplementedError: mixed-size lists
-    (ROADMAP A11), rateless= and the socket transport (A9),
-    distributed= and the shardmap transport (A12).
+    (ROADMAP A11), distributed= and the shardmap transport (A12).
 
     Returns SPDCResult for one matrix, SPDCBatchResult for a stack.
     """

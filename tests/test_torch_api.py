@@ -27,6 +27,7 @@ from repro_torch.api import (
     MultiprocessTransport,
     ShardResult,
     ShardTask,
+    SocketTransport,
     SPDCClient,
     ThreadPoolTransport,
     TransportConfig,
@@ -188,8 +189,15 @@ def test_resolve_transport_rules():
         resolve_transport("carrier-pigeon")
     with pytest.raises(NotImplementedError, match="A12"):
         resolve_transport("shardmap")
-    with pytest.raises(NotImplementedError, match="A9"):
-        resolve_transport("socket")
+    # "socket" (ROADMAP A9, ported) resolves to one shared self-hosting
+    # transport per device; its daemons spawn at the first dispatch only
+    sock = resolve_transport("socket", device=CPU)
+    try:
+        assert isinstance(sock, SocketTransport) and sock.name == "socket"
+        assert sock is resolve_transport("socket", device=CPU)
+        assert sock.addresses == () and sock._spawned == {}
+    finally:
+        sock.close()
 
 
 def test_transport_config_rules():
@@ -213,8 +221,20 @@ def test_transport_config_rules():
         TransportConfig("socket", max_workers=3)
     with pytest.raises(ValueError, match="timeout"):
         TransportConfig("inline", timeout=5.0)
-    with pytest.raises(NotImplementedError, match="A9"):
-        TransportConfig("socket").build(device=CPU)
+    with pytest.raises(ValueError, match="addresses"):
+        TransportConfig("threadpool", addresses=("unix:///w.sock",))
+    # the socket config (ROADMAP A9, ported) builds a SocketTransport
+    # with its addresses (a list is kept hashable) and deadline
+    sock_cfg = TransportConfig("socket", addresses=["unix:///w.sock"],
+                               timeout=5.0)
+    assert hash(sock_cfg) == hash(TransportConfig(
+        "socket", addresses=("unix:///w.sock",), timeout=5.0))
+    built = sock_cfg.build(device=CPU)
+    try:
+        assert isinstance(built, SocketTransport)
+        assert built.addresses == ("unix:///w.sock",) and built.timeout == 5.0
+    finally:
+        built.close()
 
 
 def test_transport_lifecycle_uniform():

@@ -785,3 +785,47 @@ def test_f32_protocol_on_card(cuda):
     sign, logabs = np.linalg.slogdet(m)
     assert res.verified and res.det.sign == sign
     assert abs(res.det.logabs - logabs) <= 1e-4
+
+
+def test_socket_daemon_on_card_answers_session(cuda, tmp_path):
+    """A port WorkerDaemon computing on the card answers a socket
+    session: the strips equal the fused sweep's bit for bit, the session
+    verifies, and a second client finds the same warm daemon."""
+    from repro_torch.api import InlineTransport, SPDCClient
+    from repro_torch.api.socket_transport import SocketTransport, WorkerDaemon
+
+    m = _dominant((512, 512), 13)
+    session = SPDCClient().open_session(m, 4)
+    with WorkerDaemon(f"unix://{tmp_path}/w.sock", device="cuda") as daemon:
+        with SocketTransport((daemon.address,), timeout=120.0) as t:
+            l, u = session._assemble(t.factor(session.tasks()))
+            first = t.hello(0)
+        with SocketTransport((daemon.address,), timeout=120.0) as t:
+            result = session.run(t)
+            second = t.hello(0)
+    l_inline, u_inline = InlineTransport().sweep(session.x_aug, 4)
+    assert torch.equal(l, l_inline) and torch.equal(u, u_inline)
+    assert result.verified
+    assert second["connections"] > first["connections"]
+    assert second["frames_served"] > 0
+
+
+def test_rateless_on_card_bit_equal_to_lu_nserver(cuda):
+    """Rateless on the card: F = 8 strips streamed to four workers, each
+    lu_block_row's "nserver" order over the accepted U rows, give the
+    factors of lu_nserver(x_aug, F) bit for bit; the session verifies."""
+    from repro_torch.api import SPDCClient, ThreadPoolTransport
+    from repro_torch.core.lu import lu_nserver
+    from repro_torch.distrib.rateless import run_rateless
+
+    m = _dominant((512, 512), 14)
+    client = SPDCClient(rateless=True)
+    session = client.open_session(m, 4)
+    with ThreadPoolTransport() as tp:
+        l, u, rpt = run_rateless(session, tp, client.rateless, client.fleet)
+        result = client.open_session(m, 4).run(tp)
+    assert session.partitions == 8 and rpt.inline_strips == 0
+    wl, wu, _ = lu_nserver(session.x_aug, session.partitions)
+    assert torch.equal(torch.from_numpy(l).to(cuda), wl)
+    assert torch.equal(torch.from_numpy(u).to(cuda), wu)
+    assert result.verified and result.report.fleet.num_strips == 8

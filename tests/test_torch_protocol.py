@@ -266,14 +266,39 @@ def test_recover_flag_runs_recovery(kwargs, replaced):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"rateless": True}, "A9"),
     ({"transport": "shardmap"}, "A12"),
-    ({"transport": "socket"}, "A9"),
     ({"distributed": True}, "A12"),
 ])
 def test_unported_features_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         repro_torch.outsource_determinant(_matrix(8, 0), 2, device=CPU, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"rateless": True},
+    {"transport": "socket"},
+], ids=["rateless", "socket"])
+def test_a9_features_match_reference(kwargs):
+    """rateless= and the bare "socket" transport (ROADMAP A9, ported; they
+    raised before): N = 4 verified, the determinant the reference gives
+    on the same input. The socket case self-hosts one daemon process per
+    worker on the CPU and closes them."""
+    m = _matrix(16, 0)
+    # the reference's own determinant does not depend on its transport
+    want = r_protocol.outsource_determinant(
+        m, 4, rateless=kwargs.get("rateless", False))
+    try:
+        got = repro_torch.outsource_determinant(m, 4, device=CPU, **kwargs)
+    finally:
+        if "transport" in kwargs:
+            from repro_torch.api import resolve_transport
+
+            resolve_transport(kwargs["transport"], device=CPU).close()
+    assert got.verified and want.verified
+    assert _same_det(got.det, want.det)
+    if "rateless" in kwargs:
+        assert got.report.fleet.num_strips == want.report.fleet.num_strips == 8
+        assert got.report.fleet.inline_strips == 0
 
 
 def test_mixed_size_list_raises():
