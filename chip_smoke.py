@@ -104,12 +104,31 @@ worker id:
   streamed factors passing Q2 and Q3, worker 2 quarantined, worker 1
   serving fewer strips than each healthy worker.
 
+Then, from a fourth random stream, the linalg phase (on the same
+daemons before they stop): a `LinalgSession` on one n = 4096 f64
+dominant matrix over N = 4, inline, its slogdet, solve (b of 4096 x 8),
+adjoint solve and inverse against torch.linalg at the reference tests'
+1e-9, with one factorization, every op verified and each round's
+residual under its tolerance; each trisolve leg launched (24 wrapper
+calls over the three rounds); the inverse round under torch.profiler:
+8 wrapper calls of 2⌈4096/64⌉ − 1 = 127 CUDA launches each and no trsm
+kernel of a library; its four chunks bit-equal to one wide call of the
+same legs; server 1's block tamper of its strip and its chunk healed,
+the inverse bit-equal to the honest one; the inverse through the thread
+pool and through the daemons bit-equal to inline; `outsource_inverse`
+verified under its eps; a 1024² f32 session's inverse within 2e-3 of
+max|inverse| of the card's f64 one; the GP objective of
+examples/gp_loglik.py at n = 4096 (value at rtol 1e-9 and gradient
+within 1e-6 of max|grad| against torch autograd, one factorization).
+
 The daemons' kernel launches happen in their processes and are not
 counted here; bit-equality with the inline sweep shows they ran the
 kernels' arithmetic on the card. The client's CED launch is counted.
 
 The kernels line then has a row per route besides the default f64 rows:
-"<kernel>:f32" (the f32 routes the f32 paths run), "<kernel>:f32_f64"
+"trsm:trisolve_<leg>" (the linalg phase's four left solves, l, u, ut
+and lt, at its inverse round's chunk shape on its factors, launches from
+its op plan), "<kernel>:f32" (the f32 routes the f32 paths run), "<kernel>:f32_f64"
 (the mixed routes mixed lu_blocked runs) and "<kernel>:bf16_f32" (no
 path runs them: launches null, with a note), each with the device
 kernels' template names the profiler reports, and "flash_attention:f32"
@@ -252,6 +271,24 @@ RATELESS_STACK, ACCEPT_STACK = 16, 5
 #: load, the CUDA context), and a connection to come up
 DAEMON_BIND_S = 300.0
 
+#: the linalg phase: the right-hand side's columns of `solve`, the f32
+#: session's n, and the bars of the reference's linalg tests on results
+#: against the card's own solve/inv (tests/test_linalg.py's TOL, f64 and
+#: f32) and the GP objective's against torch autograd
+LINALG_RHS, LINALG_F32_N = 8, 1024
+LINALG_TOL = {torch.float64: 1e-9, torch.float32: 2e-3}
+GP_VALUE_RTOL, GP_GRAD_TOL = 1e-9, 1e-6
+#: the linalg phase's tamper: server 1 scales its LU strip and its solve
+#: chunk by 1.3
+LINALG_TAMPER_KW = {"server": 1, "mode": "block", "magnitude": 0.3}
+#: the trisolve legs by their ops.TRSM_LEFT_LEGS key: (upper, transpose_t,
+#: the TPU kernel of the triangle the leg reads)
+TRISOLVE_LEGS = {"l": (False, False, "src/repro/kernels/trsm.py:74"),
+                 "u": (True, False, "src/repro/kernels/trsm.py:114"),
+                 "ut": (True, True, "src/repro/kernels/trsm.py:114"),
+                 "lt": (False, True, "src/repro/kernels/trsm.py:74")}
+LINALG_PATH = MAIN_PATH + ("trsm_left",)
+
 #: device_events' padding before a timed loop: launches and seconds
 WARM_LAUNCHES, WARM_PAUSE_S = 64, 0.01
 TIMED_RANGE = "chip_smoke.timed"
@@ -321,8 +358,13 @@ ROUTED_KERNELS = ("lu_warp_kernel", "lu_panel_kernel", "leaf_kernel",
 
 def route_kernels(fn) -> list:
     """The routed kernels (by template name) that one call of fn put on
-    the card, from the profiler's device events."""
-    events, _ = device_events(fn, 1)
+    the card, from the profiler's device events. A window with no device
+    event at all is profiled again, up to PROFILE_ATTEMPTS windows, as in
+    device_profile."""
+    for _ in range(PROFILE_ATTEMPTS):
+        events, _ = device_events(fn, 1)
+        if events:
+            break
     return sorted({template_name(e.name) for e in events
                    if template_name(e.name).split("<")[0] in ROUTED_KERNELS})
 
@@ -779,7 +821,8 @@ def phase_sequential(rng, dev) -> dict:
                    "trsm_lower": nb * (panels - 1) + outer,
                    "trsm_upper_right": nb * (panels - 1) + outer,
                    "schur_update": sum(k * k for k in range(nb))
-                   + nb * (panels - 1), "flash_attention": 0}
+                   + nb * (panels - 1), "trsm_left": 0,
+                   "flash_attention": 0}
     check(launches == want_counts, f"sequential launches {launches}")
     ln, un, _ = lu_nserver(x, N_SERVERS)
     dl = float((l - ln).abs().max())
@@ -1192,9 +1235,11 @@ def phase_rateless(rng, dev, addrs) -> dict:
     return launches
 
 
-def phase_daemons(rng, dev) -> tuple[dict, dict]:
-    """Spawn the socket phases' daemons, run both phases on them, stop
-    them. Returns the socket and rateless phases' client launches."""
+def phase_daemons(rng, dev, rng_linalg) -> tuple[dict, dict, dict]:
+    """Spawn the socket phases' daemons, run both phases on them and the
+    linalg phase (from `rng_linalg`, its own stream), stop them. Returns
+    the socket and rateless phases' client launches and the linalg
+    phase's result."""
     import shutil
     import tempfile
 
@@ -1204,13 +1249,249 @@ def phase_daemons(rng, dev) -> tuple[dict, dict]:
         addrs, procs, spawn_s = spawn_daemons(N_SERVERS, root)
         socket_launches = phase_socket(rng, dev, addrs, spawn_s)
         rateless_launches = phase_rateless(rng, dev, addrs)
+        linalg = phase_linalg(rng_linalg, dev, addrs)
     finally:
         for proc in procs:
             proc.terminate()
         for proc in procs:
             proc.join(timeout=10)
         shutil.rmtree(root, ignore_errors=True)
-    return socket_launches, rateless_launches
+    return socket_launches, rateless_launches, linalg
+
+
+def gp_objectives(x: torch.Tensor, y: torch.Tensor, ctx):
+    """The negative log marginal likelihood of examples/gp_loglik.py, RBF
+    Σ(θ) on x, through the secure ops on `ctx` and through torch.linalg:
+    (secure, plain) functions of θ = (log ℓ, log σf, log σn)."""
+    from repro_torch.linalg import secure_slogdet, secure_solve
+
+    n = x.shape[0]
+
+    def objective(slogdet, solve):
+        def nll(theta):
+            d2 = (x[:, None] - x[None, :]) ** 2
+            k = torch.exp(2 * theta[1]) * torch.exp(
+                -0.5 * d2 / torch.exp(2 * theta[0]))
+            cov = k + torch.exp(2 * theta[2]) * torch.eye(
+                n, dtype=x.dtype, device=x.device)
+            _, logdet = slogdet(cov)
+            return 0.5 * (logdet + y @ solve(cov, y) + n * math.log(2 * math.pi))
+        return nll
+
+    return (objective(lambda c: secure_slogdet(c, linalg=ctx),
+                      lambda c, v: secure_solve(c, v, linalg=ctx)),
+            objective(torch.linalg.slogdet, torch.linalg.solve))
+
+
+def value_and_grad(fn, theta0) -> tuple[float, torch.Tensor]:
+    theta = theta0.clone().requires_grad_(True)
+    value = fn(theta)
+    value.backward()
+    return float(value.detach()), theta.grad
+
+
+def phase_linalg(rng, dev, addrs) -> dict:
+    """The secure linalg slice at n = 4096 f64, N = 4: one LinalgSession's
+    slogdet, solve, adjoint solve and inverse on one factorization,
+    inline; the inverse round profiled (its legs' launches, no library
+    trsm) and its chunks against one wide call; a tamper healed; the
+    inverse round through the thread pool and the socket daemons at
+    `addrs`; outsource_inverse; an f32 session; the GP objective's value
+    and gradient against torch autograd. Returns the path's launches, the
+    legs' launches and errors, and the legs' operands for the kernels
+    line."""
+    import dataclasses
+
+    from repro_torch import ServerFault, ThreadPoolTransport, outsource_inverse
+    from repro_torch.api import EdgeServer, InlineTransport
+    from repro_torch.api.server import _to_device
+    from repro_torch.api.socket_transport import SocketTransport
+    from repro_torch.kernels import ops, ref, trsm
+    from repro_torch.linalg import LinalgSession, SecureLinalg
+
+    class Recording(InlineTransport):
+        """The inline transport, keeping each round's tasks and results."""
+
+        def __init__(self):
+            super().__init__()
+            self.rounds = []
+
+        def solve_shards(self, tasks, faults=(), timeout=None):
+            out = super().solve_shards(tasks, faults=faults, timeout=timeout)
+            self.rounds.append((tasks, out))
+            return out
+
+    phase_t0 = time.perf_counter()
+    n, f64 = SINGLE_N, torch.float64
+    m = dominant(rng, (n, n))
+    b = rng.standard_normal((n, LINALG_RHS))
+    md, bd = torch.from_numpy(m).to(dev), torch.from_numpy(b).to(dev)
+    recorder = Recording()
+
+    def op_plan():
+        s = LinalgSession(m, N_SERVERS, transport=recorder)
+        return s, s.slogdet(), s.solve(b), s.solve(b, transpose=True), s.inv()
+
+    (s, (sign, logabs), y, yt, inv), launches = run_counted(ops, op_plan)
+    legs = dict(ops.TRSM_LEFT_LEGS)
+    tol = LINALG_TOL[f64]
+    want_sign, want_logabs = (float(v) for v in torch.linalg.slogdet(md))
+    check(sign == want_sign and abs(logabs - want_logabs)
+          <= tol * abs(want_logabs), f"slogdet {sign} {logabs} vs "
+          f"{want_sign} {want_logabs}")
+    against = {}
+    for name, got, want in (("solve", y, torch.linalg.solve(md, bd)),
+                            ("solve_t", yt, torch.linalg.solve(md.T, bd)),
+                            ("inv", inv, torch.linalg.inv(md))):
+        err, rel = max_err(got, want)
+        check(err <= tol, f"{name}: max|err| {err} against torch.linalg")
+        against[name] = {"max_abs_err": err, "rel": rel}
+    records = {o.op: o for o in s.report.ops}
+    check(s.factorizations == 1, f"{s.factorizations} factorizations")
+    check(all(o.verified for o in s.report.ops), "an op is not verified")
+    check(all(records[o].residual <= s._tolerance()
+              for o in ("solve", "solve_t", "inv")), "a round's residual")
+    rounds = 3 * N_SERVERS
+    check(all(legs[k] > 0 for k in TRISOLVE_LEGS)
+          and sum(legs.values()) == 2 * rounds == launches["trsm_left"],
+          f"leg launches {legs}")
+    # the inverse round under the profiler: 8 wrapper calls, each
+    # trsm.cuda_launches(n') kernels of csrc/trsm.cu, and no trsm of a
+    # library
+    def inverse_round():
+        s._inv_cache = None
+        return s.inv()
+
+    before = dict(ops.TRSM_LEFT_LEGS)
+    events, round_host_s = device_events(inverse_round, 1)
+    calls = sum(ops.TRSM_LEFT_LEGS.values()) - sum(before.values())
+    n_aug = s._x_aug.shape[-1]
+    solver = [e for e in events
+              if short_name(e.name) in ("leaf_kernel", "update_kernel")]
+    library = sorted({e.name for e in events if "trsm" in e.name.lower()})
+    check(calls == 2 * 2 * N_SERVERS, f"{calls} leg calls in two rounds")
+    check(len(solver) == 2 * N_SERVERS * trsm.cuda_launches(n_aug),
+          f"{len(solver)} solver launches in the inverse round")
+    check(not library, f"library trsm kernels in the round: {library}")
+    check(torch.equal(s.inv(), inv), "the re-run inverse round differs")
+    solver_ms = sum(e.time_range.elapsed_us() for e in solver) / 1e3
+    # the split property: the round's chunks are one wide call's columns
+    tasks, results = recorder.rounds[-1]
+    wide_task = dataclasses.replace(
+        tasks[0], rhs=np.concatenate([t.rhs for t in tasks], axis=1))
+    wide = EdgeServer(0, device=dev).run(wide_task)
+    check(np.array_equal(wide.y, np.concatenate([r.y for r in results], axis=1)),
+          "the inverse round's chunks differ from one wide call")
+    # what a chunk's factors cost to reach the server's card (pageable)
+    _, upload_s = wall(lambda: (_to_device(tasks[0].l, dev),
+                                _to_device(tasks[0].u, dev)))
+    # server 1 tampers with its strip and its chunk: both healed
+    bad = LinalgSession(m, N_SERVERS, faults=ServerFault(**LINALG_TAMPER_KW))
+    healed_inv, healed_s = wall(bad.inv)
+    bad_ops = {o.op: o for o in bad.report.ops}
+    check(bad_ops["inv"].healed >= 1 and bad_ops["inv"].verified,
+          f"tampered inverse round healed {bad_ops['inv'].healed}")
+    check(bad.report.recovery is not None
+          and bad.report.recovery.servers_replaced == (1,),
+          "the tampered factorization was not healed from server 1")
+    check(torch.equal(healed_inv, inv), "healed inverse differs")
+    with ThreadPoolTransport() as tp:
+        pooled = LinalgSession(m, N_SERVERS, transport=tp)
+        pooled_inv, pooled_s = wall(pooled.inv)
+    check(torch.equal(pooled_inv, inv), "thread-pool inverse differs")
+    with SocketTransport(addrs, connect_timeout=DAEMON_BIND_S) as st:
+        sock = LinalgSession(m, N_SERVERS, transport=st)
+        sock_inv, sock_s = wall(sock.inv)
+    check(torch.equal(sock_inv, inv), "socket inverse differs")
+    facade, facade_s = wall(lambda: outsource_inverse(m, N_SERVERS))
+    check(facade.verified and facade.residual < 1e-6,
+          f"outsource_inverse {facade.verified} {facade.residual}")
+    # f32 against the card's f64 inverse of the same matrix
+    m32 = dominant(rng, (LINALG_F32_N, LINALG_F32_N)).astype(np.float32)
+    s32 = LinalgSession(m32, N_SERVERS)
+    inv32 = s32.inv()
+    err32, rel32 = max_err(inv32.double(), torch.linalg.inv(
+        torch.from_numpy(m32.astype(np.float64)).to(dev)))
+    check(inv32.dtype == torch.float32 and rel32 <= LINALG_TOL[torch.float32],
+          f"f32 inverse rel err {rel32}")
+    # the GP objective at n = 4096, examples/gp_loglik.py's data
+    gx = np.sort(rng.uniform(-3.0, 3.0, n))
+    gy = np.sin(2.0 * gx) + 0.5 * gx + 0.1 * rng.standard_normal(n)
+    ctx = SecureLinalg(N_SERVERS)
+    secure, plain = gp_objectives(torch.from_numpy(gx).to(dev),
+                                  torch.from_numpy(gy).to(dev), ctx)
+    theta = torch.tensor([math.log(0.8), 0.0, math.log(0.2)], dtype=f64,
+                         device=dev)
+    ((val, grad), gp_launches), gp_s = wall(
+        lambda: counted(ops, lambda: value_and_grad(secure, theta)))
+    (pval, pgrad), plain_s = wall(lambda: value_and_grad(plain, theta))
+    gerr = float((grad - pgrad).abs().max() / pgrad.abs().max())
+    gp_sessions = list(ctx._sessions.values())
+    check(abs(val - pval) <= GP_VALUE_RTOL * abs(pval), f"GP {val} vs {pval}")
+    check(gerr <= GP_GRAD_TOL, f"GP gradient error {gerr}")
+    check(len(gp_sessions) == 1 and gp_sessions[0].factorizations == 1
+          and all(o.verified for o in gp_sessions[0].report.ops),
+          "GP sessions")
+    # each leg on these factors against its plain version, at both chunk
+    # shapes of the op plan: the inverse round's (n' x n'/N) and the
+    # narrow rounds' (n' x LINALG_RHS/N)
+    l_f, u_f = s._factors
+    rhs = torch.from_numpy(rng.standard_normal((n_aug, n_aug // N_SERVERS))
+                           ).to(dev)
+    narrow = torch.from_numpy(
+        rng.standard_normal((n_aug, LINALG_RHS // N_SERVERS))).to(dev)
+    leg_errs, narrow_errs = {}, {}
+    for leg, (upper, trans, _) in TRISOLVE_LEGS.items():
+        t = u_f if upper else l_f
+        for cols, errs in ((rhs, leg_errs), (narrow, narrow_errs)):
+            err, rel = max_err(
+                ops.trsm_left(t, cols, upper=upper, transpose_t=trans),
+                ref.trsm_left_ref(t, cols, upper=upper, transpose_t=trans))
+            check(rel <= RTOL, f"trisolve leg {leg} at {tuple(cols.shape)}: "
+                  f"{rel} of max|plain|")
+            errs[f"trsm:trisolve_{leg}"] = err
+    wall_of = {o.op: o.wall_s for o in s.report.ops}
+    emit({"phase": "linalg", "n": n, "servers": N_SERVERS, "dtype": "float64",
+          "rhs_cols": LINALG_RHS, "transport": "inline",
+          "factorizations": s.factorizations,
+          "factor_s": wall_of["factor"],
+          "round_wall_s": {k: wall_of[k] for k in ("solve", "solve_t", "inv")},
+          "round_residual": {k: records[k].residual
+                             for k in ("solve", "solve_t", "inv")},
+          "round_tolerance": s._tolerance(),
+          "slogdet": [sign, logabs], "slogdet_torch": [want_sign, want_logabs],
+          "against_torch": against, "launches": launches, "leg_calls": legs,
+          "inverse_round": {
+              "leg_calls": calls // 2,
+              "solver_launches": len(solver),
+              "solver_device_ms": solver_ms,
+              "leg_device_ms_per_call": solver_ms / (2 * N_SERVERS),
+              "host_s": round_host_s, "library_trsm_events": library,
+              "chunks_bit_equal_to_one_wide_call": True,
+              "factor_upload_s_per_chunk": upload_s,
+              "transpose": tasks[0].transpose},
+          "tamper_server1": {"healed": bad_ops["inv"].healed,
+                             "factor_servers_replaced": list(
+                                 bad.report.recovery.servers_replaced),
+                             "bit_equal_to_honest": True, "wall_s": healed_s},
+          "threadpool": {"bit_equal_to_inline": True, "wall_s": pooled_s},
+          "socket": {"daemons": len(addrs), "bit_equal_to_inline": True,
+                     "wall_s": sock_s},
+          "outsource_inverse": {"verified": facade.verified,
+                                "residual": facade.residual, "eps": 1e-6,
+                                "wall_s": facade_s},
+          "f32": {"n": LINALG_F32_N, "max_abs_err": err32, "rel": rel32,
+                  "bar": LINALG_TOL[torch.float32]},
+          "gp": {"n": n, "value": val, "plain_value": pval,
+                 "value_rel": abs(val - pval) / abs(pval), "grad_err": gerr,
+                 "factorizations": gp_sessions[0].factorizations,
+                 "secure_s": gp_s, "plain_s": plain_s,
+                 "launches": gp_launches},
+          "legs_vs_plain": leg_errs, "legs_vs_plain_narrow": {
+              "shape": list(narrow.shape), "max_abs_err": narrow_errs},
+          "phase_s": time.perf_counter() - phase_t0})
+    return {"launches": launches, "legs": legs, "errs": leg_errs,
+            "operands": (l_f, u_f, rhs)}
 
 
 def witness_matrix(seed: int, n: int) -> np.ndarray:
@@ -1479,7 +1760,8 @@ def phase_sequential_routes(rng, dev) -> dict:
                    "trsm_lower": nb * (panels - 1) + nb * (nb - 1) // 2,
                    "trsm_upper_right": nb * (panels - 1) + nb * (nb - 1) // 2,
                    "schur_update": sum(k * k for k in range(nb))
-                   + nb * (panels - 1), "flash_attention": 0}
+                   + nb * (panels - 1), "trsm_left": 0,
+                   "flash_attention": 0}
     out, lines = {}, {}
     for route, acc, targs in (("f32", None, "float, float"),
                               ("f32_f64", torch.float64, "float, double")):
@@ -1855,10 +2137,12 @@ def serve_profile(model, prefill, batch) -> dict:
 
 
 # ---------------------------------------------------------------------------
-def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict) -> dict:
+def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
+                 trisolve_operands) -> dict:
     """Time each kernel, its plain version and the library call at the
     phase-3 shapes, beside its bound; `strips` holds phase 3's strip
-    launches of each TRSM wrapper."""
+    launches of each TRSM wrapper, `trisolve_operands` the linalg phase's
+    factors and a right-hand side at its inverse round's chunk shape."""
     from repro_torch.kernels import flash_attn, ops, ref, trsm
 
     f64 = torch.float64
@@ -1982,6 +2266,30 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict) -> dict:
         10, 3, (b * (b + 1) / 2 + 2 * b * b) * 8, b * b * b,
         expect_launches=trsm.cuda_launches(b), strip_case=strip_upper,
         note="the lower solver on the transposed problem (trsm.cu)")
+    # the trisolve legs on the linalg phase's factors, at its inverse
+    # round's chunk shape (n' x n' against n' x n'/N)
+    l_f, u_f, rhs_f = trisolve_operands
+    nn, mm = rhs_f.shape
+    for leg, (upper, trans, replaces) in TRISOLVE_LEGS.items():
+        t = u_f if upper else l_f
+        row(f"trsm:trisolve_{leg}", "trsm.cu", replaces, [nn, nn, mm],
+            lambda t=t, upper=upper, trans=trans: ops.trsm_left(
+                t, rhs_f, upper=upper, transpose_t=trans),
+            lambda t=t, upper=upper, trans=trans: ref.trsm_left_ref(
+                t, rhs_f, upper=upper, transpose_t=trans),
+            lambda t=t, upper=upper, trans=trans: torch.linalg.solve_triangular(
+                t.T if trans else t, rhs_f, upper=upper != trans),
+            10, 2, (nn * (nn + 1) / 2 + 2 * nn * mm) * 8, nn * nn * mm,
+            expect_launches=trsm.cuda_launches(nn),
+            note="a left solve of a trisolve chunk (ops.trsm_left), timed "
+                 "at the inverse round's chunk shape: launches are wrapper "
+                 "calls on the linalg phase's op plan (solve, adjoint solve, "
+                 "inverse; N chunks a round), whose narrow rounds ran at "
+                 "n' x rhs/N, held to the plain version there too "
+                 "(linalg phase, legs_vs_plain_narrow); an "
+                 "upper op(T) runs the lower solver reversed, J op(T) J "
+                 "at negated strides; the library call "
+                 "(solve_triangular) is a yardstick the port never calls")
     # the trailing update of lu_blocked at the sequential phase's blocks,
     # its inner updates (K = 32: views of a diagonal tile, as
     # lu_panel_blocked passes them, timed at the widest) and a stack
@@ -2188,8 +2496,9 @@ def main() -> int:
     # the f32, mixed-route and recovery phases draw from a stream of their
     # own, so the earlier phases keep their inputs
     rng_routes = np.random.default_rng([args.seed, 1])
-    # and so do the socket and rateless phases
+    # and so do the socket and rateless phases, and the linalg phase
     rng_socket = np.random.default_rng([args.seed, 2])
+    rng_linalg = np.random.default_rng([args.seed, 3])
     dev = torch.device("cuda", torch.cuda.current_device())
 
     phase_build()
@@ -2224,9 +2533,12 @@ def main() -> int:
     per_phase["recovery"] = (phase_recovery(rng_routes, dev, mp_recovery),
                              MAIN_PATH)
     # the daemons launch the server kernels in their own processes
-    socket_launches, rateless_launches = phase_daemons(rng_socket, dev)
+    socket_launches, rateless_launches, linalg = phase_daemons(
+        rng_socket, dev, rng_linalg)
     per_phase["socket"] = (socket_launches, CLIENT_PATH)
     per_phase["rateless"] = (rateless_launches, CLIENT_PATH)
+    per_phase["linalg"] = (linalg["launches"], LINALG_PATH)
+    errs.update(linalg["errs"])
     errs["flash_attention"], errs["flash_attention:f32"] = phase_flash(rng, dev)
     serve_launches, f32_flash_launches = phase_serve(rng, dev, args.seed)
     per_phase["serve"] = (serve_launches, SERVE_PATH)
@@ -2248,7 +2560,9 @@ def main() -> int:
     launches["schur_update:f32"] = seq_routes["f32"]["schur_update"]
     check(f32_flash_launches > 0, "flash_attention never launched in f32")
     launches["flash_attention:f32"] = f32_flash_launches
-    line = kernels_line(rng, dev, launches, errs, strips)
+    for leg in TRISOLVE_LEGS:
+        launches[f"trsm:trisolve_{leg}"] = linalg["legs"][leg]
+    line = kernels_line(rng, dev, launches, errs, strips, linalg["operands"])
     emit({"phase": "run", "wall_s": time.perf_counter() - started,
           "profile_windows": PROFILE_WINDOWS})
     emit(line)

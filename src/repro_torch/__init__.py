@@ -6,11 +6,13 @@ layout module for module so each file's reference sits at the same
 relative path. It imports torch, numpy and the standard library only —
 never jax, never the reference package.
 
-Entry point: `outsource_determinant(m, num_servers, device=...)`, with
+Entry points: `outsource_determinant(m, num_servers, device=...)`, with
 `transport="socket"` (or `TransportConfig("socket", addresses=...)`) to
 reach warm worker daemons (`python -m repro_torch.launch.serve_worker`)
-and `rateless=RatelessConfig(...)` for straggler-adaptive dispatch. Every
-entry point runs on the CUDA device unless the caller passes
+and `rateless=RatelessConfig(...)` for straggler-adaptive dispatch; the
+secure linalg family on one verified factorization (`LinalgSession`,
+`outsource_solve`, `outsource_inverse`, and the differentiable
+`secure_slogdet` / `secure_solve` / `secure_inv`). Every entry point runs on the CUDA device unless the caller passes
 ``device="cpu"``; on the CPU each kernel's plain PyTorch version
 (kernels/ref.py) computes the same function.
 """
@@ -31,16 +33,28 @@ from .core.protocol import (
 )
 from .configs.spdc import RatelessConfig
 from .core.faults import ServerFault
+from .core.inverse import SPDCInverseResult, outsource_inverse
 from .device import resolve_device
+from .linalg import (
+    LinalgSession,
+    SecureLinalg,
+    outsource_solve,
+    secure_inv,
+    secure_slogdet,
+    secure_solve,
+)
 
 __all__ = [
     "EdgeServer",
     "InlineTransport",
+    "LinalgSession",
     "MultiprocessTransport",
     "RatelessConfig",
     "SPDCBatchResult",
     "SPDCClient",
+    "SPDCInverseResult",
     "SPDCResult",
+    "SecureLinalg",
     "ServerFault",
     "Session",
     "SocketTransport",
@@ -48,8 +62,13 @@ __all__ = [
     "TransportConfig",
     "WorkerDaemon",
     "outsource_determinant",
+    "outsource_inverse",
+    "outsource_solve",
     "resolve_device",
     "resolve_dtype",
+    "secure_inv",
+    "secure_slogdet",
+    "secure_solve",
 ]
 
 

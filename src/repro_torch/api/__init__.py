@@ -4,13 +4,16 @@
     Cipher, Authenticate, Decipher, and the async-overlap pipeline
     (`Session.start` → `PendingResult`, `SPDCClient.run_pipelined`);
   * `EdgeServer` (server.py) — the untrusted role, a stateless
-    `run(ShardTask) → ShardResult` worker;
-  * `ShardTask` / `ShardResult` (messages.py) and the codec (wire.py) —
-    what crosses the boundary, as versioned pickle-free byte frames;
+    `run(ShardTask) → ShardResult` worker that also answers the secure
+    linalg rounds, `run(TriSolveTask) → TriSolveResult`;
+  * `ShardTask` / `ShardResult`, `TriSolveTask` / `TriSolveResult`
+    (messages.py) and the codec (wire.py) — what crosses the boundary,
+    as versioned pickle-free byte frames;
   * transports (transport.py, socket_transport.py) — inline (the fused
     sweep), threadpool, multiprocess and socket (warm worker daemons
     over TCP/UDS), selected by name, `TransportConfig` or instance
-    through `resolve_transport`.
+    through `resolve_transport`; `Transport.solve_shards` runs one
+    triangular-solve round on any of them.
 """
 from .client import BoundaryViolation, PendingResult, Session, SPDCClient
 from .messages import (

@@ -76,9 +76,9 @@ _TASK_FIELDS = frozenset(
      "u_upstream", "session_id"}
 )
 
-#: everything a TriSolveTask (the secure linalg rounds, DESIGN.md §12)
-#: is allowed to hold — same contract as _TASK_FIELDS: repro-lint's
-#: SPDC105 cross-checks this set against the dataclass
+#: everything a TriSolveTask (linalg.session's triangular-solve rounds,
+#: DESIGN.md §12) is allowed to hold — same contract as _TASK_FIELDS:
+#: repro-lint's SPDC105 cross-checks this set against the dataclass
 _SOLVE_TASK_FIELDS = frozenset(
     {"server", "num_servers", "l", "u", "rhs", "subseed", "transpose",
      "col0", "attempt", "session_id"}
@@ -360,6 +360,12 @@ class Session:
     num_strips: int | None = None
     #: the rateless scheduler's distrib.rateless.RatelessReport
     fleet_report: Any = None
+    #: keep the factors Authenticate accepted (after any recovery) on
+    #: `_factors`, as tensors on the session's device, so a
+    #: linalg.LinalgSession builds its solve and inverse rounds on them
+    #: instead of outsourcing a second factorization
+    keep_factors: bool = False
+    _factors: tuple | None = None
     _m_host: np.ndarray | None = None
     # phase timings feeding SPDCReport.timings
     _pmop_s: float = 0.0
@@ -664,6 +670,10 @@ class Session:
                 dispatch=self._repair_dispatch(
                     self._resolve_transport(transport)),
             )
+        if self.keep_factors:
+            # after recovery: every later trisolve round goes through the
+            # healed factors Authenticate accepted
+            self._factors = (l, u)
         comm = nserver_comm_model(self.n_aug, self.partitions)
 
         def build_report() -> SPDCReport:

@@ -24,11 +24,14 @@ only the first two ever cross it:
 control frame transports use to tell a worker which misbehavior to play
 (core.faults semantics) — a real deployment has real faults instead.
 
+``TriSolveTask`` / ``TriSolveResult`` are the same pair for the secure
+linalg rounds (DESIGN.md §12, linalg.session): the session's verified
+factors and one blinded or public right-hand-side column chunk out, the
+solved chunk back; `EdgeServer.run` answers them.
+
 All wire frames use api/wire.py (versioned, pickle-free — see that
 module's docstring for why). Array fields hold host numpy arrays; a
 tensor handed to a message is copied to the host when it is encoded.
-The two ``TriSolve*`` kinds exist as wire kinds only: their execution
-(the secure linalg rounds) is not ported yet (ROADMAP A10).
 """
 from __future__ import annotations
 

@@ -10,10 +10,15 @@ declared operation order, on the server's device, so an honest
 EdgeServer's "nserver" strips are bit-equal to the strips the fused sweep
 (`lu_nserver`) produces on the same device.
 
+A TriSolveTask (the secure linalg rounds, DESIGN.md §12) is answered by
+four left solves through the shipped factors, each `kernels.ops.trsm_left`:
+on the CUDA device the hand-written solver of csrc/trsm.cu, on the CPU its
+plain version.
+
 Misbehaviour is opt-in: `run(task, faults=plan)` applies the core.faults
 model to the strips this server reports, before the relay forwards them
-(the paper's in-band threat). Faults bind to the initial assignment
-(attempt 0); re-dispatches run honestly.
+(the paper's in-band threat), or to the solution chunk it reports. Faults
+bind to the initial assignment (attempt 0); re-dispatches run honestly.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ import torch
 from ..core.faults import corrupt_strip, normalize_plan, sample_delay
 from ..core.lu import lu_block_row
 from ..device import resolve_device
-from .messages import ShardResult, TriSolveTask
+from ..kernels import ops
+from .messages import ShardResult, TriSolveResult, TriSolveTask
 
 __all__ = ["EdgeServer"]
 
@@ -57,9 +63,12 @@ class EdgeServer:
         self.worker_id = worker_id
         self.device = resolve_device(device)
 
-    def run(self, task, faults=()) -> ShardResult:
-        """Execute one ShardTask → its ShardResult (strips as host numpy
-        arrays in the task's dtype).
+    def run(self, task, faults=()):
+        """Execute one protocol task → its result message: ShardTask →
+        ShardResult (strips as host numpy arrays in the task's dtype),
+        TriSolveTask → TriSolveResult (one solved column chunk). The
+        dispatch is by message type, so every transport that decodes
+        frames with `wire.decode_message` serves both.
 
         The strips are embedded into zero-filled (…, n', n') frames
         because `lu_block_row` is written against full-matrix
@@ -67,7 +76,7 @@ class EdgeServer:
         rows above it of u, so the zeros are never consumed.
         """
         if isinstance(task, TriSolveTask):
-            raise NotImplementedError("TriSolveTask execution: ROADMAP A10")
+            return self._run_trisolve(task, faults)
         if task.style not in ("nserver", "pipeline"):
             raise ValueError(f"unknown task style {task.style!r}")
         n, b, s0 = task.n, task.block, task.server * task.block
@@ -101,6 +110,65 @@ class EdgeServer:
             attempt=task.attempt,
             session_id=task.session_id,
         )
+
+    def _run_trisolve(self, task: TriSolveTask, faults=()) -> TriSolveResult:
+        """One column chunk through the session's verified factors:
+        X' y = rhs as L a = rhs, U y = a, or with task.transpose the
+        adjoint X'ᵀ y = rhs as Uᵀ a = rhs, Lᵀ y = a. The L legs divide by
+        L's stored diagonal, as the reference's server does."""
+        l = _to_device(task.l, self.device)
+        u = _to_device(task.u, self.device, l.dtype)
+        rhs = _to_device(task.rhs, self.device, l.dtype)
+        if l.ndim != 2 or l.shape != u.shape or rhs.shape[0] != l.shape[-1]:
+            raise ValueError(
+                f"trisolve shapes disagree: l {tuple(l.shape)}, u "
+                f"{tuple(u.shape)}, rhs {tuple(rhs.shape)}"
+            )
+        self._straggle(task, faults)
+        if task.transpose:
+            a = ops.trsm_left(u, rhs, upper=True, transpose_t=True)
+            y = ops.trsm_left(l, a, upper=False, transpose_t=True)
+        else:
+            a = ops.trsm_left(l, rhs, upper=False)
+            y = ops.trsm_left(u, a, upper=True)
+        y = self._misbehave_solve(task, y, faults)
+        return TriSolveResult(
+            server=task.server,
+            y=y.cpu().numpy(),
+            subseed=task.subseed,
+            transpose=task.transpose,
+            col0=task.col0,
+            attempt=task.attempt,
+            session_id=task.session_id,
+        )
+
+    def _misbehave_solve(self, task, y, faults):
+        """The trisolve leg of the fault model: a tamper naming this
+        worker corrupts the reported chunk (any target: the chunk is all
+        this round reports), a dropout zeroes it; initial dispatch only.
+        A single or sign-flip tamper hits the element the reference's
+        hash picks inside the (n', c) chunk, so both packages corrupt
+        the same one."""
+        plan = [
+            f for f in normalize_plan(faults)
+            if f.server == self._bound(task) and task.attempt == 0
+            and f.kind != "delay"
+        ]
+        for f in plan:
+            if f.kind == "dropout":
+                y = torch.zeros_like(y)
+                continue
+            if f.mode == "block":
+                y = y * (1.0 + f.magnitude)
+                continue
+            h = (f.seed * 1315423911 + f.server * 2654435761) & 0x7FFFFFFF
+            r, c = h % y.shape[0], (h >> 8) % y.shape[1]
+            y = y.clone()
+            if f.mode == "sign_flip":
+                y[r, c] = -y[r, c]
+            else:
+                y[r, c] = y[r, c] * (1.0 + f.magnitude) + f.magnitude
+        return y
 
     def _bound(self, task) -> int:
         """The id faults bind to: the physical worker when known, else the

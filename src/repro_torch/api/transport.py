@@ -22,7 +22,10 @@ ShardTask to one worker; ``result(future, timeout)`` resolves it;
 ``submit`` is the blocking facade; ``factor(tasks)`` runs one session's
 whole relay sweep; ``repair(task, replacement=)`` runs one
 verification-driven re-dispatch (distrib.recovery) on a replacement
-worker, honestly: faults bind to initial dispatches only.
+worker, honestly: faults bind to initial dispatches only;
+``solve_shards(tasks)`` runs one triangular-solve round of the secure
+linalg sessions (TriSolveTasks, one column chunk each, concurrently where
+the transport can).
 
 One-way model: for the message transports the relay is run by the
 transport — task i executes only after i−1's result, and its
@@ -103,7 +106,8 @@ def serve_frame(edge: EdgeServer, state: dict, data: bytes) -> bytes:
     """One worker-side request → reply step.
 
     Strict request-reply: every frame gets exactly one reply — ShardTask
-    → ShardResult bytes, FaultPlanFrame → b"ACK", anything that fails
+    → ShardResult bytes, TriSolveTask → TriSolveResult bytes,
+    FaultPlanFrame → b"ACK", anything that fails
     (including a frame that does not decode) → an ERR frame — so a
     failure never desynchronizes later replies. `state` holds the
     channel's fault plan.
@@ -208,6 +212,25 @@ class Transport:
         return self.result(
             self.start(task, worker_id, faults=faults, timeout=timeout)
         )
+
+    def solve_shards(self, tasks, faults=(), timeout: float | None = None):
+        """One triangular-solve round (DESIGN.md §12): each TriSolveTask
+        started on its chunk's worker (`task.server`), the
+        TriSolveResults gathered in task order. Chunks are independent
+        (no relay), so they run concurrently where the transport can. A
+        chunk past `timeout` gets None in its slot: the caller treats it
+        as a dropout, which its check localizes and recovery
+        re-dispatches."""
+        self._ensure_open()
+        futures = [self.start(t, t.server, faults=faults, timeout=timeout)
+                   for t in tasks]
+        out = []
+        for fut in futures:
+            try:
+                out.append(self.result(fut, timeout))
+            except TransportTimeout:
+                out.append(None)
+        return out
 
     # -- lifecycle -----------------------------------------------------------
 

@@ -9,6 +9,7 @@ from .faults import (
     normalize_plan,
     resolve_delays,
 )
+from .inverse import SPDCInverseResult, outsource_inverse
 from .lu import (
     CommLog,
     det_from_lu,
@@ -45,6 +46,7 @@ __all__ = [
     "Determinant", "decipher", "decipher_batch",
     "FaultPlan", "ServerFault", "apply_faults", "corrupt_strip",
     "normalize_plan", "resolve_delays",
+    "SPDCInverseResult", "outsource_inverse",
     "CommLog", "det_from_lu", "lu_block_row", "lu_blocked", "lu_diag_factor",
     "lu_nserver", "lu_panel_blocked", "lu_unblocked", "nserver_comm_model",
     "slogdet_from_lu", "slogdet_pair_from_lu",

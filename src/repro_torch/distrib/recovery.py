@@ -23,8 +23,10 @@ spares spent to the culprit's next healthy neighbour.
 
 The recompute is `core.lu.lu_block_row`, the arithmetic an EdgeServer
 runs; on CUDA tensors it runs the panel and triangular-solve kernels.
-`recover_solve`, the triangular-solve rounds' analogue, comes with the
-secure linalg sessions (ROADMAP A10).
+`recover_solve` is the analogue for the secure linalg sessions'
+triangular-solve rounds: their column chunks are independent, so each
+rejected chunk is re-issued to a replacement under a fresh
+`trisolve_subseed` until it verifies.
 """
 from __future__ import annotations
 
@@ -63,6 +65,69 @@ def trisolve_subseed(digest: bytes, rnd: int, chunk: int,
     h.update(b"trisolve")
     h.update(struct.pack(">qqq", int(rnd), int(chunk), int(attempt)))
     return h.digest()
+
+
+def recover_solve(
+    results: list,
+    bad: list[int],
+    *,
+    make_task,
+    verify_chunk,
+    transport,
+    num_servers: int,
+    standby: int = 0,
+    max_rounds: int | None = None,
+    pool: "ServerPool | None" = None,
+) -> tuple[list, "RecoveryReport"]:
+    """Heal rejected triangular-solve chunks by re-dispatching them.
+
+    The solve analogue of `recover_lu`, by columns instead of rows:
+    chunks are independent (no relay, no cascade), so each round
+    re-issues every failed chunk to a pool replacement with attempt + 1
+    (a fresh `trisolve_subseed` keys it) and re-verifies it with the
+    round's check. One honest replacement per chunk heals it;
+    `max_rounds` (default num_servers) bounds a fleet that keeps lying.
+
+    results: the round's TriSolveResults by chunk (None for timeouts);
+        healed on a copy, which is returned.
+    bad: chunk indices whose verification failed.
+    make_task(chunk, attempt, replacement) -> TriSolveTask mints the
+        re-issue: the session's closure holds the factors, the RHS and
+        the digest, so this module touches no secret material.
+    verify_chunk(chunk, result) -> float | None: the residual if the
+        chunk now verifies, None if it still fails.
+    """
+    pool = pool or ServerPool(num_servers, standby)
+    max_rounds = num_servers if max_rounds is None else max_rounds
+    report = RecoveryReport(ok=False, rounds=0)
+    results = list(results)
+    pending = sorted(set(bad))
+    attempts: dict[int, int] = {}
+    for rnd in range(max_rounds):
+        if not pending:
+            break
+        report.rounds = rnd + 1
+        still_bad = []
+        for c in pending:
+            attempts[c] = attempts.get(c, 0) + 1
+            phys, pool = pool.replacement_for(c % num_servers)
+            task = make_task(c, attempts[c], phys)
+            res = transport.repair(task, replacement=phys)
+            residual = verify_chunk(c, res)
+            if residual is None:
+                still_bad.append(c)
+                continue
+            results[c] = res
+            report.events.append(RecoveryEvent(
+                round=rnd, server=c, replacement=phys,
+                residual=float(residual),
+                comm_elements=2 * task.rhs.size + 2 * task.l.size,
+                subseed=task.subseed.hex(),
+            ))
+        pending = still_bad
+    report.ok = not pending
+    report.standby_used = pool.spares_used
+    return results, report
 
 
 def recovery_comm_elements(n: int, num_servers: int, server: int) -> int:

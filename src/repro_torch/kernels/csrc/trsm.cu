@@ -35,6 +35,10 @@
 //    for f32 (no TF32 anywhere). Tiles stage through shared memory with
 //    consecutive threads on whichever axis has unit stride, every load of
 //    a tile issued before its first store (one memory latency a tile).
+// An upper-triangular left solve U X = B comes as (J U J)(J X) = J B, J
+// the row reversal: J U J is lower, so the wrapper passes U's last
+// element with both strides negated and B's and X's last rows with their
+// row strides negated; offsets are signed 64-bit throughout.
 // Every output column (every row, for the transposed call) goes through
 // the same sequence of operations whatever m, its offset, or the
 // operands' strides: the leaves depend on n alone, each product sums its
@@ -74,16 +78,19 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // s[r * LD + c] = g[(r0 + r) sr + (c0 + c) sc], widened to TA, for
 // r < nr, c < nc of a ROWS x COLS tile, zero elsewhere; consecutive
-// threads along the unit-stride axis of g. Every thread issues all its
-// loads before its first store, so a tile costs one memory latency, not
-// one per element.
+// threads along the axis of g whose stride is 1 or -1 (a reversed view),
+// told apart by the strides' magnitudes: four sign compares instead
+// doubled the solver's registers (64 to 156) and slowed its default
+// routes. Every thread issues all its loads before its first store, so a
+// tile costs one memory latency, not one per element.
 template <typename TA, typename TG, int ROWS, int COLS, int THREADS, int LD>
 __device__ __forceinline__ void stage(TA* s, const TG* __restrict__ g,
                                       long long sr, long long sc, int r0,
                                       int c0, int nr, int nc) {
   constexpr int PER = ROWS * COLS / THREADS;
   static_assert(ROWS * COLS % THREADS == 0, "tile not split evenly");
-  const bool along_cols = sc == 1 || sr != 1;
+  const bool along_cols =
+      (sc < 0 ? -sc : sc) == 1 || (sr < 0 ? -sr : sr) != 1;
   TA v[PER];
 #pragma unroll
   for (int j = 0; j < PER; ++j) {

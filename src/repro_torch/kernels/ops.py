@@ -7,9 +7,10 @@ ref.py. Any other device raises.
 `LAUNCHES[name]` counts the kernel launches each wrapper made (plain
 versions never count), so a run can show that its path went through the
 kernels; `reset_launches()` zeroes every count. A mixed route counts
-under its kernel's name.
+under its kernel's name. `trsm_left` also counts each launch under its
+leg in `TRSM_LEFT_LEGS` (the four solves of a trisolve chunk).
 
-`acc_dtype` (lu_panel, the two triangular solves, schur_update) selects
+`acc_dtype` (lu_panel, trsm_lower, trsm_upper_right, schur_update) selects
 the reference's mixed variant, on both devices: narrow storage, wide
 arithmetic, one rounding on store. None, or the storage dtype itself,
 is the default route. The pairs ported are those of routes.ROUTES:
@@ -27,17 +28,23 @@ from .flash_attn import check_operands, flash_attention_cuda
 from .lu_panel import lu_panel_cuda
 from .routes import accumulator
 from .schur import schur_update_cuda
-from .trsm import trsm_lower_cuda, trsm_upper_right_cuda
+from .trsm import trsm_left_cuda, trsm_lower_cuda, trsm_upper_right_cuda
 
 LAUNCHES: dict[str, int] = {
     "ced": 0, "lu_panel": 0, "trsm_lower": 0, "trsm_upper_right": 0,
-    "schur_update": 0, "flash_attention": 0,
+    "trsm_left": 0, "schur_update": 0, "flash_attention": 0,
 }
+#: trsm_left's launches by leg: "l" solves L a = b, "u" U y = a, "ut"
+#: Uᵀ a = b and "lt" Lᵀ y = a (T's stored triangle, then "t" where the
+#: solve is through its transpose)
+TRSM_LEFT_LEGS: dict[str, int] = {"l": 0, "u": 0, "ut": 0, "lt": 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, TRSM_LEFT_LEGS):
+        for name in counts:
+            counts[name] = 0
+
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -99,6 +106,19 @@ def trsm_upper_right(u: torch.Tensor, b: torch.Tensor, *,
         LAUNCHES["trsm_upper_right"] += 1
         return out
     return ref.trsm_upper_right_ref(u, b, acc)
+
+
+def trsm_left(t: torch.Tensor, b: torch.Tensor, *, upper: bool,
+              transpose_t: bool = False) -> torch.Tensor:
+    """X = op(T)⁻¹B, op(T) = Tᵀ where transpose_t, else T; only T's
+    upper (upper=True) or lower triangle is read, its stored diagonal
+    included. float64 or float32 (routes.ROUTES)."""
+    if _on_cuda(t, b):
+        out = trsm_left_cuda(t, b, upper=upper, transpose_t=transpose_t)
+        LAUNCHES["trsm_left"] += 1
+        TRSM_LEFT_LEGS[("u" if upper else "l") + ("t" if transpose_t else "")] += 1
+        return out
+    return ref.trsm_left_ref(t, b, upper=upper, transpose_t=transpose_t)
 
 
 def schur_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,

@@ -53,12 +53,8 @@ def trsm_lower_ref(l: torch.Tensor, b: torch.Tensor,
     at b's dtype. Reads only the strict lower triangle of l (the unit
     diagonal is implied), so the compact LU form may be passed as is.
     l is (..., n, n), b is (..., n, m)."""
-    x = _wide(b, acc_dtype)
-    l = l.to(x.dtype)
-    n = l.shape[-1]
-    for k in range(n - 1):
-        x[..., k + 1:, :] -= l[..., k + 1:, k, None] * x[..., k, None, :]
-    return x.to(b.dtype)
+    return _left_ref(l, b, upper=False, unit=True, transpose_t=False,
+                     acc_dtype=acc_dtype)
 
 
 def trsm_upper_right_ref(u: torch.Tensor, b: torch.Tensor,
@@ -73,6 +69,37 @@ def trsm_upper_right_ref(u: torch.Tensor, b: torch.Tensor,
         z[..., :, k] = z[..., :, k] / u[..., k, k, None]
         z[..., :, k + 1:] -= z[..., :, k, None] * u[..., k, None, k + 1:]
     return z.to(b.dtype)
+
+
+def _left_ref(t: torch.Tensor, b: torch.Tensor, *, upper: bool,
+              unit: bool, transpose_t: bool, acc_dtype) -> torch.Tensor:
+    """X = op(T)⁻¹B (op(T) = Tᵀ where transpose_t, else T) by forward
+    substitution where op(T) is lower triangular and backward
+    substitution where it is upper, dividing by the diagonal unless
+    unit; in acc_dtype where given, stored at b's dtype. Reads only T's
+    upper (upper=True) or lower triangle. t is (..., n, n), b is
+    (..., n, m)."""
+    x = _wide(b, acc_dtype)
+    tt = t.to(x.dtype)
+    if transpose_t:
+        tt = tt.transpose(-1, -2)
+    n = tt.shape[-1]
+    steps = range(n - 1, -1, -1) if upper != transpose_t else range(n)
+    for k in steps:
+        if not unit:
+            x[..., k, :] = x[..., k, :] / tt[..., k, k, None]
+        rest = slice(None, k) if upper != transpose_t else slice(k + 1, None)
+        x[..., rest, :] -= tt[..., rest, k, None] * x[..., k, None, :]
+    return x.to(b.dtype)
+
+
+def trsm_left_ref(t: torch.Tensor, b: torch.Tensor, *, upper: bool,
+                  transpose_t: bool = False) -> torch.Tensor:
+    """X = op(T)⁻¹B (op(T) = Tᵀ where transpose_t, else T), dividing by
+    T's stored diagonal; reads only T's upper (upper=True) or lower
+    triangle."""
+    return _left_ref(t, b, upper=upper, unit=False, transpose_t=transpose_t,
+                     acc_dtype=None)
 
 
 def schur_update_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,

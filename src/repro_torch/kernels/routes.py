@@ -21,6 +21,7 @@ _SOLVE = {
 #: kernel -> {(storage, arithmetic): suffix of its CUDA entry points}
 ROUTES = {
     "lu_panel": _SOLVE, "trsm_lower": _SOLVE, "trsm_upper_right": _SOLVE,
+    "trsm_left": {(_F64, _F64): "f64", (_F32, _F32): "f32"},
     "schur_update": {
         (_F64, _F64): "f64", (_F32, _F32): "f32", (_F32, _F64): "f32_f64",
         (_BF16, _F32): "bf16", (_F16, _F32): "f16",

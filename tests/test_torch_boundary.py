@@ -86,10 +86,11 @@ def test_cpu_on_request():
 
 
 def _port_sources_as_reference_paths():
-    """The port's core/ and api/ sources keyed under their reference
-    paths, so the taint pass's src/repro/ scopes apply to them."""
+    """The port's core/, api/, linalg/ and distrib/ sources keyed under
+    their reference paths, so the taint pass's src/repro/ scopes apply to
+    them."""
     sources = {}
-    for sub in ("core", "api"):
+    for sub in ("core", "api", "linalg", "distrib"):
         for p in sorted((PORT / sub).glob("*.py")):
             sources[f"src/repro/{sub}/{p.name}"] = p.read_text(encoding="utf-8")
     return sources
@@ -97,19 +98,33 @@ def _port_sources_as_reference_paths():
 
 def test_port_trust_boundary_passes_taint_lint():
     sources = _port_sources_as_reference_paths()
-    assert "src/repro/api/client.py" in sources
+    for path in ("api/client.py", "linalg/session.py", "linalg/ops.py",
+                 "distrib/recovery.py"):
+        assert f"src/repro/{path}" in sources
     findings = lint_sources(sources, passes=["taint"], root=REPO)
     assert findings == [], "\n".join(f.render() for f in findings)
+
+
+def _planted_codes(path, anchor, planted):
+    """The taint pass's codes on the port's sources with `planted`
+    inserted after `anchor` in `path`."""
+    sources = _port_sources_as_reference_paths()
+    assert anchor in sources[path]
+    sources[path] = sources[path].replace(anchor, anchor + planted, 1)
+    return [f.code for f in lint_sources(sources, passes=["taint"], root=REPO)]
 
 
 def test_taint_lint_sees_the_port():
     """The check has teeth: a plaintext print planted in the port's
     client is flagged."""
-    sources = _port_sources_as_reference_paths()
-    path = "src/repro/api/client.py"
-    anchor = "        seed = seedgen(self.lambda1, m_host)\n"
-    assert anchor in sources[path]
-    sources[path] = sources[path].replace(
-        anchor, anchor + "        print(seed)\n", 1)
-    codes = [f.code for f in lint_sources(sources, passes=["taint"], root=REPO)]
+    codes = _planted_codes("src/repro/api/client.py",
+                           "        seed = seedgen(self.lambda1, m_host)\n",
+                           "        print(seed)\n")
+    assert "SPDC102" in codes
+
+
+def test_taint_lint_sees_the_port_linalg():
+    """And in its linalg session: the plaintext matrix printed."""
+    codes = _planted_codes("src/repro/linalg/session.py",
+                           "        m = np.asarray(m)\n", "        print(m)\n")
     assert "SPDC102" in codes

@@ -829,3 +829,110 @@ def test_rateless_on_card_bit_equal_to_lu_nserver(cuda):
     assert torch.equal(torch.from_numpy(l).to(cuda), wl)
     assert torch.equal(torch.from_numpy(u).to(cuda), wu)
     assert result.verified and result.report.fleet.num_strips == 8
+
+
+#: the four left solves of a trisolve chunk, (upper, transpose_t) by leg:
+#: L a = b, U y = a, Uᵀ a = b, Lᵀ y = a
+LEGS = {"l": (False, False), "u": (True, False), "ut": (True, True),
+        "lt": (False, True)}
+
+
+def _leg_operands(cuda, n, m, seed, dtype=torch.float64):
+    """The factors of a leg (L with its stored unit diagonal, as the LU
+    gives it) and a right-hand side."""
+    l, u = (torch.from_numpy(t).to(cuda, dtype) for t in _triangles((), n, seed))
+    b = torch.from_numpy(_rand((n, m), seed + 2)).to(cuda, dtype)
+    return l, u, b
+
+
+@pytest.mark.parametrize("leg", list(LEGS))
+@pytest.mark.parametrize("n,m", [(4096, 1024), (130, 50), (64, 1)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_trsm_left_legs_match_plain(cuda, leg, n, m, dtype):
+    """Each leg at the n = 4096 inverse round's chunk shape and at ragged
+    ones, against its plain substitution; the L legs divide by L's
+    stored diagonal (unit=False), as the reference's server does."""
+    upper, trans = LEGS[leg]
+    l, u, b = _leg_operands(cuda, n, m, 20, dtype)
+    t = u if upper else l
+    got = ops.trsm_left(t, b, upper=upper, transpose_t=trans)
+    want = ref.trsm_left_ref(t, b, upper=upper, transpose_t=trans)
+    _close(got, want, RTOL if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("leg", list(LEGS))
+def test_trsm_left_reversed_strides_bit_equal_to_flipped_copy(cuda, leg):
+    """An upper op(T) reaches the lower solver as J·op(T)·J with negated
+    strides: the result equals, bit for bit, the lower solve of a
+    flipped contiguous copy; Uᵀ as a stride swap equals Uᵀ copied."""
+    upper, trans = LEGS[leg]
+    l, u, b = _leg_operands(cuda, 300, 70, 21)
+    t = u if upper else l
+    got = ops.trsm_left(t, b, upper=upper, transpose_t=trans)
+    op_t = (t.t() if trans else t).contiguous()
+    if upper != trans:
+        flipped = ops.trsm_left(op_t.flip(0, 1).contiguous(),
+                                b.flip(0).contiguous(), upper=False)
+        assert torch.equal(got, flipped.flip(0))
+    else:
+        assert torch.equal(got, ops.trsm_left(op_t, b, upper=False))
+    # strided views of T and B: a column-major T, every other column of B
+    wide = torch.from_numpy(_rand((300, 140), 22)).to(cuda)[:, 1::2]
+    assert torch.equal(
+        ops.trsm_left(t.t().contiguous().t(), wide, upper=upper,
+                      transpose_t=trans),
+        ops.trsm_left(t, wide.contiguous(), upper=upper, transpose_t=trans))
+
+
+@pytest.mark.parametrize("leg", list(LEGS))
+@pytest.mark.parametrize("n,m", [(1024, 1024), (256, 300)])
+def test_trsm_left_columns_bit_equal_across_splits(cuda, leg, n, m):
+    """The split property the chunked rounds rely on: one call over m
+    columns equals the concatenation of calls over any split of them."""
+    upper, trans = LEGS[leg]
+    l, u, b = _leg_operands(cuda, n, m, 23)
+    t = u if upper else l
+    whole = ops.trsm_left(t, b, upper=upper, transpose_t=trans)
+    for cuts in ([0, 1, m // 3, m // 3 + 64, m],
+                 [0, m // 4, m // 2, 3 * m // 4, m]):
+        parts = [ops.trsm_left(t, b[:, c0:c1], upper=upper, transpose_t=trans)
+                 for c0, c1 in zip(cuts, cuts[1:])]
+        assert torch.equal(whole, torch.cat(parts, dim=1))
+
+
+def test_trsm_left_counts_legs_and_launches(cuda):
+    """One wrapper call is one count, under its leg, and puts
+    trsm.cuda_launches(n) kernels on the stream, whichever leg."""
+    from repro_torch.kernels import trsm
+
+    l, u, b = _leg_operands(cuda, 1000, 40, 24)
+    ops.reset_launches()
+    for leg, (upper, trans) in LEGS.items():
+        t = u if upper else l
+        got = _profiled_launches(
+            lambda: ops.trsm_left(t, b, upper=upper, transpose_t=trans))
+        assert got == trsm.cuda_launches(1000), leg
+    # the profiler's warm-up call and its four timed calls, each leg
+    assert ops.TRSM_LEFT_LEGS == {leg: 5 for leg in LEGS}
+    assert ops.LAUNCHES["trsm_left"] == 20
+
+
+def test_linalg_session_on_card_runs_the_legs(cuda):
+    """A LinalgSession on the card: solve, adjoint solve and inverse
+    against torch.linalg, one factorization, every round's chunk solved
+    by trsm_left (both legs of its direction) and not by a plain path."""
+    from repro_torch.linalg import LinalgSession
+
+    m = _dominant((256, 256), 25)
+    b = _rand((256, 8), 26)
+    md, bd = (torch.from_numpy(a).to(cuda) for a in (m, b))
+    ops.reset_launches()
+    s = LinalgSession(m, 4)
+    y, yt, inv = s.solve(b), s.solve(b, transpose=True), s.inv()
+    _close(y, torch.linalg.solve(md, bd), 1e-10)
+    _close(yt, torch.linalg.solve(md.T, bd), 1e-10)
+    _close(inv, torch.linalg.inv(md), 1e-10)
+    assert s.factorizations == 1
+    assert all(o.verified for o in s.report.ops)
+    assert ops.LAUNCHES["trsm_left"] == 3 * 2 * 4
+    assert all(ops.TRSM_LEFT_LEGS[leg] > 0 for leg in LEGS)

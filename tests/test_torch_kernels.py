@@ -500,6 +500,7 @@ def test_route_table_names_every_entry_point(kernel):
 
     bound = {"lu_panel": lu_panel._SIGNATURES, "trsm_lower": trsm._SIGNATURES,
              "trsm_upper_right": trsm._SIGNATURES,
+             "trsm_left": trsm._SIGNATURES,
              "schur_update": schur._SIGNATURES}[kernel]
     prefix = {"lu_panel": "lu_panel_", "schur_update": "schur_"}.get(
         kernel, "trsm_")

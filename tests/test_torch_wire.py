@@ -8,6 +8,7 @@ port ShardTask is served by the reference's `serve_frame` over its
 EdgeServer and the reverse; the strips agree at rtol 1e-10 / atol 1e-12
 and honest results verify on both sides.
 """
+import dataclasses
 import json
 import struct
 
@@ -194,11 +195,17 @@ def test_serve_frame_answers_garbage_with_an_err_frame():
     plan = t_msg.FaultPlanFrame((t_faults.ServerFault(server=0),))
     assert t_transport.serve_frame(edge, state, plan.to_bytes()) == b"ACK"
     assert state["plan"] == plan.plan
+    # a trisolve chunk is answered; one whose factors disagree in shape
+    # gets an ERR frame like any other failure
     solve = t_msg.TriSolveTask(server=0, num_servers=1, l=np.eye(2),
-                               u=np.eye(2), rhs=np.ones((2, 1)),
+                               u=2 * np.eye(2), rhs=np.ones((2, 1)),
                                subseed=b"\x00" * 32)
-    reply = t_transport.serve_frame(edge, state, solve.to_bytes())
-    assert reply.startswith(b"ERR:") and b"A10" in reply
+    res = t_msg.TriSolveResult.from_bytes(
+        t_transport.serve_frame(edge, {}, solve.to_bytes()))
+    np.testing.assert_array_equal(res.y, np.full((2, 1), 0.5))
+    bad = dataclasses.replace(solve, u=np.eye(3))
+    reply = t_transport.serve_frame(edge, state, bad.to_bytes())
+    assert reply.startswith(b"ERR:") and b"disagree" in reply
 
 
 # ------------------------------------------------------------------- interop
