@@ -104,6 +104,43 @@ worker id:
   streamed factors passing Q2 and Q3, worker 2 quarantined, worker 1
   serving fewer strips than each healthy worker.
 
+Then, from a fifth random stream, the gateway phase (on the same
+daemons; the GATEWAY_* sizes), within GATEWAY_BUDGET_S:
+
+- a saturating swarm of 384 requests, n drawn from (200, 480, 1000) (the
+  buckets 256, 512 and 1024), 8 of them submitted again in the swarm
+  (single flight), then the 8 latest-served matrices again (cache hits:
+  the LRU keeps the 256 latest) and one n = 1500 request served
+  direct, through AsyncSPDCGateway(SPDC_GATEWAY_DEFAULT: N = 4,
+  max_batch 32, inline) on the card: every request verified with no
+  error, every determinant within rtol 1e-10 of torch.linalg.slogdet in
+  f64 (the sign exact), the 1024 bucket's first flush held against each
+  matrix's own outsource_determinant (Determinant.allclose); sustained
+  dets/s, p50/p99 latency, flushes by reason, cache hits, coalesced
+  requests and breaker opens;
+- one full 32 x 1024 flush (n = 1000, cache off): its wall, the same
+  stack's SessionTimings split, SeedGen's and KeyGen's share of the
+  PMOP, the boundary screen's time, the launches of each kernel (32 CED,
+  the panel and both TRSMs), the card's busy share under torch.profiler
+  and no library trsm/getrf/getrs kernel; then a 17-request flush padded
+  to 32 against the same flush unpadded (what the dummies cost);
+- an f32 bucket, a solve bucket (relative residual under 1e-10), the
+  hardened gateway with server 2 tampering in the 512 bucket (healed
+  alone; the 256 bucket's determinants bit-equal to an honest run's),
+  the breaker opening on a poisoned bucket while another bucket serves,
+  one SPDC_GATEWAY_SOCKET flush on the daemons bit-equal to inline, one
+  rateless flush (SPDC_EDGE_RATELESS, F = 8) on the daemons bit-equal to
+  lu_nserver(x_aug, 8) of the same stack, and one SPDC_GATEWAY_BULK
+  flush of 128 x 1024 (dets/s);
+- each kernel of the flushes against its plain version at the shapes
+  they gave it: CED on one swarm request of each size and the direct
+  one, with its own blinding vector and rotation (bit-equal); the panel
+  tiles (32, 32, 32), the panel's strips (32, 32, 224) and (32, 224, 32)
+  and the outer strips (32, 256, 256), cut from the full flush's stack
+  (1e-12 of max|plain|);
+- `python -m repro_torch.launch.serve_spdc --smoke --device cuda` as a
+  subprocess, which must exit 0 and print its check line.
+
 Then, from a fourth random stream, the linalg phase (on the same
 daemons before they stop): a `LinalgSession` on one n = 4096 f64
 dominant matrix over N = 4, inline, its slogdet, solve (b of 4096 x 8),
@@ -135,14 +172,19 @@ kernels' template names the profiler reports, and "flash_attention:f32"
 (the f32 kernel at the prefill and decode shapes, launched by phase 13's
 f32 runs). Each timing names the
 profiler windows it took (profile_windows); the run line counts the
-timings that needed more than one.
+timings that needed more than one and names their rows, counts the
+windows that lost a device event (each profiled again), and gives the
+least and largest time from a launch on the host to its event's start
+on the card (device_events keeps the events by their launches'
+correlation ids, so the card clock's offset shows there and moves no
+event out of a window).
 
 Each phase is driven with the launch counts set to 0 just before it and
 read just after, and fails if a kernel of its path never launched. Then
 it prints the whole run's wall time and the kernels line (launches on
 phase 3 — the Schur kernel's on phase 8, flash attention's on phase 13 —
-error from phases 2, 7 and 12, time per launch beside the plain
-version, the library call where one computes the same function, and the
+error from phases 2, 7 and 12 and the gateway's, time per launch
+beside the plain version, the library call where one computes the same function, and the
 least time the card could take; the CUDA launches one wrapper call
 made, counted from the profiler's device events and, for the panel, the
 triangular solves, the Schur update and flash attention, checked against
@@ -289,6 +331,29 @@ TRISOLVE_LEGS = {"l": (False, False, "src/repro/kernels/trsm.py:74"),
                  "lt": (False, True, "src/repro/kernels/trsm.py:74")}
 LINALG_PATH = MAIN_PATH + ("trsm_left",)
 
+#: the gateway phase (SPDC_GATEWAY_DEFAULT: buckets 64..1024, N = 4,
+#: max_batch 32, inline): a saturating swarm of GATEWAY_SWARM requests
+#: with sizes from GATEWAY_SIZES (buckets 256, 512 and 1024), each matrix
+#: standard_normal + n·I as serve_spdc draws them, GATEWAY_REPEATS of
+#: them submitted again in the swarm (single flight), the latest served
+#: GATEWAY_REPEATS again after it (the cache) and one
+#: GATEWAY_DIRECT_N request beyond every bucket; the full flush is 32
+#: requests of GATEWAY_FULL_N, the bulk flush GATEWAY_BULK
+#: (SPDC_GATEWAY_BULK's max_batch);
+#: the f32, solve, tamper, socket and rateless flushes GATEWAY_SMALL
+#: requests each. The phase must end within GATEWAY_BUDGET_S.
+GATEWAY_SIZES = (200, 480, 1000)
+GATEWAY_SWARM, GATEWAY_REPEATS, GATEWAY_DIRECT_N = 384, 8, 1500
+GATEWAY_FULL_N, GATEWAY_BULK, GATEWAY_SMALL = 1000, 128, 8
+#: the padded flush's requests, below max_batch (32) so that 15 dummies
+#: fill it
+GATEWAY_PAD_REQUESTS = 17
+GATEWAY_BUDGET_S = 120.0
+GATEWAY_PATH = MAIN_PATH + ("trsm_left",)
+#: device kernels of a library's triangular solve or LU, none of which
+#: may run in a gateway flush (its LU and strips are the port's kernels)
+LIBRARY_LU_KERNELS = re.compile(r"trsm|getrf|getrs", re.IGNORECASE)
+
 #: device_events' padding before a timed loop: launches and seconds
 WARM_LAUNCHES, WARM_PAUSE_S = 64, 0.01
 TIMED_RANGE = "chip_smoke.timed"
@@ -358,24 +423,46 @@ ROUTED_KERNELS = ("lu_warp_kernel", "lu_panel_kernel", "leaf_kernel",
 
 def route_kernels(fn) -> list:
     """The routed kernels (by template name) that one call of fn put on
-    the card, from the profiler's device events. A window with no device
-    event at all is profiled again, up to PROFILE_ATTEMPTS windows, as in
-    device_profile."""
-    for _ in range(PROFILE_ATTEMPTS):
-        events, _ = device_events(fn, 1)
-        if events:
-            break
+    the card, from the profiler's device events."""
+    events, _, _ = device_events(fn, 1)
     return sorted({template_name(e.name) for e in events
                    if template_name(e.name).split("<")[0] in ROUTED_KERNELS})
 
 
 def device_events(fn, reps: int):
-    """(device events, host seconds) of `reps` calls under torch.profiler,
-    after one warm-up call. Started cold, CUDA activity tracing misses
-    the first launches of a window (1 or 2, and 57 of 100 short ones, on
-    an H100), which would read as a shorter call: so the window opens
-    with WARM_LAUNCHES one-element fills and a pause, and only the
-    device events after the timed loop's start are kept."""
+    """(device events, host seconds, windows profiled) of `reps` calls
+    under torch.profiler, after one warm-up call. Started cold, CUDA
+    activity tracing misses the first launches of a window (1 or 2, and
+    57 of 100 short ones, on an H100), which would read as a shorter
+    call: so the window opens with WARM_LAUNCHES one-element fills and a
+    pause. The device events kept are those whose launch (the CUDA
+    runtime or driver call of the same correlation id) the host made
+    after the timed range opened, less half the pause: host times on
+    both sides, so the card's clock, whose offset from the host's jumps
+    by milliseconds between windows, moves no event out. Rarely the
+    profiler loses the device event of a launch it recorded (4 of a
+    window's 310, 12 of 1270, on an H100): such a window, or one with no
+    device event at all, is profiled again, up to PROFILE_ATTEMPTS
+    windows, and the last one is returned."""
+    for windows in range(1, PROFILE_ATTEMPTS + 1):
+        everything, host_s = profiled(fn, reps)
+        events, lost, launch_to_start = timed_device_events(everything)
+        PROFILE_WINDOWS["windows_losing_events"] += lost > 0
+        if launch_to_start:
+            lo, hi = PROFILE_WINDOWS["launch_to_start_us"] or (math.inf,
+                                                               -math.inf)
+            PROFILE_WINDOWS["launch_to_start_us"] = [
+                min(lo, *launch_to_start), max(hi, *launch_to_start)]
+        if events and not lost:
+            break
+    PROFILE_WINDOWS["timings"] += 1
+    PROFILE_WINDOWS["retried"] += windows > 1
+    return events, host_s, windows
+
+
+def profiled(fn, reps: int):
+    """(every profiler event, host seconds) of one window: a warm-up
+    call, WARM_LAUNCHES fills, a pause, then `reps` calls in TIMED_RANGE."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
@@ -392,24 +479,40 @@ def device_events(fn, reps: int):
                 fn()
             torch.cuda.synchronize()
             host_s = time.perf_counter() - t0
+    return prof.events(), host_s
+
+
+def timed_device_events(everything) -> tuple[list, int, list]:
+    """The device events of a profile whose launch the host made after
+    TIMED_RANGE opened, less half the pause (the fills' launches end a
+    whole pause before it opens); how many of those launches have no
+    device event; and each kept event's µs from its launch to its start
+    on the card (negative where the card's clock reads early)."""
     cuda = torch.autograd.DeviceType.CUDA
-    everything = prof.events()
-    opened = min(e.time_range.start for e in everything
-                 if e.name == TIMED_RANGE and e.device_type != cuda)
-    # half the pause: the fills ended a whole pause before the range opened
+    host = [e for e in everything if e.device_type != cuda]
+    opened = min(e.time_range.start for e in host if e.name == TIMED_RANGE)
     after = opened - WARM_PAUSE_S * 1e6 / 2
+    calls = {e.id: e.time_range.start for e in host
+             if LAUNCH_CALL.match(e.name) and e.time_range.start >= after}
     events = [e for e in everything if e.device_type == cuda
-              and e.name != TIMED_RANGE and e.time_range.start >= after]
-    return events, host_s
+              and e.name != TIMED_RANGE and e.id in calls]
+    lost = len(calls) - len({e.id for e in events})
+    return events, lost, [e.time_range.start - calls[e.id] for e in events]
 
 
-#: profiled windows tried before a window with no device events fails
-#: the run (the card's CUPTI tracing once returned an empty window for a
-#: call whose device events an earlier run of the script had recorded;
-#: the cause is not known). PROFILE_WINDOWS counts the timings profiled
-#: and those that needed more than one window, for the run line.
+#: windows profiled before one that lost events, or kept none, is used
+#: as it is (and an empty one fails the run). PROFILE_WINDOWS counts the
+#: timings profiled, those that needed more than one window
+#: (kernels_line names their rows) and the windows that lost events, and
+#: keeps the least and largest time from a launch to its event's start,
+#: for the run line.
 PROFILE_ATTEMPTS = 3
-PROFILE_WINDOWS = {"timings": 0, "retried": 0}
+PROFILE_WINDOWS = {"timings": 0, "retried": 0, "retried_rows": [],
+                   "windows_losing_events": 0, "launch_to_start_us": []}
+#: the host's CUDA runtime and driver calls that put work on the card,
+#: each sharing a correlation id with its device event (cudaLaunchKernel,
+#: cuLaunchKernel, cudaMemcpyAsync, cudaMemsetAsync, ...)
+LAUNCH_CALL = re.compile(r"cu(da)?(Launch|Memcpy|Memset)")
 
 
 def device_profile(fn, reps: int) -> tuple[float, int, float, int]:
@@ -418,14 +521,8 @@ def device_profile(fn, reps: int) -> tuple[float, int, float, int]:
     kernel and copy the calls put on the card. Should the profiler still
     miss an event, the launches are the events per call rounded, and the
     ms the mean event's duration times the launches, so the call does
-    not look faster. A window with no device event at all is profiled
-    again, up to PROFILE_ATTEMPTS windows."""
-    for windows in range(1, PROFILE_ATTEMPTS + 1):
-        events, _ = device_events(fn, reps)
-        if events:
-            break
-    PROFILE_WINDOWS["timings"] += 1
-    PROFILE_WINDOWS["retried"] += windows > 1
+    not look faster."""
+    events, _, windows = device_events(fn, reps)
     check(bool(events), "the profiler recorded no device activity")
     per_call = len(events) / reps
     launches = max(1, round(per_call))
@@ -1235,11 +1332,557 @@ def phase_rateless(rng, dev, addrs) -> dict:
     return launches
 
 
-def phase_daemons(rng, dev, rng_linalg) -> tuple[dict, dict, dict]:
-    """Spawn the socket phases' daemons, run both phases on them and the
-    linalg phase (from `rng_linalg`, its own stream), stop them. Returns
-    the socket and rateless phases' client launches and the linalg
-    phase's result."""
+def gateway_checks(results, mats, dev, what: str) -> float:
+    """Every result verified with no error, its determinant within rtol
+    1e-10 of torch.linalg.slogdet in f64 on the card (the sign exact);
+    same-size matrices go to slogdet as one stack. Returns the largest
+    |Δlog|det||."""
+    from repro_torch.core.decipher import Determinant
+
+    by_n: dict[int, list[int]] = {}
+    for i, m in enumerate(mats):
+        by_n.setdefault(m.shape[0], []).append(i)
+    worst = 0.0
+    for idx in by_n.values():
+        stack = torch.from_numpy(np.stack([mats[i] for i in idx])).to(dev)
+        signs, logabs = torch.linalg.slogdet(stack)
+        for i, s, la in zip(idx, signs.tolist(), logabs.tolist()):
+            r = results[i]
+            check(r is not None and r.error is None and r.verified,
+                  f"{what}: request {i} {r}")
+            check(r.det.sign == s and math.isclose(
+                r.det.logabs, la, rel_tol=1e-10, abs_tol=0.0),
+                f"{what}: det {r.det} vs {Determinant(s, la)}")
+            worst = max(worst, abs(r.det.logabs - la))
+    return worst
+
+
+def gateway_swarm(rng, dev) -> tuple[dict, dict]:
+    """The saturating swarm through AsyncSPDCGateway(SPDC_GATEWAY_DEFAULT),
+    its repeats, the cache wave and the direct request; every answer
+    checked. Returns the phase's numbers and one request's matrix of
+    each size, the direct one's too, by size."""
+    import asyncio
+
+    import repro_torch
+    from repro_torch import AsyncSPDCGateway
+    from repro_torch.configs import SPDC_GATEWAY_DEFAULT
+    from repro_torch.serve import bucket_size_for
+
+    sizes = rng.choice(GATEWAY_SIZES, size=GATEWAY_SWARM)
+    mats = [dominant(rng, (int(n), int(n))) for n in sizes]
+    repeat_idx = [int(i) for i in rng.choice(len(mats), GATEWAY_REPEATS,
+                                             replace=False)]
+    big = dominant(rng, (GATEWAY_DIRECT_N, GATEWAY_DIRECT_N))
+    offered = mats + [mats[i] for i in repeat_idx]
+
+    async def drive():
+        async with AsyncSPDCGateway(SPDC_GATEWAY_DEFAULT, device=dev) as gw:
+            t0 = time.perf_counter()
+            primed = await gw.warmup((SPDC_GATEWAY_DEFAULT.max_batch,))
+            warmup_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            swarm = await asyncio.gather(*(gw.submit(m) for m in offered),
+                                         return_exceptions=True)
+            swarm_s = time.perf_counter() - t0
+            stats = gw.stats.as_dict()
+            # the cache holds the 256 latest verified results (LRU): ask
+            # again for the latest leaders' matrices
+            leaders = [i for i, r in enumerate(swarm[:len(mats)])
+                       if not isinstance(r, BaseException)
+                       and r.flush_reason not in ("coalesced", "cache")]
+            latest = sorted(leaders, key=lambda i: swarm[i].completed_at)[
+                -GATEWAY_REPEATS:]
+            wave = await asyncio.gather(*(gw.submit(mats[i])
+                                          for i in latest))
+            t0 = time.perf_counter()
+            direct = await gw.submit(big)
+            direct_s = time.perf_counter() - t0
+            return (primed, warmup_s, swarm, swarm_s, stats, latest, wave,
+                    direct, direct_s, gw.stats.as_dict(), gw.healthz())
+
+    (primed, warmup_s, swarm, swarm_s, swarm_stats, latest, wave, direct,
+     direct_s, stats, health) = asyncio.run(drive())
+    shed = [r for r in swarm if isinstance(r, BaseException)]
+    check(not shed, f"swarm requests raised: {shed[:3]}")
+    worst = gateway_checks(swarm, offered, dev, "swarm")
+    for i, r in zip(latest, wave):
+        check(r.cache_hit and r.det == swarm[i].det, f"cache wave {r}")
+    for k, i in enumerate(repeat_idx):
+        check(swarm[len(mats) + k].det == swarm[i].det, "a repeat's det")
+    worst = max(worst, gateway_checks([direct], [big], dev, "direct"))
+    check(direct.flush_reason == "direct", f"direct {direct.flush_reason}")
+    check(stats["failed"] == 0 and stats["rejected"] == 0
+          and stats["rejected_admission"] == 0
+          and stats["rejected_breaker"] == 0, f"swarm stats {stats}")
+    check(stats["cache_hits"] >= GATEWAY_REPEATS, f"cache hits {stats}")
+    # each matrix of the top bucket's (1024's) first flush against its
+    # own call at its raw size
+    top = bucket_size_for(max(GATEWAY_SIZES), SPDC_GATEWAY_DEFAULT.buckets,
+                          N_SERVERS)
+    first = min((r.completed_at for r in swarm if r.pad_to == top),
+                default=None)
+    check(first is not None, f"no flush of the {top} bucket")
+    own = [i for i, r in enumerate(swarm[:len(mats)])
+           if r.pad_to == top and r.completed_at == first
+           and not r.cache_hit and r.flush_reason != "coalesced"]
+    for i in own:
+        ref = repro_torch.outsource_determinant(mats[i], N_SERVERS,
+                                                device=dev)
+        check(ref.verified and ref.det.allclose(swarm[i].det),
+              f"first {top} flush: {swarm[i].det} vs its own {ref.det}")
+    lat = np.asarray([r.latency_s for r in swarm])
+    served = len(swarm)
+    reasons = {k.removeprefix("flushes_"): swarm_stats[k] for k in
+               ("flushes_full", "flushes_timeout", "flushes_drain")}
+    return {"requests": len(offered), "sizes": list(GATEWAY_SIZES),
+            "buckets": sorted({r.pad_to for r in swarm}),
+            "warmup_shapes": primed, "warmup_s": warmup_s,
+            "wall_s": swarm_s, "dets_per_s": served / swarm_s,
+            "latency_ms": {"p50": float(np.percentile(lat, 50) * 1e3),
+                           "p99": float(np.percentile(lat, 99) * 1e3),
+                           "max": float(lat.max() * 1e3)},
+            "flushes": swarm_stats["flushes"], "flushes_by_reason": reasons,
+            "batches_by_bucket": {
+                str(b): sorted({r.batch for r in swarm if r.pad_to == b})
+                for b in sorted({r.pad_to for r in swarm})},
+            "top_bucket": top, "top_first_flush_own_calls": len(own),
+            "cache_hits": stats["cache_hits"],
+            "coalesced": stats["coalesced"],
+            "breaker_opens": stats["breaker_opens"],
+            "health": health["status"],
+            "direct": {"n": GATEWAY_DIRECT_N, "s": direct_s,
+                       "pad_to": direct.pad_to},
+            "max_dlogabs": worst, "stats": stats}, {
+                **{m.shape[0]: m for m in reversed(mats)},
+                GATEWAY_DIRECT_N: big}
+
+
+def gateway_full_flush(rng, dev) -> tuple[dict, torch.Tensor]:
+    """One full 32 x 1024 flush of SPDC_GATEWAY_DEFAULT (cache off, so
+    each call sweeps): its wall, the same stack's SessionTimings split,
+    SeedGen's and KeyGen's host share, the boundary screen, the launches
+    of each kernel, the card's busy share under torch.profiler and no
+    library LU or triangular solve; then a 17-request flush padded to 32
+    against the same flush unpadded. Returns the numbers and the flush's
+    (B, n', n') stack."""
+    from dataclasses import replace
+
+    from repro_torch import SPDCGateway
+    from repro_torch.api import SPDCClient
+    from repro_torch.configs import CACHE_OFF, SPDC_GATEWAY_DEFAULT
+    from repro_torch.core.keygen import keygen
+    from repro_torch.core.protocol import outsource_determinant_mixed
+    from repro_torch.core.seed import seedgen
+    from repro_torch.kernels import ops
+
+    cfg = replace(SPDC_GATEWAY_DEFAULT, cache=CACHE_OFF)
+    n, batch = GATEWAY_FULL_N, cfg.max_batch
+    mats = [dominant(rng, (n, n)) for _ in range(batch)]
+    flushes = []
+    gw = SPDCGateway(cfg, device=dev, on_flush=flushes.append)
+
+    def one_flush():
+        rids = [gw.submit(m) for m in mats]
+        return [gw.take(r) for r in rids]
+
+    results, launches = counted(ops, one_flush)
+    pad_to = results[0].pad_to
+    check(all(r.batch == batch and r.flush_reason == "full" for r in results),
+          "the full flush's batch")
+    worst = gateway_checks(results, mats, dev, "full flush")
+    check(launches["ced"] == batch, f"full flush ced launches {launches}")
+    for name in SERVER_PATH:
+        check(launches[name] > 0, f"{name} never launched in the flush")
+    events, host_s, _ = device_events(one_flush, 1)
+    check(bool(events), "the profiler recorded no device activity")
+    library = sorted({short_name(e.name) for e in events
+                      if LIBRARY_LU_KERNELS.search(e.name)})
+    check(not library, f"library LU / trsm kernels in a flush: {library}")
+    by_kernel: dict[str, list] = {}
+    for evt in events:
+        entry = by_kernel.setdefault(short_name(evt.name), [0.0, 0])
+        entry[0] += evt.time_range.elapsed_us() / 1e3
+        entry[1] += 1
+    busy_ms = sum(ms for ms, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]
+    res, direct_s = wall(lambda: outsource_determinant_mixed(
+        mats, N_SERVERS, pad_to=pad_to, device=dev))
+    check(bool(res.verified.all()), "the full stack's direct call")
+    t0 = time.perf_counter()
+    seeds = [seedgen(128, m) for m in mats]
+    seedgen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for m, sd in zip(mats, seeds):
+        keygen(128, sd, m.shape[0])
+    keygen_s = time.perf_counter() - t0
+    from repro_torch.api.client import _FULL_CHECK_ELEMS
+
+    session = SPDCClient(device=dev).open_session(mats, N_SERVERS,
+                                                  pad_to=pad_to)
+    tasks = session.tasks(check_boundary=False)
+    t0 = time.perf_counter()
+    session._assert_boundary(tasks, None)
+    screen_s = time.perf_counter() - t0
+    payload = sum(t.x_row.size for t in tasks)
+    # what the dummies cost: 17 requests padded to 32 against unpadded
+    extra = [dominant(rng, (n, n)) for _ in range(GATEWAY_PAD_REQUESTS)]
+    pad_sweeps = {"padded": [], "unpadded": []}
+    for label in ("padded", "unpadded", "unpadded", "padded"):
+        g = SPDCGateway(replace(cfg, pad_batches=label == "padded"),
+                        device=dev, on_flush=flushes.append)
+        rids = [g.submit(m) for m in extra]
+        g.drain()
+        out = [g.take(r) for r in rids]
+        check(all(r.verified and r.batch == len(extra) for r in out),
+              f"{label} 17-request flush")
+        want = batch if label == "padded" else len(extra)
+        check(flushes[-1].padded_batch == want, f"{label} padded batch")
+        pad_sweeps[label].append(flushes[-1].sweep_s)
+    t = res.report.timings
+    host_pmop = seedgen_s + keygen_s
+    return {"batch": batch, "n": n, "pad_to": pad_to,
+            "flush_wall_s": flushes[0].sweep_s,
+            "direct_call_wall_s": direct_s,
+            "timings": timings(res),
+            "pmop_share": t.pmop_s / t.total_s,
+            "sweep_share": t.dispatch_s / t.total_s,
+            "pmop_host_seedgen_s": seedgen_s, "pmop_host_keygen_s": keygen_s,
+            "pmop_seedgen_keygen_share_of_pmop": host_pmop / t.pmop_s,
+            "boundary_screen_s": screen_s,
+            "boundary_screen": "full" if payload <= _FULL_CHECK_ELEMS
+            else f"structural ({payload} payload elements above "
+                 f"_FULL_CHECK_ELEMS = {_FULL_CHECK_ELEMS})",
+            "launches": launches, "profiled_wall_ms": host_s * 1e3,
+            "device_ms": busy_ms, "device_busy_share": busy_ms / (host_s * 1e3),
+            "device_launches": len(events),
+            "top_device_ms": {k: {"ms": v[0], "count": v[1]} for k, v in top},
+            "library_lu_kernels": library, "max_dlogabs": worst,
+            "pad_17_to_32_sweep_s": pad_sweeps}, session.x_aug
+
+
+def gateway_vs_plain(dev, samples: dict, stack: torch.Tensor) -> dict:
+    """Each kernel of a gateway flush against its plain version at the
+    shapes the flushes gave it: CED on one request of each size the swarm
+    served (and the direct request's) with that request's own blinding
+    vector and rotation, bit-equal; the panel tiles, the panel's strips
+    and lu_nserver's outer strips cut from the full flush's (B, n', n')
+    stack at b = n'/N, at RTOL. Returns each kernel's max abs error."""
+    from repro_torch.api import SPDCClient
+    from repro_torch.core.cipher import _blinding
+    from repro_torch.core.keygen import keygen
+    from repro_torch.core.lu import lu_diag_factor
+    from repro_torch.core.prt import rotate_degree
+    from repro_torch.core.seed import seedgen
+    from repro_torch.kernels import ops, ref
+
+    client = SPDCClient(device=dev)
+    worst = 0.0
+    cases = []
+    for n, m in sorted(samples.items()):
+        seed = seedgen(client.lambda1, m)
+        key = keygen(client.lambda2, seed, n)
+        mt = torch.from_numpy(m).to(dev)
+        v, k = _blinding(key.v, mt), rotate_degree(seed.psi)
+        kw = {"mode": client.mode, "growth_safe": client.growth_safe}
+        got, want = ops.ced(mt, v, k, **kw), ref.ced_ref(mt, v, k, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, max_err(got, want)[0])
+        check(torch.equal(got, want), f"gateway ced n={n} k={k}")
+        cases.append({"n": n, "k": k})
+    errs = {"ced": worst}
+    emit({"phase": "kernel_vs_plain", "kernel": "ced", "where": "gateway",
+          "cases": cases, "max_abs_err": worst,
+          "tolerance": "bit-equal (torch.equal)"})
+
+    b = stack.shape[-1] // N_SERVERS
+    diag = stack[:, :b, :b]
+    tile = diag[:, :INNER, :INNER]
+    got = ops.lu_panel(tile)
+    abs_err, rel = max_err(got, ref.lu_panel_ref(tile))
+    alone = torch.equal(got[-1], ops.lu_panel(tile[-1]))
+    torch.cuda.synchronize()
+    emit({"phase": "kernel_vs_plain", "kernel": "lu_panel", "where": "gateway",
+          "shape": list(tile.shape), "max_abs_err": abs_err,
+          "max_rel_err": rel, "last_tile_bit_equal_alone": alone,
+          "tolerance": RTOL})
+    check(rel <= RTOL, f"gateway lu_panel {list(tile.shape)}: {rel}")
+    check(alone, "gateway lu_panel: a tile's bits differ alone")
+    errs["lu_panel"] = abs_err
+    # the panel's strips beside and below its first tile (strided views
+    # of the diagonal block), then server 0's outer strips: U_01 and L_10
+    l00, u00 = lu_diag_factor(diag)
+    cases = [
+        (f"panel strips ({stack.shape[0]}, {INNER}, {b - INNER})", got, got,
+         diag[:, :INNER, INNER:], diag[:, INNER:, :INNER]),
+        (f"outer strips ({stack.shape[0]}, {b}, {b})", l00, u00,
+         stack[:, :b, b:2 * b], stack[:, b:2 * b, :b]),
+    ]
+    errs["trsm_lower"] = errs["trsm_upper_right"] = 0.0
+    for label, lt, ut, rhs_l, rhs_u in cases:
+        abs_l, rel_l = max_err(ops.trsm_lower(lt, rhs_l),
+                               ref.trsm_lower_ref(lt, rhs_l))
+        abs_u, rel_u = max_err(ops.trsm_upper_right(ut, rhs_u),
+                               ref.trsm_upper_right_ref(ut, rhs_u))
+        torch.cuda.synchronize()
+        emit({"phase": "kernel_vs_plain", "kernel": "trsm", "where": "gateway",
+              "case": label,
+              "trsm_lower": {"max_abs_err": abs_l, "max_rel_err": rel_l},
+              "trsm_upper_right": {"max_abs_err": abs_u, "max_rel_err": rel_u},
+              "tolerance": RTOL})
+        check(rel_l <= RTOL and rel_u <= RTOL,
+              f"gateway trsm {label}: {rel_l} {rel_u}")
+        errs["trsm_lower"] = max(errs["trsm_lower"], abs_l)
+        errs["trsm_upper_right"] = max(errs["trsm_upper_right"], abs_u)
+    return errs
+
+
+def gateway_small_flushes(rng, dev, addrs) -> dict:
+    """The f32 bucket, a solve bucket, the hardened gateway's tamperer
+    bucket beside a clean one, the breaker on a poisoned bucket, one
+    socket flush on the daemons against inline and one rateless flush on
+    them against lu_nserver(x_aug, 8), and the bulk flush."""
+    from dataclasses import replace
+
+    from repro_torch import ServerFault, SPDCGateway
+    from repro_torch.api import SPDCClient, TransportConfig
+    from repro_torch.api.socket_transport import SocketTransport
+    from repro_torch.configs import (
+        CACHE_OFF, SPDC_EDGE_RATELESS, SPDC_EDGE_SOCKET, SPDC_GATEWAY_BULK,
+        SPDC_GATEWAY_DEFAULT, SPDC_GATEWAY_HARDENED, SPDC_GATEWAY_SOCKET,
+        BreakerConfig,
+    )
+    from repro_torch.core.lu import lu_nserver
+    from repro_torch.serve import BreakerOpen, bucket_size_for
+
+    k = GATEWAY_SMALL
+    n_lo, n_mid, n_hi = GATEWAY_SIZES
+    out = {}
+
+    def flush_all(cfg, mats, **kw):
+        gw = SPDCGateway(cfg, device=dev, **kw)
+        try:
+            rids = [gw.submit(m, **sub) for m, sub in mats]
+            gw.drain()
+            return [gw.take(r) for r in rids], gw.stats.as_dict()
+        finally:
+            gw.close()
+
+    # f32 bucket
+    m32 = [dominant(rng, (n_lo, n_lo)) for _ in range(k)]
+    r32, st = flush_all(SPDC_GATEWAY_DEFAULT,
+                        [(m, {"dtype": "float32"}) for m in m32])
+    want = [slogdet_det(torch.from_numpy(m).to(dev)) for m in m32]
+    check(all(r.verified and r.det.dtype == "float32" and r.det.allclose(w)
+              for r, w in zip(r32, want)), "f32 bucket")
+    out["f32"] = {"requests": k, "n": n_lo, "pad_to": r32[0].pad_to,
+                  "flushes": st["flushes"],
+                  "max_dlogabs": max(abs(r.det.logabs - w.logabs)
+                                     for r, w in zip(r32, want))}
+
+    # solve bucket
+    ms = [dominant(rng, (n_mid, n_mid)) for _ in range(4)]
+    bs = [rng.standard_normal((n_mid, 2)) for _ in ms]
+    rs, st = flush_all(SPDC_GATEWAY_DEFAULT,
+                       [(m, {"op": "solve", "rhs": b}) for m, b in zip(ms, bs)])
+    resid = []
+    for r, m, b in zip(rs, ms, bs):
+        check(r.verified and r.error is None and r.op == "solve", "solve")
+        a = torch.from_numpy(m).to(dev)
+        y = torch.as_tensor(r.solution, dtype=torch.float64, device=dev)
+        bt = torch.from_numpy(b).to(dev)
+        resid.append(float(torch.linalg.norm(a @ y - bt)
+                           / (torch.linalg.norm(a) * torch.linalg.norm(y))))
+    check(max(resid) < 1e-10, f"solve residuals {resid}")
+    out["solve"] = {"requests": len(ms), "n": n_mid, "rhs_cols": 2,
+                    "flushes": st["flushes"], "max_rel_residual": max(resid),
+                    "session_residuals": [r.residual for r in rs]}
+
+    # the hardened gateway: server 2 tampers in the n_mid bucket only
+    mixed = ([dominant(rng, (n_mid, n_mid)) for _ in range(k)]
+             + [dominant(rng, (n_lo, n_lo)) for _ in range(k)])
+    tampered = bucket_size_for(n_mid, SPDC_GATEWAY_HARDENED.buckets,
+                               N_SERVERS)
+
+    def faults_for(key):
+        if key.pad_to == tampered:
+            return ServerFault(**REPORTED_TAMPER_KW)
+        return None
+
+    cfg_h = replace(SPDC_GATEWAY_HARDENED, cache=CACHE_OFF)
+    healed, hst = flush_all(cfg_h, [(m, {}) for m in mixed],
+                            faults_for=faults_for)
+    honest, _ = flush_all(cfg_h, [(m, {}) for m in mixed])
+    worst = gateway_checks(healed, mixed, dev, "tamper")
+    for r, h in zip(healed, honest):
+        if r.pad_to == tampered:
+            check(r.recovery is not None and r.recovery.ok
+                  and r.recovery.servers_replaced == (2,),
+                  f"tampered bucket {r.recovery}")
+            check(r.det.allclose(h.det, rtol=1e-10), "healed det")
+        else:
+            check(r.recovery is None and r.det == h.det,
+                  "a co-batched bucket paid for the tamper")
+    out["tamper"] = {
+        "preset": SPDC_GATEWAY_HARDENED.name, "tampered_bucket": tampered,
+        "fault": REPORTED_TAMPER_KW,
+        "recovered_flushes": hst["recovered_flushes"],
+        "healed_dets_bit_equal_to_honest": all(
+            r.det == h.det for r, h in zip(healed, honest)
+            if r.pad_to == tampered),
+        "clean_bucket_bit_equal_to_honest": True, "max_dlogabs": worst}
+
+    # the breaker: the n_lo bucket's sweeps fail until it opens
+    cfg_b = replace(SPDC_GATEWAY_DEFAULT, max_batch=1, pad_batches=False,
+                    cache=CACHE_OFF,
+                    breaker=BreakerConfig(failure_threshold=3,
+                                          probe_jitter=0.0))
+    poisoned = bucket_size_for(n_lo, cfg_b.buckets, N_SERVERS)
+
+    def poison(key):
+        if key.pad_to == poisoned:
+            raise RuntimeError("poisoned bucket")
+        return None
+
+    gw = SPDCGateway(cfg_b, device=dev, faults_for=poison)
+    errors = [gw.take(gw.submit(dominant(rng, (n_lo, n_lo)))).error
+              for _ in range(3)]
+    check(all(e and "poisoned" in e for e in errors), f"poisoned {errors}")
+    try:
+        gw.submit(dominant(rng, (n_lo, n_lo)))
+        opened = False
+    except BreakerOpen:
+        opened = True
+    check(opened, "the breaker did not open")
+    clean = dominant(rng, (n_hi, n_hi))
+    other = gw.take(gw.submit(clean))
+    gateway_checks([other], [clean], dev, "beside an open breaker")
+    out["breaker"] = {"poisoned_bucket": poisoned, "failed_flushes": 3,
+                      "breaker_opens": gw.stats.breaker_opens,
+                      "rejected_breaker": gw.stats.rejected_breaker,
+                      "health": gw.healthz()["status"],
+                      "other_bucket_served": other.verified}
+    check(gw.stats.breaker_opens == 1 and gw.healthz()["status"] == "degraded",
+          "breaker stats")
+
+    # one socket flush on the daemons, bit-equal to inline
+    sock_cfg = TransportConfig("socket", addresses=tuple(addrs),
+                               timeout=DAEMON_BIND_S)
+    sm = [dominant(rng, (n_mid, n_mid)) for _ in range(k)]
+    cfg_s = replace(SPDC_GATEWAY_SOCKET,
+                    spdc=replace(SPDC_EDGE_SOCKET, transport=sock_cfg))
+    cfg_i = replace(SPDC_GATEWAY_SOCKET,
+                    spdc=replace(SPDC_EDGE_SOCKET, transport="inline"))
+    (rsock, sst), sock_s = wall(lambda: flush_all(cfg_s, [(m, {}) for m in sm]))
+    (rinl, _), inl_s = wall(lambda: flush_all(cfg_i, [(m, {}) for m in sm]))
+    gateway_checks(rsock, sm, dev, "socket flush")
+    check(all(a.det == b.det for a, b in zip(rsock, rinl)),
+          "socket flush differs from inline")
+    out["socket"] = {"preset": SPDC_GATEWAY_SOCKET.name, "requests": k,
+                     "n": n_mid, "flushes": sst["flushes"],
+                     "dets_bit_equal_to_inline": True, "wall_s": sock_s,
+                     "inline_wall_s": inl_s}
+
+    # one rateless flush on the daemons, bit-equal to lu_nserver(x_aug, F)
+    rm = [dominant(rng, (n_mid, n_mid)) for _ in range(4)]
+    cfg_r = replace(SPDC_GATEWAY_DEFAULT, cache=CACHE_OFF,
+                    spdc=replace(SPDC_EDGE_RATELESS, transport=sock_cfg))
+    (rrl, rst), rl_s = wall(lambda: flush_all(cfg_r, [(m, {}) for m in rm]))
+    gateway_checks(rrl, rm, dev, "rateless flush")
+    pad_to = rrl[0].pad_to
+    check(rrl[0].batch == 4, "rateless batch")
+    client = SPDCClient(rateless=True, recover=True, device=dev)
+    session = client.open_session(rm, N_SERVERS, pad_to=pad_to)
+    strips = session.partitions
+    check(strips == 2 * N_SERVERS, f"rateless strips {strips}")
+    wl, wu, _ = lu_nserver(session.x_aug, strips)
+    want = session.collect((wl, wu))
+    check(all(r.det == w for r, w in zip(rrl, want.dets)),
+          "the rateless flush differs from lu_nserver(x_aug, F)")
+    with SocketTransport(addrs, connect_timeout=DAEMON_BIND_S) as t:
+        again = client.open_session(rm, N_SERVERS, pad_to=pad_to)
+        l, u = again._rateless(t)
+    check(same_factors((l, u), (wl, wu)),
+          "rateless factors differ from lu_nserver(x_aug, F)")
+    out["rateless"] = {"spdc": SPDC_EDGE_RATELESS.name, "requests": 4,
+                       "n": n_mid, "pad_to": pad_to, "strips": strips,
+                       "flushes": rst["flushes"], "wall_s": rl_s,
+                       "bit_equal_to_lu_nserver": True,
+                       "inline_strips": again.fleet_report.inline_strips}
+
+    # the bulk flush: SPDC_GATEWAY_BULK's 128 requests in one sweep
+    n = GATEWAY_FULL_N
+    bulk = [dominant(rng, (n, n)) for _ in range(GATEWAY_BULK)]
+    flushes = []
+    gw = SPDCGateway(SPDC_GATEWAY_BULK, device=dev, on_flush=flushes.append)
+    rids, submit_s = wall(lambda: [gw.submit(m) for m in bulk])
+    rb = [gw.take(r) for r in rids]
+    check(len(flushes) == 1 and flushes[0].batch == GATEWAY_BULK,
+          "one bulk flush")
+    worst = gateway_checks(rb, bulk, dev, "bulk flush")
+    out["bulk"] = {"preset": SPDC_GATEWAY_BULK.name, "requests": len(bulk),
+                   "n": n, "pad_to": rb[0].pad_to,
+                   "flush_wall_s": flushes[0].sweep_s,
+                   "dets_per_s": len(bulk) / flushes[0].sweep_s,
+                   "submit_loop_s": submit_s, "max_dlogabs": worst,
+                   "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return out
+
+
+def gateway_launcher() -> dict:
+    """`python -m repro_torch.launch.serve_spdc --smoke --device cuda` as
+    a subprocess: exit 0 and its check line."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(SRC)}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_spdc", "--smoke",
+         "--device", "cuda"], capture_output=True, text=True, env=env,
+        timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0,
+          f"serve_spdc --smoke exited {proc.returncode}: {proc.stderr[-2000:]}")
+    check_line = [ln.strip() for ln in lines if "check: all" in ln]
+    check(bool(check_line) and "dets match" in check_line[0],
+          f"serve_spdc --smoke printed no check line: {lines}")
+    return {"command": "python -m repro_torch.launch.serve_spdc --smoke "
+                       "--device cuda",
+            "seconds": time.perf_counter() - t0, "output": lines}
+
+
+def phase_gateway(rng, dev, addrs) -> dict:
+    """The SPDC gateway on the card (see the GATEWAY_* sizes). Returns
+    the phase's launches, the full flush's and each kernel's max abs
+    error against its plain version at the flushes' shapes."""
+    from repro_torch.kernels import ops
+
+    phase_t0 = time.perf_counter()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    swarm, samples = gateway_swarm(rng, dev)
+    full, stack = gateway_full_flush(rng, dev)
+    small = gateway_small_flushes(rng, dev, addrs)
+    launches = dict(ops.LAUNCHES)
+    # after the counts are read: these launches only compare
+    errs = gateway_vs_plain(dev, samples, stack)
+    del stack
+    launcher = gateway_launcher()
+    phase_s = time.perf_counter() - phase_t0
+    emit({"phase": "gateway", "servers": N_SERVERS, "dtype": "float64",
+          "preset": "spdc-gateway", "swarm": swarm, "full_flush": full,
+          **small, "launcher": launcher, "launches": launches,
+          "phase_s": phase_s})
+    check(phase_s <= GATEWAY_BUDGET_S,
+          f"the gateway phase took {phase_s:.1f} s")
+    return {"launches": launches, "flush": full["launches"], "errs": errs}
+
+
+def phase_daemons(rng, dev, rng_linalg, rng_gateway) -> tuple[dict, ...]:
+    """Spawn the socket phases' daemons, run both phases on them, the
+    gateway phase and the linalg phase (each from its own stream), stop
+    them. Returns the socket and rateless phases' client launches and
+    the gateway and linalg phases' results."""
     import shutil
     import tempfile
 
@@ -1249,6 +1892,7 @@ def phase_daemons(rng, dev, rng_linalg) -> tuple[dict, dict, dict]:
         addrs, procs, spawn_s = spawn_daemons(N_SERVERS, root)
         socket_launches = phase_socket(rng, dev, addrs, spawn_s)
         rateless_launches = phase_rateless(rng, dev, addrs)
+        gateway = phase_gateway(rng_gateway, dev, addrs)
         linalg = phase_linalg(rng_linalg, dev, addrs)
     finally:
         for proc in procs:
@@ -1256,7 +1900,7 @@ def phase_daemons(rng, dev, rng_linalg) -> tuple[dict, dict, dict]:
         for proc in procs:
             proc.join(timeout=10)
         shutil.rmtree(root, ignore_errors=True)
-    return socket_launches, rateless_launches, linalg
+    return socket_launches, rateless_launches, gateway, linalg
 
 
 def gp_objectives(x: torch.Tensor, y: torch.Tensor, ctx):
@@ -1363,7 +2007,7 @@ def phase_linalg(rng, dev, addrs) -> dict:
         return s.inv()
 
     before = dict(ops.TRSM_LEFT_LEGS)
-    events, round_host_s = device_events(inverse_round, 1)
+    events, round_host_s, _ = device_events(inverse_round, 1)
     calls = sum(ops.TRSM_LEFT_LEGS.values()) - sum(before.values())
     n_aug = s._x_aug.shape[-1]
     solver = [e for e in events
@@ -1599,7 +2243,7 @@ def phase_profile(rng) -> None:
 
     m = dominant(rng, (SINGLE_N, SINGLE_N))
     results = []
-    events, host_s = device_events(
+    events, host_s, _ = device_events(
         lambda: results.append(repro_torch.outsource_determinant(m, N_SERVERS)), 1)
     check(bool(events), "the profiler recorded no device activity")
     check(results[-1].verified, "profiled run verified")
@@ -2119,7 +2763,7 @@ def phase_serve(rng, dev, seed: int) -> tuple[dict, int]:
 def serve_profile(model, prefill, batch) -> dict:
     """One warm prefill under torch.profiler: the card's busy share and
     its device time by kernel."""
-    events, host_s = device_events(lambda: prefill(model, batch), 1)
+    events, host_s, _ = device_events(lambda: prefill(model, batch), 1)
     check(bool(events), "the profiler recorded no device activity")
     by_kernel: dict[str, list] = {}
     for evt in events:
@@ -2138,11 +2782,12 @@ def serve_profile(model, prefill, batch) -> dict:
 
 # ---------------------------------------------------------------------------
 def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
-                 trisolve_operands) -> dict:
+                 trisolve_operands, gateway_flush: dict) -> dict:
     """Time each kernel, its plain version and the library call at the
     phase-3 shapes, beside its bound; `strips` holds phase 3's strip
     launches of each TRSM wrapper, `trisolve_operands` the linalg phase's
-    factors and a right-hand side at its inverse round's chunk shape."""
+    factors and a right-hand side at its inverse round's chunk shape,
+    `gateway_flush` the launches of the gateway phase's full flush."""
     from repro_torch.kernels import flash_attn, ops, ref, trsm
 
     f64 = torch.float64
@@ -2162,7 +2807,8 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         off on every call, so at most a quarter of the calls may lack
         one."""
         bound, by = bound_ms(nbytes, ops_count, peak or dtype)
-        ms, launches_per_call, per_call, windows = device_profile(kernel, reps)
+        ms, launches_per_call, per_call, windows = device_profile(
+            kernel, reps)
         check(abs(per_call - launches_per_call) * reps <= reps // 4,
               f"{per_call} device events a call")
         if expect_launches is not None:
@@ -2472,9 +3118,18 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
     for e in entries:
         e.update(route="cuda", launches=launches[e["name"]],
                  max_abs_err=errs[e["name"]])
+        if e["name"] in MAIN_PATH:
+            e["launches_gateway_flush"] = gateway_flush[e["name"]]
         if e["launches"] is None:
             e["launches_note"] = ("no path of the port runs this route, so "
                                   "the run has no launch count for it")
+    # the rows (their own timings or a case's) that needed a second window
+    PROFILE_WINDOWS["retried_rows"] = [
+        e["name"] for e in entries
+        if any(w > 1 for timing in (e, *(v for v in e.values()
+                                         if isinstance(v, dict)
+                                         and "profile_windows" in v))
+               for w in timing["profile_windows"].values() if w)]
     return {"kernels": entries}
 
 
@@ -2499,6 +3154,7 @@ def main() -> int:
     # and so do the socket and rateless phases, and the linalg phase
     rng_socket = np.random.default_rng([args.seed, 2])
     rng_linalg = np.random.default_rng([args.seed, 3])
+    rng_gateway = np.random.default_rng([args.seed, 4])
     dev = torch.device("cuda", torch.cuda.current_device())
 
     phase_build()
@@ -2533,12 +3189,15 @@ def main() -> int:
     per_phase["recovery"] = (phase_recovery(rng_routes, dev, mp_recovery),
                              MAIN_PATH)
     # the daemons launch the server kernels in their own processes
-    socket_launches, rateless_launches, linalg = phase_daemons(
-        rng_socket, dev, rng_linalg)
+    socket_launches, rateless_launches, gateway, linalg = phase_daemons(
+        rng_socket, dev, rng_linalg, rng_gateway)
     per_phase["socket"] = (socket_launches, CLIENT_PATH)
     per_phase["rateless"] = (rateless_launches, CLIENT_PATH)
+    per_phase["gateway"] = (gateway["launches"], GATEWAY_PATH)
     per_phase["linalg"] = (linalg["launches"], LINALG_PATH)
     errs.update(linalg["errs"])
+    for name, err in gateway["errs"].items():
+        errs[name] = max(errs[name], err)
     errs["flash_attention"], errs["flash_attention:f32"] = phase_flash(rng, dev)
     serve_launches, f32_flash_launches = phase_serve(rng, dev, args.seed)
     per_phase["serve"] = (serve_launches, SERVE_PATH)
@@ -2562,7 +3221,8 @@ def main() -> int:
     launches["flash_attention:f32"] = f32_flash_launches
     for leg in TRISOLVE_LEGS:
         launches[f"trsm:trisolve_{leg}"] = linalg["legs"][leg]
-    line = kernels_line(rng, dev, launches, errs, strips, linalg["operands"])
+    line = kernels_line(rng, dev, launches, errs, strips, linalg["operands"],
+                        gateway["flush"])
     emit({"phase": "run", "wall_s": time.perf_counter() - started,
           "profile_windows": PROFILE_WINDOWS})
     emit(line)

@@ -12,8 +12,11 @@ reach warm worker daemons (`python -m repro_torch.launch.serve_worker`)
 and `rateless=RatelessConfig(...)` for straggler-adaptive dispatch; the
 secure linalg family on one verified factorization (`LinalgSession`,
 `outsource_solve`, `outsource_inverse`, and the differentiable
-`secure_slogdet` / `secure_solve` / `secure_inv`). Every entry point runs on the CUDA device unless the caller passes
-``device="cpu"``; on the CPU each kernel's plain PyTorch version
+`secure_slogdet` / `secure_solve` / `secure_inv`); mixed-size lists in
+one coalesced sweep (`outsource_determinant_mixed`) and the gateway that
+serves them (`SPDCGateway`, `AsyncSPDCGateway`,
+`python -m repro_torch.launch.serve_spdc`). Every entry point runs on the
+CUDA device unless the caller passes ``device="cpu"``; on the CPU each kernel's plain PyTorch version
 (kernels/ref.py) computes the same function.
 """
 from .api import (
@@ -29,6 +32,7 @@ from .core.protocol import (
     SPDCBatchResult,
     SPDCResult,
     outsource_determinant,
+    outsource_determinant_mixed,
     resolve_dtype,
 )
 from .configs.spdc import RatelessConfig
@@ -43,8 +47,10 @@ from .linalg import (
     secure_slogdet,
     secure_solve,
 )
+from .serve.spdc_gateway import AsyncSPDCGateway, SPDCGateway
 
 __all__ = [
+    "AsyncSPDCGateway",
     "EdgeServer",
     "InlineTransport",
     "LinalgSession",
@@ -52,6 +58,7 @@ __all__ = [
     "RatelessConfig",
     "SPDCBatchResult",
     "SPDCClient",
+    "SPDCGateway",
     "SPDCInverseResult",
     "SPDCResult",
     "SecureLinalg",
@@ -62,6 +69,7 @@ __all__ = [
     "TransportConfig",
     "WorkerDaemon",
     "outsource_determinant",
+    "outsource_determinant_mixed",
     "outsource_inverse",
     "outsource_solve",
     "resolve_device",

@@ -32,17 +32,18 @@ probe before the next one consumes its U rows; tasks, Authenticate and
 recovery are keyed on the F partitions, and the client's FleetHealth
 carries what one session learned about the workers into the next.
 
-Ported here: one matrix and same-size stacks, on the inline, thread-pool,
-multiprocess and socket transports, with simulated fault plans, recovery
-with N + r standbys and the straggler deadline, and rateless dispatch;
+Ported here: one matrix, same-size stacks and mixed-size lists (the
+gateway's coalesced sweep: each matrix ciphered at its own size, then
+bordered to one common n'), on the inline, thread-pool, multiprocess and
+socket transports, with simulated fault plans, recovery with N + r
+standbys and the straggler deadline, and rateless dispatch;
 `Session.start` and `SPDCClient.run_pipelined` overlap one session's
-wire time with the next one's PMOP. Mixed-size lists (ROADMAP A11) raise
-NotImplementedError.
+wire time with the next one's PMOP.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -250,17 +251,17 @@ class SPDCClient:
     # -- PMOP: everything before any server is involved ---------------------
 
     def open_session(self, m, num_servers: int, *, faults=None,
-                     tamper=None) -> "Session":
+                     tamper=None, pad_to: int | None = None) -> "Session":
         """Run the client-side PMOP and return the dispatchable Session.
 
-        m: one (n, n) matrix or a (B, n, n) stack. faults / tamper
-        configure simulated misbehaviour: faults (a core.faults plan)
-        ride to the Parallelize stage (in the sweep on the inline
-        transport, worker-side on the message transports); tamper is a
-        client-side hook on the assembled factors.
+        m: one (n, n) matrix, a (B, n, n) stack, or a list of mixed-size
+        square matrices (coalesced at a shared padded size — `pad_to`
+        applies only there). faults / tamper configure simulated
+        misbehaviour: faults (a core.faults plan) ride to the Parallelize
+        stage (in the sweep on the inline transport, worker-side on the
+        message transports); tamper is a client-side hook on the
+        assembled factors.
         """
-        if isinstance(m, (list, tuple)):
-            raise NotImplementedError("mixed-size lists: ROADMAP A11")
         if self.dtype not in _PROTOCOL_DTYPES:
             raise ValueError(
                 f"dtype {self.dtype} is not a verified protocol dtype "
@@ -273,16 +274,22 @@ class SPDCClient:
             # rateless has no rounds deadline — slow servers just do less
             None if self.rateless is not None else self.straggler_deadline,
         )
-        m_host = self._host_copy(m)
-        m_dev = torch.from_numpy(m_host).to(self.device)
-        if m_host.ndim == 3 and m_host.shape[-1] == m_host.shape[-2]:
-            sess = self._open_batch(m_dev, m_host, num_servers, tamper)
-        elif m_host.ndim == 2 and m_host.shape[0] == m_host.shape[1]:
-            sess = self._open_single(m_dev, m_host, num_servers, tamper)
+        if isinstance(m, (list, tuple)):
+            sess = self._open_mixed(m, num_servers, tamper, pad_to)
+        elif pad_to is not None:
+            raise ValueError("pad_to applies to mixed-size lists only")
         else:
-            raise ValueError(
-                f"expected a square matrix or a (B, n, n) stack, got {m_host.shape}"
-            )
+            m_host = self._host_copy(m)
+            m_dev = torch.from_numpy(m_host).to(self.device)
+            if m_host.ndim == 3 and m_host.shape[-1] == m_host.shape[-2]:
+                sess = self._open_batch(m_dev, m_host, num_servers, tamper)
+            elif m_host.ndim == 2 and m_host.shape[0] == m_host.shape[1]:
+                sess = self._open_single(m_dev, m_host, num_servers, tamper)
+            else:
+                raise ValueError(
+                    "expected a square matrix or a (B, n, n) stack, got "
+                    f"{m_host.shape}"
+                )
         sess.plan = plan
         synchronize(self.device)
         sess._pmop_s = time.perf_counter() - t0
@@ -332,6 +339,76 @@ class SPDCClient:
             _m_host=m_host,
         )
 
+    def _open_mixed(self, ms, num_servers, tamper, pad_to) -> "Session":
+        """The mixed-size PMOP: SeedGen and KeyGen on the host per matrix,
+        its Cipher on the session's device at its own size (one CED
+        launch on CUDA), then equilibration and the post-cipher
+        [[X, 0], [R, I]] border written into one preallocated
+        (B, n', n') stack — the reference's host functions
+        (`_cipher_host`, `_equilibrate_host`, `_augment_host`) step for
+        step, with R drawn from the same per-matrix generator, so the
+        stack is bit-equal to the reference's."""
+        from ..core.protocol import _batch_digest, common_padded_size
+
+        ms = [self._host_copy(mi) for mi in ms]
+        if not ms:
+            raise ValueError("outsource_determinant_mixed needs >= 1 matrix")
+        for mi in ms:
+            if mi.ndim != 2 or mi.shape[0] != mi.shape[1]:
+                raise ValueError(
+                    f"expected square matrices, got shape {mi.shape}"
+                )
+        sizes = [int(mi.shape[0]) for mi in ms]
+        parts = self._partitions(num_servers)
+        if pad_to is None:
+            pad_to = common_padded_size(sizes, parts)
+        if pad_to % parts != 0 or pad_to // parts <= 1:
+            raise ValueError(
+                f"pad_to={pad_to} not servable by {parts} partitions "
+                f"(N={num_servers}"
+                + (f" × overdecompose={parts // num_servers}"
+                   if parts != num_servers else "")
+                + "; need pad_to % parts == 0 and pad_to / parts > 1)"
+            )
+        if max(sizes) > pad_to:
+            raise ValueError(
+                f"matrix of size {max(sizes)} exceeds pad_to={pad_to}"
+            )
+        x_aug = torch.zeros((len(ms), pad_to, pad_to), dtype=self.dtype,
+                            device=self.device)
+        seeds, metas, paddings, log2_scales = [], [], [], []
+        for i, mi in enumerate(ms):
+            n = int(mi.shape[0])
+            seed = seedgen(self.lambda1, mi)
+            key = keygen(self.lambda2, seed, n)
+            x, meta = cipher(torch.from_numpy(mi).to(self.device), key, seed,
+                             mode=self.mode, growth_safe=self.growth_safe)
+            if self.equilibrate:
+                x, ls = ced_equilibrate(x)
+                log2_scales.append(ls)
+            x_aug[i, :n, :n] = x
+            p = pad_to - n
+            if p:
+                r = border_rng(seed.digest).uniform(-1.0, 1.0, (p, n))
+                x_aug[i, n:, :n] = torch.as_tensor(r, dtype=self.dtype,
+                                                   device=self.device)
+                x_aug[i, n:, n:].diagonal().fill_(1.0)
+            seeds.append(seed)
+            metas.append(meta)
+            paddings.append(p)
+        # one device-to-host read for the whole stack's exponents
+        log2_scale = (torch.stack(log2_scales).cpu().numpy().astype(np.int64)
+                      if log2_scales else np.zeros(len(ms), dtype=np.int64))
+        return Session(
+            client=self, kind="mixed", num_servers=num_servers,
+            x_aug=x_aug, seeds=seeds, metas=metas,
+            log2_scale=log2_scale, n=pad_to, padding=0,
+            digest=_batch_digest(seeds), tamper=tamper,
+            paddings=paddings, pad_to=pad_to,
+            num_strips=parts if parts != num_servers else None,
+            _m_host=None, _m_hosts=ms,
+        )
+
 
 @dataclass
 class Session:
@@ -342,17 +419,20 @@ class Session:
     transports."""
 
     client: SPDCClient
-    kind: str  # "single" | "batch"
+    kind: str  # "single" | "batch" | "mixed"
     num_servers: int
     x_aug: torch.Tensor  # (…, n', n') augmented CIPHERTEXT (client-held)
     seeds: list[Seed]
     metas: list[CipherMeta]
     log2_scale: Any
-    n: int  # raw size
+    n: int  # raw size (single/batch) or the common n' (mixed)
     padding: int
     digest: bytes
     plan: tuple = ()
     tamper: Any = None
+    #: mixed-size sessions: per-matrix border amounts and the common n'
+    paddings: list[int] | None = None
+    pad_to: int | None = None
     #: rateless over-decomposition: F > N strips (None = classic, one
     #: strip per server). The partition geometry (authenticate blocks,
     #: strip minting, recovery) keys off `partitions`; `num_servers`
@@ -367,6 +447,9 @@ class Session:
     keep_factors: bool = False
     _factors: tuple | None = None
     _m_host: np.ndarray | None = None
+    #: mixed-size sessions: every request's plaintext, for the boundary
+    #: screen (each ciphertext must be checked against all of them)
+    _m_hosts: list[np.ndarray] = field(default_factory=list)
     # phase timings feeding SPDCReport.timings
     _pmop_s: float = 0.0
     _dispatch_s: float = 0.0
@@ -482,7 +565,10 @@ class Session:
     def _assert_boundary(self, tasks, check_boundary) -> None:
         """No plaintext, no key material, no unexpected fields — checked
         at the moment messages are minted, not left to code review."""
-        plaintexts = [self._m_host] if self._m_host is not None else []
+        plaintexts = (
+            self._m_hosts if self._m_hosts
+            else ([self._m_host] if self._m_host is not None else [])
+        )
         total = sum(t.x_row.size for t in tasks)
         full = check_boundary or (
             check_boundary is None and total <= _FULL_CHECK_ELEMS
@@ -718,6 +804,8 @@ class Session:
             padding=self.padding,
             num_servers=self.num_servers,
             report=build_report(),
+            paddings=self.paddings,
+            pad_to=self.pad_to,
         )
 
 

@@ -2,8 +2,10 @@
 reduced smoke variants (same family, tiny dims) for CPU tests.
 
 The model configs of src/repro/configs/__init__.py, and from configs/spdc.py
-the rateless dispatch knobs (`RatelessConfig`, `RATELESS_DEFAULT`); the
-SPDC gateway's configs come with the gateway (ROADMAP A11).
+the SPDC protocol's presets (`SPDCConfig`, `SPDC_*`), the rateless
+dispatch knobs (`RatelessConfig`, `RATELESS_DEFAULT`) and the gateway's
+configs (`SPDCGatewayConfig`, `SPDC_GATEWAY_*`, `AdmissionConfig`,
+`BreakerConfig`, `CacheConfig` and their presets).
 """
 from __future__ import annotations
 
@@ -19,7 +21,16 @@ from .llama4_scout_17b_a16e import LLAMA4_SCOUT
 from .mamba2_370m import MAMBA2_370M
 from .nemotron_4_340b import NEMOTRON_4_340B
 from .qwen2_vl_72b import QWEN2_VL_72B
-from .spdc import RATELESS_DEFAULT, RatelessConfig
+from .spdc import (
+    ADMISSION_OFF, BREAKER_DEFAULT, BREAKER_OFF, CACHE_DEFAULT, CACHE_OFF,
+    RATELESS_DEFAULT, SPDC_DEFAULT, SPDC_EDGE_F32, SPDC_EDGE_HARDENED,
+    SPDC_EDGE_MP, SPDC_EDGE_RATELESS, SPDC_EDGE_SMALL, SPDC_EDGE_SOCKET,
+    SPDC_EDGE_THREADS, SPDC_GATEWAY_BULK, SPDC_GATEWAY_DEFAULT,
+    SPDC_GATEWAY_F32, SPDC_GATEWAY_HARDENED, SPDC_GATEWAY_LOWLAT,
+    SPDC_GATEWAY_PROD, SPDC_GATEWAY_SOCKET, SPDC_GATEWAY_THREADS, SPDC_POD,
+    AdmissionConfig, BreakerConfig, CacheConfig, RatelessConfig,
+    SPDCConfig, SPDCGatewayConfig,
+)
 from .tinyllama_1_1b import TINYLLAMA_1_1B
 
 CONFIGS: dict[str, ModelConfig] = {
@@ -65,5 +76,13 @@ def smoke_config(name: str) -> ModelConfig:
 __all__ = [
     "CONFIGS", "get_config", "smoke_config", "SHAPES", "ModelConfig",
     "ShapeConfig", "cell_status", "runnable_cells",
+    "SPDCConfig", "SPDC_DEFAULT", "SPDC_EDGE_F32", "SPDC_EDGE_HARDENED",
+    "SPDC_EDGE_MP", "SPDC_EDGE_RATELESS", "SPDC_EDGE_SMALL",
+    "SPDC_EDGE_SOCKET", "SPDC_EDGE_THREADS", "SPDC_POD",
     "RatelessConfig", "RATELESS_DEFAULT",
+    "SPDCGatewayConfig", "SPDC_GATEWAY_DEFAULT", "SPDC_GATEWAY_LOWLAT",
+    "SPDC_GATEWAY_BULK", "SPDC_GATEWAY_HARDENED", "SPDC_GATEWAY_F32",
+    "SPDC_GATEWAY_THREADS", "SPDC_GATEWAY_SOCKET", "SPDC_GATEWAY_PROD",
+    "AdmissionConfig", "ADMISSION_OFF", "BreakerConfig", "BREAKER_DEFAULT",
+    "BREAKER_OFF", "CacheConfig", "CACHE_DEFAULT", "CACHE_OFF",
 ]

@@ -26,7 +26,9 @@ from .lu import (
 from .protocol import (
     SPDCBatchResult,
     SPDCResult,
+    common_padded_size,
     outsource_determinant,
+    outsource_determinant_mixed,
     resolve_dtype,
 )
 from .verify import (
@@ -50,7 +52,8 @@ __all__ = [
     "CommLog", "det_from_lu", "lu_block_row", "lu_blocked", "lu_diag_factor",
     "lu_nserver", "lu_panel_blocked", "lu_unblocked", "nserver_comm_model",
     "slogdet_from_lu", "slogdet_pair_from_lu",
-    "SPDCBatchResult", "SPDCResult", "outsource_determinant", "resolve_dtype",
+    "SPDCBatchResult", "SPDCResult", "common_padded_size",
+    "outsource_determinant", "outsource_determinant_mixed", "resolve_dtype",
     "Verdict", "authenticate", "epsilon", "growth_estimate", "localize",
     "per_server_residuals", "q1", "q2", "q3", "q3_paper_literal",
 ]

@@ -7,11 +7,12 @@ role in `repro_torch.api`:
 
     outsource_determinant(m, N) == SPDCClient(...).open_session(m, N).run()
 
-It accepts one (n, n) matrix or a (B, n, n) stack: independent seeds,
-keys, rotations, probes and verdicts per matrix, one cipher pass per
-rotation degree, one sweep of the N-server schedule and one verification
-over the stack (DESIGN.md §3). It runs on the CUDA device unless the
-caller passes device="cpu".
+It accepts one (n, n) matrix, a (B, n, n) stack, or a list of
+mixed-size matrices (`outsource_determinant_mixed`, the gateway's
+batching primitive): independent seeds, keys, rotations, probes and
+verdicts per matrix, one sweep of the N-server schedule and one
+verification over the stack (DESIGN.md §3, §5). It runs on the CUDA
+device unless the caller passes device="cpu".
 """
 from __future__ import annotations
 
@@ -132,7 +133,14 @@ class SPDCResult:
 @dataclass
 class SPDCBatchResult:
     """Per-matrix protocol outcomes for a (B, n, n) stack: `verified` and
-    `residual` are (B,) arrays, one accept/reject decision per matrix."""
+    `residual` are (B,) arrays, one accept/reject decision per matrix.
+
+    `padding` is always a border *amount* (rows added); on a stack it is
+    the one amount every matrix got, and `paddings`/`pad_to` are None. On
+    the mixed-size path the amount differs per matrix: `paddings` lists
+    them, `pad_to` is the common padded size n' the stack ran at, and
+    `padding` is 0 — there is no single amount, so consumers of
+    `n + padding` must use `pad_to`."""
 
     dets: list[Determinant]
     verified: np.ndarray
@@ -143,6 +151,10 @@ class SPDCBatchResult:
     padding: int
     num_servers: int
     report: SPDCReport = field(default_factory=SPDCReport)
+    #: mixed-size path only: per-matrix border amounts (pad_to − n_i)
+    paddings: list[int] | None = None
+    #: mixed-size path only: the common padded size n' of the sweep
+    pad_to: int | None = None
 
     @property
     def batch(self) -> int:
@@ -160,6 +172,87 @@ def _batch_digest(seeds: list[Seed]) -> bytes:
     for s in seeds:
         h.update(s.digest)
     return h.digest()
+
+
+def common_padded_size(sizes, num_servers: int) -> int:
+    """Smallest n' ≥ max(sizes) that the N-server schedule accepts
+    (n' % N == 0 and n'/N > 1) — the shared shape a mixed-size stack is
+    padded to before one coalesced sweep."""
+    from .augment import padding_for_servers
+
+    n = max(int(s) for s in sizes)
+    return n + padding_for_servers(n, num_servers)
+
+
+def outsource_determinant_mixed(
+    ms,
+    num_servers: int,
+    *,
+    pad_to: int | None = None,
+    lambda1: int = 128,
+    lambda2: int = 128,
+    mode: Mode = "ewd",
+    method: str = "q3",
+    distributed: bool = False,
+    faithful_sign: bool = False,
+    tamper=None,
+    faults=None,
+    recover: bool = False,
+    standby: int = 0,
+    straggler_deadline: int | None = None,
+    dtype="float64",
+    growth_safe: bool | None = None,
+    equilibrate: bool | None = None,
+    transport=None,
+    rateless=False,
+    device=None,
+) -> SPDCBatchResult:
+    """Run the SPDC protocol for a *mixed-size* list of matrices in ONE
+    coalesced N-server sweep — the gateway's batching primitive.
+
+    Each matrix is ciphered at its own size (its own Ψ, blinding vector
+    and rotation; one CED launch each on CUDA), then its ciphertext is
+    padded post-cipher to the common size `pad_to` with the
+    determinant-preserving [[X, 0], [R, I]] border, so the whole stack
+    shares one (B, n', n') shape: one sweep of the N-server schedule, one
+    batched verification, per-request Decipher.
+
+    Padding MUST happen after Cipher: the PRT stage rotates the matrix by
+    a secret quarter-turn count, and a pre-cipher identity/zero border
+    lands in a rotated position where the no-pivot LU hits structurally
+    singular leading minors (DESIGN.md §5.1). The post-cipher border
+    never rotates; its Schur complement is exactly I.
+
+    pad_to: common padded size (default: the smallest valid size for the
+    largest matrix, `common_padded_size`); it must satisfy
+    pad_to % N == 0 and pad_to / N > 1 (F = overdecompose·N for rateless
+    sessions). The other keywords are `outsource_determinant`'s, which
+    routes list and tuple inputs here.
+
+    Returns an SPDCBatchResult whose `pad_to` is the common n' and whose
+    `paddings` list the per-matrix border amounts.
+    """
+    return _outsource(
+        list(ms), num_servers, pad_to=pad_to, distributed=distributed,
+        faults=faults, tamper=tamper, transport=transport,
+        lambda1=lambda1, lambda2=lambda2, mode=mode, method=method,
+        faithful_sign=faithful_sign, recover=recover, standby=standby,
+        straggler_deadline=straggler_deadline, dtype=dtype,
+        growth_safe=growth_safe, equilibrate=equilibrate,
+        rateless=rateless, device=device,
+    )
+
+
+def _outsource(m, num_servers, *, pad_to, distributed, faults, tamper,
+               transport, **client_kwargs):
+    """The one-call facade's body: a client, its session, one run."""
+    from ..api import SPDCClient
+
+    if distributed:
+        raise NotImplementedError("the shard_map pipeline: ROADMAP A12")
+    session = SPDCClient(**client_kwargs).open_session(
+        m, num_servers, faults=faults, tamper=tamper, pad_to=pad_to)
+    return session.run(transport)
 
 
 def outsource_determinant(
@@ -186,7 +279,11 @@ def outsource_determinant(
 ) -> SPDCResult | SPDCBatchResult:
     """Run the full SPDC protocol — the package's main entry point.
 
-    m: one (n, n) matrix or a (B, n, n) stack (numpy array or tensor).
+    m: one (n, n) matrix or a (B, n, n) stack (numpy array or tensor),
+        or a list/tuple of square matrices of mixed sizes, which takes
+        the path of `outsource_determinant_mixed` (one coalesced sweep at
+        the smallest shared padded size — the gateway path,
+        serve.spdc_gateway).
     num_servers: N, the edge-server count; the ciphertext is padded so N
         divides its size (paper §IV.D.1).
     lambda1 / lambda2: security parameters of SeedGen / KeyGen.
@@ -227,22 +324,18 @@ def outsource_determinant(
     device: where the protocol computes; None = the CUDA device
         (RuntimeError without one), "cpu" for the plain path.
 
-    Not ported yet, and raising NotImplementedError: mixed-size lists
-    (ROADMAP A11), distributed= and the shardmap transport (A12).
+    Not ported yet, and raising NotImplementedError: distributed= and the
+    shardmap transport (ROADMAP A12).
 
-    Returns SPDCResult for one matrix, SPDCBatchResult for a stack.
+    Returns SPDCResult for one matrix, SPDCBatchResult for a stack or a
+    list.
     """
-    from ..api import SPDCClient
-
-    if distributed:
-        raise NotImplementedError("the shard_map pipeline: ROADMAP A12")
-    client = SPDCClient(
+    return _outsource(
+        m, num_servers, pad_to=None, distributed=distributed, faults=faults, tamper=tamper,
+        transport=transport,
         lambda1=lambda1, lambda2=lambda2, mode=mode, method=method,
         faithful_sign=faithful_sign, recover=recover, standby=standby,
         straggler_deadline=straggler_deadline, dtype=dtype,
         growth_safe=growth_safe, equilibrate=equilibrate,
         rateless=rateless, device=device,
     )
-    session = client.open_session(m, num_servers, faults=faults,
-                                  tamper=tamper)
-    return session.run(transport)

@@ -7,6 +7,11 @@ seconds rather than minutes. Libraries are named by a hash of their
 source and flags, so an edited source rebuilds and an unchanged one is
 reused; they live in `_build/` beside this file (ignored by git).
 
+The first use is safe when threads race to it (the gateway's sweeps
+run on worker threads): one lock serializes building and loading, so
+no two nvcc runs write one library and every thread gets the one
+loaded copy.
+
 Flags: `-O3` for `sm_90a`, and no `--use_fast_math` — it would turn the
 CED kernel's float division into an approximate one, and that kernel
 must agree bit for bit with its plain version.
@@ -18,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -32,7 +38,10 @@ NVCC_FLAGS = (
 #: seconds one nvcc may take before the build is abandoned
 NVCC_TIMEOUT_S = 600
 
+#: loaded libraries: written under _BUILD_LOCK, read without it (a
+#: dict lookup is atomic, and a miss takes the lock and looks again)
 _LIBS: dict[str, ctypes.CDLL] = {}
+_BUILD_LOCK = threading.RLock()
 
 
 def nvcc() -> str:
@@ -64,6 +73,11 @@ def build(names=SOURCES) -> dict[str, float]:
     raises with the compiler's output if any compile fails. The ptxas
     report (registers, shared memory, spills) is kept beside each
     library as `<library>.log`."""
+    with _BUILD_LOCK:
+        return _build(names)
+
+
+def _build(names) -> dict[str, float]:
     compiler = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
@@ -101,16 +115,20 @@ def library(name: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
     each function's ctypes signature declared: signatures maps a symbol
     to (restype, argtypes)."""
     lib = _LIBS.get(name)
-    if lib is None:
-        build()
-        lib = ctypes.CDLL(str(target(name)))
-        for symbol, (restype, argtypes) in signatures.items():
-            fn = getattr(lib, symbol)
-            fn.restype = restype
-            fn.argtypes = list(argtypes)
-        lib.spdc_error_string.restype = ctypes.c_char_p
-        lib.spdc_error_string.argtypes = [ctypes.c_int]
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build()
+            lib = ctypes.CDLL(str(target(name)))
+            for symbol, (restype, argtypes) in signatures.items():
+                fn = getattr(lib, symbol)
+                fn.restype = restype
+                fn.argtypes = list(argtypes)
+            lib.spdc_error_string.restype = ctypes.c_char_p
+            lib.spdc_error_string.argtypes = [ctypes.c_int]
+            _LIBS[name] = lib
     return lib
 
 

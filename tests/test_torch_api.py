@@ -124,9 +124,13 @@ def test_boundary_violation_on_unreviewed_field():
 
 
 # ------------------------------------------------- transport equivalence
-@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("batch", [None, 3, "mixed"])
 def test_threadpool_bit_equal_to_inline(batch):
-    m = _wellcond(20 if batch is None else 16, seed=17, batch=batch)
+    if batch == "mixed":
+        base = _wellcond(20, seed=17)
+        m = [base, base[:9, :9], base[:14, :14]]
+    else:
+        m = _wellcond(20 if batch is None else 16, seed=17, batch=batch)
     client = SPDCClient(device=CPU)
     with ThreadPoolTransport(device=CPU) as tp:
         session = client.open_session(m, N)

@@ -1,6 +1,7 @@
 """The port's boundaries: it imports neither jax nor the reference
-package, its entry points do not fall back to the CPU, and its trust
-boundary passes the reference's own secret-taint lint.
+package, its entry points do not fall back to the CPU, its trust
+boundary passes the reference's own secret-taint lint, and the gateway's
+guarded state passes its lock-discipline lint.
 """
 import ast
 import os
@@ -54,7 +55,8 @@ def _imports(path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py"))
+    + [REPO / "chip_smoke.py", REPO / "profile_clock_probe.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_or_reference_import_in_source(path):
@@ -75,6 +77,16 @@ def test_entry_points_refuse_cpu_fallback():
         repro_torch.SPDCClient()
     with pytest.raises(RuntimeError, match="CUDA"):
         interop.factors_from_numpy(m, m)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.outsource_determinant_mixed([m, m[:6, :6]], 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.SPDCGateway()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        repro_torch.AsyncSPDCGateway()
+    from repro_torch.launch import serve_spdc
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_spdc.main(["--smoke"])
 
 
 def test_cpu_on_request():
@@ -86,23 +98,41 @@ def test_cpu_on_request():
 
 
 def _port_sources_as_reference_paths():
-    """The port's core/, api/, linalg/ and distrib/ sources keyed under
-    their reference paths, so the taint pass's src/repro/ scopes apply to
-    them."""
+    """The port's core/, api/, linalg/, distrib/, serve/ and configs/
+    sources keyed under their reference paths, so the taint and lock
+    passes' src/repro/ scopes (and the lock pass's required guards)
+    apply to them."""
     sources = {}
-    for sub in ("core", "api", "linalg", "distrib"):
+    for sub in ("core", "api", "linalg", "distrib", "serve", "configs"):
         for p in sorted((PORT / sub).glob("*.py")):
             sources[f"src/repro/{sub}/{p.name}"] = p.read_text(encoding="utf-8")
     return sources
 
 
-def test_port_trust_boundary_passes_taint_lint():
+@pytest.mark.parametrize("lint_pass", ["taint", "locks"])
+def test_port_trust_boundary_passes_taint_lint(lint_pass):
     sources = _port_sources_as_reference_paths()
     for path in ("api/client.py", "linalg/session.py", "linalg/ops.py",
-                 "distrib/recovery.py"):
+                 "distrib/recovery.py", "serve/spdc_gateway.py",
+                 "serve/queue.py", "configs/spdc.py"):
         assert f"src/repro/{path}" in sources
-    findings = lint_sources(sources, passes=["taint"], root=REPO)
+    findings = lint_sources(sources, passes=[lint_pass], root=REPO)
     assert findings == [], "\n".join(f.render() for f in findings)
+
+
+def test_lock_lint_sees_the_port_gateway():
+    """The lock pass has teeth on the port: the guarded-by annotation
+    taken off the gateway's queue trips SPDC206 (a required guard)."""
+    sources = _port_sources_as_reference_paths()
+    path = "src/repro/serve/spdc_gateway.py"
+    anchor = ("        #: guarded-by: self._lock\n"
+              "        self._queue = MicroBatchQueue(")
+    assert anchor in sources[path]
+    sources[path] = sources[path].replace(
+        anchor, "        self._queue = MicroBatchQueue(", 1)
+    codes = [f.code for f in lint_sources(sources, passes=["locks"],
+                                          root=REPO)]
+    assert codes == ["SPDC206"]
 
 
 def _planted_codes(path, anchor, planted):

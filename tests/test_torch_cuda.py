@@ -435,29 +435,42 @@ def _profiled_launches(fn, reps=4):
     """Device events (kernels and copies) one call of fn puts on the
     card, counted by torch.profiler over `reps` calls. Started cold, the
     profiler misses a window's first launches, so the window opens with
-    64 one-element fills and a pause, and only the events after the
-    timed range opens count (as chip_smoke.py's device_events)."""
+    64 one-element fills and a pause, and only the events whose launch
+    (the CUDA runtime or driver call of the same correlation id) the host
+    made after the timed range opened, less half the pause, count: host
+    times on both sides, so the card's clock, whose offset from the
+    host's jumps by milliseconds between windows, moves no event out (as
+    chip_smoke.py's device_events). A window that lost the device event
+    of a launch it recorded is profiled again, up to three windows."""
+    import re
     import time
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    fn()
-    torch.cuda.synchronize()
-    pad = torch.empty(1, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(64):
-            pad.fill_(0.0)
-        torch.cuda.synchronize()
-        time.sleep(0.01)
-        with record_function("timed"):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
     cuda_type = torch.autograd.DeviceType.CUDA
-    opened = min(e.time_range.start for e in prof.events()
-                 if e.name == "timed" and e.device_type != cuda_type)
-    events = [e for e in prof.events() if e.device_type == cuda_type
-              and e.name != "timed" and e.time_range.start >= opened - 5000]
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        pad = torch.empty(1, device="cuda")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(64):
+                pad.fill_(0.0)
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+            with record_function("timed"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        host = [e for e in prof.events() if e.device_type != cuda_type]
+        opened = min(e.time_range.start for e in host if e.name == "timed")
+        launched = {e.id for e in host
+                    if re.match(r"cu(da)?(Launch|Memcpy|Memset)", e.name)
+                    and e.time_range.start >= opened - 5000}
+        events = [e for e in prof.events() if e.device_type == cuda_type
+                  and e.name != "timed" and e.id in launched]
+        if events and len({e.id for e in events}) == len(launched):
+            break
     assert len(events) % reps == 0, len(events)
     return len(events) // reps
 
@@ -936,3 +949,108 @@ def test_linalg_session_on_card_runs_the_legs(cuda):
     assert all(o.verified for o in s.report.ops)
     assert ops.LAUNCHES["trsm_left"] == 3 * 2 * 4
     assert all(ops.TRSM_LEFT_LEGS[leg] > 0 for leg in LEGS)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_mixed_stack_on_card_bit_equal_to_cpu(cuda, dtype):
+    """The mixed-size PMOP on the card: one CED launch per request, and
+    the (B, n', n') stack (cipher, equilibration, border) bit-equal to
+    the CPU's plain path."""
+    from repro_torch.api import SPDCClient
+
+    ms = [_dominant((n, n), 30 + n) for n in (200, 256, 131, 97)]
+    ops.reset_launches()
+    got = SPDCClient(dtype=dtype).open_session(ms, 4)
+    assert ops.LAUNCHES["ced"] == len(ms)
+    want = SPDCClient(dtype=dtype, device="cpu").open_session(ms, 4)
+    assert got.pad_to == want.pad_to == 256
+    assert torch.equal(got.x_aug.cpu(), want.x_aug)
+    np.testing.assert_array_equal(got.log2_scale, want.log2_scale)
+
+
+def test_gateway_on_card_runs_the_kernels(cuda):
+    """A gateway on the card (no device= given): one bucket flush of
+    mixed sizes runs CED per request and the panel and both TRSM kernels
+    on the stack; every determinant within rtol 1e-10 of
+    torch.linalg.slogdet in f64; a tampered bucket heals alone."""
+    from repro_torch import ServerFault, SPDCGateway
+    from repro_torch.configs import SPDCConfig, SPDCGatewayConfig
+
+    cfg = SPDCGatewayConfig(name="card", buckets=(256, 512), max_batch=4,
+                            max_wait_us=1e9,
+                            spdc=SPDCConfig(num_servers=4, recover=True,
+                                            standby=1))
+    gw = SPDCGateway(cfg, faults_for=lambda key: ServerFault(
+        server=2, mode="block", magnitude=0.3) if key.pad_to == 512 else None)
+    assert gw.device.type == "cuda"
+    mats = [_dominant((n, n), 40 + i)
+            for i, n in enumerate((200, 256, 131, 300, 480, 512))]
+    ops.reset_launches()
+    rids = [gw.submit(m) for m in mats]
+    gw.drain()
+    for name in ("ced", "lu_panel", "trsm_lower", "trsm_upper_right"):
+        assert ops.LAUNCHES[name] > 0, name
+    assert ops.LAUNCHES["ced"] >= len(mats)
+    for m, rid in zip(mats, rids):
+        r = gw.take(rid)
+        assert r.verified and r.error is None
+        assert (r.recovery is not None) == (r.pad_to == 512)
+        want = torch.linalg.slogdet(torch.from_numpy(m).to(cuda))
+        assert r.det.sign == float(want.sign)
+        assert np.isclose(r.det.logabs, float(want.logabsdet), rtol=1e-10)
+    assert gw.stats.recovered_flushes == 1 and gw.stats.failed == 0
+
+
+def test_async_gateway_on_card_sweeps_off_the_loop(cuda):
+    """AsyncSPDCGateway on the card: each sweep runs on a worker thread
+    inside the gateway's device scope; the answers verify."""
+    import asyncio
+
+    from repro_torch import AsyncSPDCGateway
+    from repro_torch.configs import SPDCConfig, SPDCGatewayConfig
+
+    cfg = SPDCGatewayConfig(name="card-async", buckets=(128,), max_batch=4,
+                            max_wait_us=2000.0, spdc=SPDCConfig(num_servers=4))
+    mats = [_dominant((n, n), 50 + n) for n in (100, 128, 64, 90, 77)]
+
+    async def main():
+        async with AsyncSPDCGateway(cfg) as gw:
+            await gw.warmup((4,))
+            return await asyncio.gather(*(gw.submit(m) for m in mats))
+
+    for m, r in zip(mats, asyncio.run(main())):
+        sign, logabs = np.linalg.slogdet(m)
+        assert r.verified and r.det.sign == sign
+        assert np.isclose(r.det.logabs, logabs, rtol=1e-10)
+
+
+def test_kernel_libraries_load_once_across_threads(cuda):
+    """Threads racing to a kernel's first use get one loaded library."""
+    import threading
+
+    from repro_torch.kernels import build
+
+    saved = dict(build._LIBS)
+    build._LIBS.clear()
+    got = []
+    try:
+        threads = [threading.Thread(target=lambda: got.append(
+            build.library("lu_panel", lu_panel._SIGNATURES)))
+            for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert len(got) == 8 and all(lib is got[0] for lib in got)
+    finally:
+        build._LIBS.clear()
+        build._LIBS.update(saved)
+
+
+def test_serve_spdc_smoke_on_card(cuda, capsys):
+    from repro_torch.launch import serve_spdc
+
+    assert serve_spdc.main(["--smoke", "--no-warmup"]) == 0
+    out = capsys.readouterr().out
+    assert "device=cuda" in out and "check: all" in out

@@ -302,9 +302,20 @@ def test_a9_features_match_reference(kwargs):
 
 
 def test_mixed_size_list_raises():
-    with pytest.raises(NotImplementedError, match="A11"):
-        repro_torch.outsource_determinant([_matrix(8, 0), _matrix(6, 1)], 2,
-                                          device=CPU)
+    """Mixed-size lists run (ROADMAP A11, ported; they raised before):
+    verified, with the reference's determinants and paddings. What still
+    raises is a list the schedule cannot serve, and distributed=."""
+    ms = [_matrix(8, 0), _matrix(6, 1)]
+    got = repro_torch.outsource_determinant(ms, 2, device=CPU)
+    want = r_protocol.outsource_determinant(ms, 2)
+    assert got.verified.all() and np.asarray(want.verified).all()
+    assert got.paddings == want.paddings == [0, 2]
+    assert got.pad_to == want.pad_to == 8
+    assert all(_same_det(g, w) for g, w in zip(got.dets, want.dets))
+    with pytest.raises(ValueError, match="pad_to"):
+        repro_torch.outsource_determinant_mixed(ms, 2, pad_to=7, device=CPU)
+    with pytest.raises(NotImplementedError, match="A12"):
+        repro_torch.outsource_determinant(ms, 2, distributed=True, device=CPU)
 
 
 def test_lu_nserver_rejects_fault_plan_and_bad_partition():

@@ -1,7 +1,7 @@
 """The port's rateless straggler-adaptive dispatch and fleet health on the
 CPU, against the JAX reference. Mirrors tests/test_rateless.py (all of
-it but the gateway case, which comes with the gateway, and the slow
-chaos matrix).
+it but the gateway case, which tests/test_torch_gateway.py mirrors, and
+the slow chaos matrix).
 
 Includes the acceptance end to end: N = 4 edge workers, one
 Pareto-delayed and one tampering, no straggler_deadline — the session

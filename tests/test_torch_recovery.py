@@ -1,8 +1,8 @@
 """Verification-driven recovery of the port against the JAX reference, on
 the CPU: localize → re-dispatch one shard → splice.
 
-Mirrors tests/test_recovery.py (except the shard_map case, ROADMAP A12,
-and the gateway config profile, A11) and the recovery cases of
+Mirrors tests/test_recovery.py (except the shard_map case, ROADMAP A12)
+and the recovery cases of
 tests/test_api.py (thread pool; worker processes at n = 16, one
 method). Both packages get the same numpy inputs, sized so the border is
 absent (p = 0) and the ciphertexts are bit-equal. Bars: the port's
@@ -334,6 +334,23 @@ def test_rederive_shard_matches_full_augmentation(batch):
         assert torch.equal(shard, x_aug[..., s * b : (s + 1) * b, :])
     with pytest.raises(ValueError, match="partitioned"):
         rederive_shard(x, padding=1, server=0, num_servers=N)
+
+
+def test_hardened_config_profile_drives_recovery():
+    """SPDC_EDGE_HARDENED's standby/recover/straggler fields map onto the
+    protocol signature, with the reference's recovery report."""
+    from repro.configs import SPDC_EDGE_HARDENED as r_cfg
+    from repro_torch.configs import SPDC_EDGE_HARDENED as cfg
+
+    assert cfg == type(cfg)(**dataclasses.asdict(r_cfg))
+    assert cfg.recover and cfg.standby == 2
+    m = _wellcond(32, seed=53)
+    got = _port(m, ServerFault(server=1), **cfg.protocol_kwargs())
+    want = _ref(m, ServerFault(server=1), **r_cfg.protocol_kwargs())
+    assert got.verified and got.report.recovery.ok
+    assert got.report.recovery.events[0].replacement == N
+    assert got.report.recovery.servers_replaced \
+        == want.report.recovery.servers_replaced
 
 
 def test_server_pool_never_returns_culprit_when_avoidable():
