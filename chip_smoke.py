@@ -83,6 +83,30 @@ inputs), the f32 and mixed-precision slice and recovery, before phase 12:
   determinant equal to the honest one at rtol 1e-10, collect_s beside
   the honest dispatch_s.
 
+Then, from a sixth random stream, the pipeline phase (distributed=True:
+the shardmap transport, N = 4 server slots on the card, each computing
+on a CUDA stream of its own, the relay a device copy a hop), within
+PIPELINE_BUDGET_S:
+
+- n = 4096 f64 through the protocol: verified, with the inline run's
+  verdict and its determinant at rtol 1e-10 (and slogdet's gate), the
+  launches of each kernel at expected_pipeline_launches;
+- each relay program (baseline, exact, stream) on the session's
+  ciphertext: Authenticate (q3) accepts its factors, their determinant
+  within the gate of slogdet, its launches, warm wall beside the inline
+  sweep's, and one sweep under torch.profiler: the relay's device copies
+  equal to the mesh's hop log in count and bytes, each on its
+  receiver's stream, no device copy but the relay's and the scatter of
+  X's block rows, each slot's kernels on one stream of its own, the
+  hops' device ms and the card's busy share; on the plaintext, whose LU
+  has no growth, its factors within 1e-10 of max|F| of the inline
+  sweep's;
+- a 16 x 1024 stack (baseline), n = 4096 in f32 within 1e-4 of the f64
+  slogdet, and server 2's dropout healed (recover=True, standby 1);
+- the panel and both solves against their plain versions on every
+  operand shape the single and the stack runs gave them (1e-12 of
+  max|plain|), the block-row solve 1024² against 1024 x 4096 among them.
+
 Then, from a third random stream, the socket and rateless phases, on four
 port WorkerDaemons spawned (never forked, after this process built the
 kernels) on Unix sockets, each computing on the card and serving any
@@ -165,7 +189,8 @@ kernels' arithmetic on the card. The client's CED launch is counted.
 The kernels line then has a row per route besides the default f64 rows:
 "trsm:trisolve_<leg>" (the linalg phase's four left solves, l, u, ut
 and lt, at its inverse round's chunk shape on its factors, launches from
-its op plan), "<kernel>:f32" (the f32 routes the f32 paths run), "<kernel>:f32_f64"
+its op plan), "trsm_lower:row_solve" (the pipeline's block-row solve on
+the operands the pipeline phase gave it, launches from its single run), "<kernel>:f32" (the f32 routes the f32 paths run), "<kernel>:f32_f64"
 (the mixed routes mixed lu_blocked runs) and "<kernel>:bf16_f32" (no
 path runs them: launches null, with a note), each with the device
 kernels' template names the profiler reports, and "flash_attention:f32"
@@ -354,6 +379,15 @@ GATEWAY_PATH = MAIN_PATH + ("trsm_left",)
 #: may run in a gateway flush (its LU and strips are the port's kernels)
 LIBRARY_LU_KERNELS = re.compile(r"trsm|getrf|getrs", re.IGNORECASE)
 
+#: the pipeline phase (distributed=True, N slots on the card): its relay
+#: programs, their factors' bar against the inline sweep's on a matrix
+#: whose LU has no growth (the Schur terms' shapes differ by program and
+#: from lu_nserver's, so cuBLAS rounds them otherwise; DESIGN.md §1.2's
+#: bar between LU implementations) and the phase's time budget
+PIPELINE_PROGRAMS = ("baseline", "exact", "stream")
+PIPELINE_RTOL = 1e-10
+PIPELINE_BUDGET_S = 60.0
+
 #: device_events' padding before a timed loop: launches and seconds
 WARM_LAUNCHES, WARM_PAUSE_S = 64, 0.01
 TIMED_RANGE = "chip_smoke.timed"
@@ -460,9 +494,10 @@ def device_events(fn, reps: int):
     return events, host_s, windows
 
 
-def profiled(fn, reps: int):
+def profiled(fn, reps: int, trace: Path | None = None):
     """(every profiler event, host seconds) of one window: a warm-up
-    call, WARM_LAUNCHES fills, a pause, then `reps` calls in TIMED_RANGE."""
+    call, WARM_LAUNCHES fills, a pause, then `reps` calls in TIMED_RANGE;
+    the window's Chrome trace written to `trace` where given."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
@@ -479,6 +514,8 @@ def profiled(fn, reps: int):
                 fn()
             torch.cuda.synchronize()
             host_s = time.perf_counter() - t0
+    if trace is not None:
+        prof.export_chrome_trace(str(trace))
     return prof.events(), host_s
 
 
@@ -2548,6 +2585,288 @@ def phase_recovery(rng, dev, multiprocess: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+def expected_pipeline_launches(n: int) -> dict:
+    """Launches of one pipeline sweep, reckoned from the code: per server
+    the diagonal tile's panels and strips as in the inline sweep, one
+    triangular solve of its whole block row (trsm_lower) and one
+    L_{t,k} solve for each k < t (trsm_upper_right, N(N-1)/2 in all)."""
+    b = n // N_SERVERS
+    panels = math.ceil(b / INNER) if b >= 64 else 1
+    inner = N_SERVERS * (panels - 1)
+    return {"lu_panel": N_SERVERS * panels, "trsm_lower": inner + N_SERVERS,
+            "trsm_upper_right": inner + N_SERVERS * (N_SERVERS - 1) // 2}
+
+
+def kernel_operands(ops, fn):
+    """(fn's result, {(wrapper, operand shapes): [calls, operands]}): the
+    server kernels' wrappers swapped, for the call only, for ones that
+    count their calls by operand shapes and keep a copy of the first
+    call's operands of each."""
+    seen: dict = {}
+    saved = {name: getattr(ops, name) for name in SERVER_PATH}
+
+    def keeping(name, wrapper):
+        def call(*args, **kw):
+            key = (name, *(tuple(a.shape) for a in args))
+            if key not in seen:
+                seen[key] = [0, [a.clone() for a in args]]
+            seen[key][0] += 1
+            return wrapper(*args, **kw)
+        return call
+
+    for name, wrapper in saved.items():
+        setattr(ops, name, keeping(name, wrapper))
+    try:
+        return fn(), seen
+    finally:
+        for name, wrapper in saved.items():
+            setattr(ops, name, wrapper)
+
+
+def pipeline_trace(fn, mesh) -> dict:
+    """One sweep of fn on `mesh` under torch.profiler: the relay's device
+    copies against the mesh's hop log (count, bytes in order, each on its
+    receiver's stream), the device copies outside the relay (only the
+    scatter of X's block rows may make any), the CUDA stream each slot's
+    kernels ran on (one per slot, none shared), the copies' device ms
+    and the card's busy share over the sweep. Copies' bytes come from
+    the window's Chrome trace (the events carry none)."""
+    import tempfile
+
+    from repro_torch.distrib.spdc_pipeline import (RELAY_RANGE, SCATTER_RANGE,
+                                                   SLOT_RANGE)
+
+    cuda = torch.autograd.DeviceType.CUDA
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-trace-") as tmp:
+        trace = Path(tmp) / "trace.json"
+        for _ in range(PROFILE_ATTEMPTS):
+            everything, host_s = profiled(fn, 1, trace)
+            events, lost, _ = timed_device_events(everything)
+            PROFILE_WINDOWS["windows_losing_events"] += lost > 0
+            if events and not lost:
+                break
+        check(bool(events) and not lost,
+              f"pipeline profile: {len(events)} device events, {lost} lost")
+        nbytes = {ev["args"]["correlation"]: ev["args"]["bytes"]
+                  for ev in json.loads(trace.read_text())["traceEvents"]
+                  if ev.get("cat") == "gpu_memcpy"}
+    host = [e for e in everything if e.device_type != cuda]
+    launched = {e.id: e.time_range.start for e in host
+                if LAUNCH_CALL.match(e.name)}
+    ranges = [(e.name, e.time_range.start, e.time_range.end) for e in host
+              if e.name.startswith("spdc_pipeline.")]
+
+    def where(event):
+        at = launched[event.id]
+        return next((name for name, lo, hi in ranges if lo <= at <= hi), None)
+
+    copies = [e for e in events if e.name.startswith("Memcpy")
+              and ("DtoD" in e.name or "PtoP" in e.name)]
+    relay = sorted((e for e in copies if where(e) == RELAY_RANGE),
+                   key=lambda e: launched[e.id])
+    scattered = sum(where(e) == SCATTER_RANGE for e in copies)
+    hops = list(mesh.hops)
+    check(len(relay) == len(hops),
+          f"{len(relay)} relay copies on the card, {len(hops)} hops logged")
+    check([nbytes.get(e.id) for e in relay] == [h.nbytes for h in hops],
+          "relay copies' bytes differ from the hop log's")
+    check(len(copies) == len(relay) + scattered and scattered <= N_SERVERS,
+          f"device copies outside the relay: {len(copies) - len(relay)}")
+    kernels = [e for e in events if not e.name.startswith(("Memcpy", "Memset"))]
+    streams = {}
+    for slot in mesh.slots:
+        ids = {e.device_resource_id for e in kernels
+               if where(e) == f"{SLOT_RANGE}{slot.index}"}
+        check(len(ids) == 1, f"slot {slot.index}'s kernels on streams {ids}")
+        streams[slot.index] = ids.pop()
+    check(len(set(streams.values())) == N_SERVERS,
+          f"slots share a stream: {streams}")
+    check(all(e.device_resource_id == streams[h.dst]
+              for e, h in zip(relay, hops)),
+          "a relay copy ran off its receiver's stream")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, -math.inf
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return {"device_copies": len(copies), "relay_copies": len(relay),
+            "scatter_copies": scattered,
+            "hop_device_ms": sum(e.time_range.elapsed_us() for e in relay) / 1e3,
+            "hop_bytes": sum(h.nbytes for h in hops),
+            "slot_kernels": {i: sum(where(e) == f"{SLOT_RANGE}{i}"
+                                    for e in kernels) for i in streams},
+            "device_events": len(events), "sweep_s": host_s,
+            "busy_share": busy / (host_s * 1e6)}
+
+
+def phase_pipeline(rng, dev) -> tuple[dict, dict]:
+    """The multi-device pipeline (distributed=True: the shardmap
+    transport, N slots on the card, each on a stream of its own, the
+    relay a device copy a hop): n = 4096 f64 through the protocol,
+    verified with the inline run's determinant and verdict; each program's
+    factors against the inline sweep's on the session's ciphertext, its
+    launches, warm wall and one profiled sweep (pipeline_trace); a
+    16 x 1024 stack, n = 4096 in f32 and server 2's dropout healed; the
+    panel and both solves against their plain versions at the shapes
+    the phase gave them. Returns the single run's launches and its row
+    solve (operands and calls) for the kernels line."""
+    import repro_torch
+    from repro_torch import ServerFault, SPDCClient
+    from repro_torch.core.decipher import Determinant
+    from repro_torch.core.lu import lu_nserver, slogdet_from_lu
+    from repro_torch.core.verify import authenticate
+    from repro_torch.distrib.spdc_pipeline import (ServerMesh,
+                                                   lu_nserver_shardmap,
+                                                   pipeline_collective_bytes)
+    from repro_torch.kernels import ops, ref
+
+    started = time.perf_counter()
+    m = dominant(rng, (SINGLE_N, SINGLE_N))
+    (res, operands), launches = run_counted(ops, lambda: kernel_operands(
+        ops, lambda: repro_torch.outsource_determinant(m, N_SERVERS,
+                                                       distributed=True)))
+    want_counts = expected_pipeline_launches(SINGLE_N)
+    check(launches["ced"] == 1, f"pipeline ced launches {launches['ced']}")
+    for name, count in want_counts.items():
+        check(launches[name] == count,
+              f"pipeline {name} launches {launches[name]} != {count}")
+    inline = repro_torch.outsource_determinant(m, N_SERVERS)
+    want = slogdet_det(torch.from_numpy(m).to(dev))
+    check(res.verified and inline.verified, "pipeline verified")
+    # equal to the inline run's at the bar recovery holds a healed
+    # determinant to (the factors differ in rounding: the Schur terms'
+    # shapes differ), and within the protocol's gate of slogdet
+    check(res.det.sign == inline.det.sign
+          and math.isclose(res.det.logabs, inline.det.logabs, rel_tol=1e-10,
+                           abs_tol=0.0),
+          f"pipeline det {res.det} vs inline {inline.det}")
+    check(res.det.allclose(want), f"pipeline det {res.det} vs slogdet {want}")
+    check(res.comm is None and res.report.verdict.culprit
+          == inline.report.verdict.culprit, "pipeline verdict")
+
+    # each program on the session's ciphertext: verified, launches, the
+    # determinant, warm wall and one profiled sweep; and on the plaintext,
+    # whose LU has no growth, its factors against the inline sweep's.
+    # The ciphertext's rotation can give the no-pivot LU a large growth,
+    # under which no two LU orders agree to 1e-10 (ROADMAP §C), so the
+    # factor bar holds where it means something, and the ciphertext's
+    # factors are held by Authenticate and their determinant
+    session = SPDCClient().open_session(m, N_SERVERS)
+    x_aug, x_plain = session.x_aug, torch.from_numpy(m).to(dev)
+    l_in, u_in, _ = lu_nserver(x_aug, N_SERVERS)
+    l_pl, u_pl, _ = lu_nserver(x_plain, N_SERVERS)
+    growth = float(u_in.abs().max() / x_aug.abs().max())
+    want_aug = slogdet_det(x_aug)
+    inline_s = [wall(lambda: lu_nserver(x_aug, N_SERVERS))[1] for _ in range(3)]
+    programs = {}
+    for program in PIPELINE_PROGRAMS:
+        mesh = ServerMesh(N_SERVERS)
+
+        def sweep(x=x_aug, mesh=mesh, program=program):
+            return lu_nserver_shardmap(x, N_SERVERS, mesh=mesh,
+                                       program=program)
+
+        (l, u), counts = run_counted(ops, sweep)
+        for name, count in want_counts.items():
+            check(counts[name] == count,
+                  f"{program} {name} launches {counts[name]} != {count}")
+        verdict = authenticate(l, u, x_aug, num_servers=N_SERVERS,
+                               method="q3", rng=np.random.default_rng(0))
+        sign, logabs = slogdet_from_lu(l, u)
+        det = Determinant(float(sign), float(logabs))
+        check(bool(verdict.ok), f"{program}: Authenticate rejected")
+        check(det.allclose(want_aug), f"{program} det {det} vs {want_aug}")
+        pl, pu = sweep(x_plain)
+        rel = max(max_err(pl, l_pl)[1], max_err(pu, u_pl)[1])
+        check(rel <= PIPELINE_RTOL, f"{program} factors {rel} from inline")
+        model = pipeline_collective_bytes(SINGLE_N, N_SERVERS)
+        live = sum(h.nbytes for h in mesh.hops if h.src == h.round)
+        programs[program] = {
+            "verified_q3": bool(verdict.ok), "residual": float(verdict.residual),
+            "dlogabs_vs_slogdet": det.logabs - want_aug.logabs,
+            "max_rel_diff_vs_inline": {
+                "plaintext": rel,
+                "ciphertext": max(max_err(l, l_in)[1], max_err(u, u_in)[1])},
+            "bit_equal_to_inline": {
+                "plaintext": same_factors((pl, pu), (l_pl, u_pl)),
+                "ciphertext": same_factors((l, u), (l_in, u_in))},
+            "launches": {k: counts[k] for k in SERVER_PATH},
+            "warm_wall_s": [wall(sweep)[1] for _ in range(3)],
+            "hops": len(mesh.hops), "live_edge_bytes": live,
+            **pipeline_trace(sweep, mesh),
+            "model_relay_bytes": model["relay_bytes"],
+            "model_paper_exact_bytes": model["paper_exact_bytes"]}
+
+    stack = dominant(rng, (BATCH, BATCH_N, BATCH_N))
+    (sres, stack_operands), stack_launches = run_counted(
+        ops, lambda: kernel_operands(ops, lambda: repro_torch.outsource_determinant(
+            stack, N_SERVERS, distributed=True)))
+    swant = slogdet_det(torch.from_numpy(stack).to(dev))
+    check(bool(sres.verified.all()), f"pipeline stack verified {sres.verified}")
+    check(all(g.allclose(w) for g, w in zip(sres.dets, swant)),
+          "pipeline stack dets")
+    for name, count in expected_pipeline_launches(BATCH_N).items():
+        check(stack_launches[name] == count,
+              f"pipeline stack {name} launches {stack_launches[name]}")
+
+    m32 = dominant(rng, (SINGLE_N, SINGLE_N))
+    f32, f32_launches = run_counted(ops, lambda: repro_torch.outsource_determinant(
+        m32, N_SERVERS, dtype="float32", distributed=True))
+    want32 = slogdet_det(torch.from_numpy(m32).to(dev))
+    f32_dlog = f32.det.logabs - want32.logabs
+    check(f32.verified and f32.det.sign == want32.sign
+          and abs(f32_dlog) <= F32_DLOG, f"pipeline f32 {f32.det} vs {want32}")
+
+    healed = repro_torch.outsource_determinant(
+        m, N_SERVERS, distributed=True, recover=True, standby=1,
+        faults=ServerFault(server=2, kind="dropout"))
+    recovery = recovery_case(healed, res, "pipeline")
+
+    # the panel and both solves against their plain versions on the
+    # operands the single and the stack runs gave them
+    errs, vs_plain, by_key = {}, [], {}
+    for key, (calls, args) in {**operands, **stack_operands}.items():
+        name, *shapes = key
+        abs_err, rel_err = max_err(getattr(ops, name)(*args),
+                                   getattr(ref, f"{name}_ref")(*args))
+        check(rel_err <= RTOL, f"pipeline {name} {shapes}: {rel_err}")
+        errs[name] = max(errs.get(name, 0.0), abs_err)
+        by_key[key] = abs_err
+        vs_plain.append({"kernel": name, "shapes": shapes, "calls": calls,
+                         "max_abs_err": abs_err, "max_rel_err": rel_err})
+    torch.cuda.synchronize()
+    row_key = next(key for key in operands
+                   if key[0] == "trsm_lower" and key[2][-1] == SINGLE_N)
+    phase_s = time.perf_counter() - started
+    emit({"phase": "pipeline", "n": SINGLE_N, "servers": N_SERVERS,
+          "dtype": "float64", "verified": res.verified,
+          "rotate_k": res.meta.rotate_k, "growth_max_u_over_max_x": growth,
+          "logabs": res.det.logabs, "inline_logabs": inline.det.logabs,
+          "slogdet_logabs": want.logabs, "launches": launches,
+          "expected_launches": want_counts,
+          "inline_sweep_warm_wall_s": inline_s, "programs": programs,
+          "stack": {"shape": [BATCH, BATCH_N, BATCH_N],
+                    "verified": int(sres.verified.sum()),
+                    "launches": stack_launches,
+                    "warm_wall_s": wall(lambda: repro_torch.outsource_determinant(
+                        stack, N_SERVERS, distributed=True))[1]},
+          "f32": {"n": SINGLE_N, "verified": f32.verified,
+                  "dlogabs_vs_f64_slogdet": f32_dlog, "launches": f32_launches},
+          "recovery_dropout_server2": recovery,
+          "kernel_vs_plain": {"max_abs_err": errs, "cases": len(vs_plain),
+                              "tolerance": RTOL,
+                              "largest": [c for c in vs_plain
+                                          if max(s[-1] for s in c["shapes"])
+                                          >= BATCH_N]},
+          "phase_s": phase_s})
+    check(phase_s <= PIPELINE_BUDGET_S,
+          f"the pipeline phase took {phase_s:.1f} s")
+    return launches, {"calls": operands[row_key][0],
+                      "operands": operands[row_key][1],
+                      "max_abs_err": by_key[row_key]}
+
+
 def flash_inputs(rng, dev, dtype, b, hq, hkv, sq, sk, d, cache_len=None):
     """q, k, v as the serving path passes them: (B, H, S, D) views of
     (B, S, H, D) tensors; with cache_len, k and v are the first sk slots
@@ -2782,12 +3101,14 @@ def serve_profile(model, prefill, batch) -> dict:
 
 # ---------------------------------------------------------------------------
 def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
-                 trisolve_operands, gateway_flush: dict) -> dict:
+                 trisolve_operands, gateway_flush: dict,
+                 row_solve_operands) -> dict:
     """Time each kernel, its plain version and the library call at the
     phase-3 shapes, beside its bound; `strips` holds phase 3's strip
     launches of each TRSM wrapper, `trisolve_operands` the linalg phase's
     factors and a right-hand side at its inverse round's chunk shape,
-    `gateway_flush` the launches of the gateway phase's full flush."""
+    `gateway_flush` the launches of the gateway phase's full flush,
+    `row_solve_operands` the pipeline phase's first block-row solve."""
     from repro_torch.kernels import flash_attn, ops, ref, trsm
 
     f64 = torch.float64
@@ -2912,6 +3233,24 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         10, 3, (b * (b + 1) / 2 + 2 * b * b) * 8, b * b * b,
         expect_launches=trsm.cuda_launches(b), strip_case=strip_upper,
         note="the lower solver on the transposed problem (trsm.cu)")
+    # the pipeline's block-row solve (L_ii against the server's whole
+    # Schur-updated row), on the operands the pipeline phase gave it
+    lii, srow = row_solve_operands
+    rb, rn = srow.shape[-2], srow.shape[-1]
+    row("trsm_lower:row_solve", "trsm.cu", "src/repro/kernels/trsm.py:74",
+        [rb, rb, rn], lambda: ops.trsm_lower(lii, srow),
+        lambda: ref.trsm_lower_ref(lii, srow),
+        lambda: torch.linalg.solve_triangular(lii, srow, upper=False,
+                                              unitriangular=True),
+        10, 2, (rb * (rb - 1) / 2 + 2 * rb * rn) * 8, rb * (rb - 1) * rn,
+        expect_launches=trsm.cuda_launches(rb),
+        note="the pipeline's row solve (distributed=True): each server "
+             "solves L_ii against its whole (b, n) Schur-updated row on its "
+             "slot's stream, the reference's solve_triangular in "
+             "_server_program (src/repro/distrib/spdc_pipeline.py:132); "
+             "launches: wrapper calls in the pipeline phase's single run, "
+             "one per server; the library call is a yardstick the port "
+             "never calls")
     # the trisolve legs on the linalg phase's factors, at its inverse
     # round's chunk shape (n' x n' against n' x n'/N)
     l_f, u_f, rhs_f = trisolve_operands
@@ -3155,6 +3494,7 @@ def main() -> int:
     rng_socket = np.random.default_rng([args.seed, 2])
     rng_linalg = np.random.default_rng([args.seed, 3])
     rng_gateway = np.random.default_rng([args.seed, 4])
+    rng_pipeline = np.random.default_rng([args.seed, 5])
     dev = torch.device("cuda", torch.cuda.current_device())
 
     phase_build()
@@ -3188,6 +3528,8 @@ def main() -> int:
     per_phase["sequential_f32_f64"] = (seq_routes["f32_f64"], SEQUENTIAL_PATH)
     per_phase["recovery"] = (phase_recovery(rng_routes, dev, mp_recovery),
                              MAIN_PATH)
+    per_phase["pipeline"], row_solve = phase_pipeline(rng_pipeline, dev)
+    per_phase["pipeline"] = (per_phase["pipeline"], MAIN_PATH)
     # the daemons launch the server kernels in their own processes
     socket_launches, rateless_launches, gateway, linalg = phase_daemons(
         rng_socket, dev, rng_linalg, rng_gateway)
@@ -3221,8 +3563,10 @@ def main() -> int:
     launches["flash_attention:f32"] = f32_flash_launches
     for leg in TRISOLVE_LEGS:
         launches[f"trsm:trisolve_{leg}"] = linalg["legs"][leg]
+    launches["trsm_lower:row_solve"] = row_solve["calls"]
+    errs["trsm_lower:row_solve"] = row_solve["max_abs_err"]
     line = kernels_line(rng, dev, launches, errs, strips, linalg["operands"],
-                        gateway["flush"])
+                        gateway["flush"], row_solve["operands"])
     emit({"phase": "run", "wall_s": time.perf_counter() - started,
           "profile_windows": PROFILE_WINDOWS})
     emit(line)

@@ -10,8 +10,9 @@
     (messages.py) and the codec (wire.py) — what crosses the boundary,
     as versioned pickle-free byte frames;
   * transports (transport.py, socket_transport.py) — inline (the fused
-    sweep), threadpool, multiprocess and socket (warm worker daemons
-    over TCP/UDS), selected by name, `TransportConfig` or instance
+    sweep), shardmap (the multi-device pipeline), threadpool,
+    multiprocess and socket (warm worker daemons over TCP/UDS),
+    selected by name, `TransportConfig` or instance
     through `resolve_transport`; `Transport.solve_shards` runs one
     triangular-solve round on any of them.
 """
@@ -27,6 +28,7 @@ from .server import EdgeServer
 from .transport import (
     InlineTransport,
     MultiprocessTransport,
+    ShardMapTransport,
     ThreadPoolTransport,
     Transport,
     TransportConfig,
@@ -46,7 +48,8 @@ __all__ = [
     "FaultPlanFrame",
     "Transport", "TransportConfig", "TransportError", "TransportTimeout",
     "TransportWorkerDied", "TransportProtocolError",
-    "InlineTransport", "ThreadPoolTransport", "MultiprocessTransport",
+    "InlineTransport", "ShardMapTransport", "ThreadPoolTransport",
+    "MultiprocessTransport",
     "SocketTransport", "WorkerDaemon",
     "resolve_transport", "close_all",
     "WireError", "decode_message",

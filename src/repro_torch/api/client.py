@@ -527,7 +527,7 @@ class Session:
             x_row=self.x_aug[..., s0 : s0 + b, :]
             .detach().to("cpu", copy=True).numpy(),
             subseed=dispatch_subseed(self.digest, server, attempt),
-            style="nserver",
+            style=self._style,
             attempt=attempt,
             u_upstream=u[..., :s0, :].detach().to("cpu", copy=True).numpy(),
             session_id=self.session_id,
@@ -621,6 +621,11 @@ class Session:
 
     # -- execution -----------------------------------------------------------
 
+    #: the core.lu.lu_block_row operation order of the factors being
+    #: verified: the transport's, "nserver" for the rateless scheduler's
+    #: strips; repairs replay it
+    _style: str = "nserver"
+
     def _resolve_transport(self, transport):
         """None falls back to the client's configured transport (itself
         defaulting to inline); names resolve on the client's device."""
@@ -632,6 +637,7 @@ class Session:
         """The rateless scheduler's factors, on the session's device."""
         from ..distrib.rateless import run_rateless
 
+        self._style = "nserver"  # the scheduler's strip primitive
         l_host, u_host, self.fleet_report = run_rateless(
             self, transport, self.client.rateless, self.client.fleet,
             faults=self.plan,
@@ -646,6 +652,7 @@ class Session:
         fused sweep has no per-strip dispatch for health tracking to
         steer (distrib.rateless; DESIGN.md §8)."""
         transport = self._resolve_transport(transport)
+        self._style = transport.style
         t0 = time.perf_counter()
         if self.num_strips is not None:
             l, u = self._rateless(transport)
@@ -667,8 +674,10 @@ class Session:
         session's wire time; fused transports complete the future here.
         A rateless session's scheduler runs on the driver threads."""
         transport = self._resolve_transport(transport)
+        self._style = transport.style
         t0 = time.perf_counter()
         if self.num_strips is not None:
+            self._style = "nserver"
 
             def drive_rateless():
                 out = self._rateless(transport)
@@ -736,6 +745,8 @@ class Session:
         from ..distrib.recovery import recover_lu
 
         t_collect = time.perf_counter()
+        transport = self._resolve_transport(transport)
+        self._style = transport.style
         if (isinstance(results, tuple) and len(results) == 2
                 and not isinstance(results[0], ShardResult)):
             l, u = results
@@ -752,15 +763,15 @@ class Session:
             l, u, verdict, report = recover_lu(
                 l, u, self.x_aug, num_servers=self.partitions,
                 method=self.client.method, standby=self.client.standby,
-                digest=self.digest, verdict=verdict,
-                dispatch=self._repair_dispatch(
-                    self._resolve_transport(transport)),
+                digest=self.digest, style=self._style, verdict=verdict,
+                dispatch=self._repair_dispatch(transport),
             )
         if self.keep_factors:
             # after recovery: every later trisolve round goes through the
             # healed factors Authenticate accepted
             self._factors = (l, u)
-        comm = nserver_comm_model(self.n_aug, self.partitions)
+        comm = (None if transport.style == "pipeline"
+                else nserver_comm_model(self.n_aug, self.partitions))
 
         def build_report() -> SPDCReport:
             collect_s = time.perf_counter() - t_collect

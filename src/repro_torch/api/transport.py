@@ -14,8 +14,9 @@ the wire physically is:
   * ``SocketTransport`` (socket_transport.py) — warm worker daemons
     reached over TCP or Unix sockets, the same frames length-prefixed.
 
-The shard_map pipeline (ROADMAP A12) is not ported; naming it raises
-NotImplementedError.
+  * ``ShardMapTransport``     — the multi-device pipeline
+    (distrib.spdc_pipeline): one mesh slot per server, each with a stream
+    of its own on the CUDA device, the relay a device copy per hop.
 
 Dispatch surface: ``start(task, worker_id) -> Future`` ships one
 ShardTask to one worker; ``result(future, timeout)`` resolves it;
@@ -75,6 +76,7 @@ __all__ = [
     "InlineTransport",
     "ThreadPoolTransport",
     "MultiprocessTransport",
+    "ShardMapTransport",
     "resolve_transport",
     "close_all",
 ]
@@ -288,6 +290,51 @@ class InlineTransport(Transport):
         except Exception as e:  # noqa: BLE001 — future carries it
             fut.set_exception(e)
         return fut
+
+
+class ShardMapTransport(Transport):
+    """distrib.spdc_pipeline as a transport: one mesh slot per server,
+    each on `device` with a stream of its own (None = the CUDA device,
+    "cpu" for the plain path), the relay a device copy per hop
+    (DESIGN.md §2). Fused: the sweep is one pipeline program (`program`:
+    "baseline", "exact" or "stream"); repairs recompute one block row on
+    an EdgeServer in the pipeline's operation order ("pipeline" style).
+    `mesh(N)` is the mesh of the N-server sweeps, whose `hops` log the
+    last sweep's relay."""
+
+    name = "shardmap"
+    fused = True
+    style = "pipeline"
+
+    def __init__(self, program: str = "baseline", *, device=None):
+        self.program = program
+        self.device = device
+        self._meshes: dict = {}  #: guarded-by: self._lock
+        self._lock = threading.Lock()
+
+    def mesh(self, num_servers: int):
+        """The mesh of this transport's N-server sweeps, built at first
+        use on the transport's device."""
+        from ..distrib.spdc_pipeline import ServerMesh
+
+        with self._lock:
+            if num_servers not in self._meshes:
+                self._meshes[num_servers] = ServerMesh(num_servers,
+                                                       self.device)
+            return self._meshes[num_servers]
+
+    def sweep(self, x_aug, num_servers: int, faults=()):
+        self._ensure_open()
+        from ..distrib.spdc_pipeline import lu_nserver_shardmap
+
+        return lu_nserver_shardmap(
+            x_aug, num_servers, mesh=self.mesh(num_servers),
+            program=self.program, faults=faults,
+        )
+
+    def repair(self, task, *, replacement):
+        self._ensure_open()
+        return EdgeServer(replacement, device=self.device).run(task)
 
 
 def _run_relay(tasks, execute) -> list[ShardResult]:
@@ -598,13 +645,6 @@ class MultiprocessTransport(Transport):
         super().close()
 
 
-def _not_ported(name: str, item: str):
-    def factory(**kwargs):
-        raise NotImplementedError(f"transport {name!r}: ROADMAP {item}")
-
-    return factory
-
-
 def _socket_transport(**kwargs) -> Transport:
     # socket_transport imports this module; the factory imports it late
     from .socket_transport import SocketTransport
@@ -614,7 +654,7 @@ def _socket_transport(**kwargs) -> Transport:
 
 _FACTORIES = {
     "inline": InlineTransport,
-    "shardmap": _not_ported("shardmap", "A12"),
+    "shardmap": ShardMapTransport,
     "threadpool": ThreadPoolTransport,
     "multiprocess": MultiprocessTransport,
     "socket": _socket_transport,
@@ -625,15 +665,14 @@ _FACTORIES = {
 class TransportConfig:
     """Declarative transport spec — the third leg of `resolve_transport`.
 
-    name: "inline" | "shardmap" | "threadpool" | "multiprocess" | "socket"
-        (shardmap is not ported and raises when built; its `program`
-        field comes with it, ROADMAP A12).
+    name: "inline" | "shardmap" | "threadpool" | "multiprocess" | "socket".
     addresses: socket only — the worker fleet's endpoints
         ("tcp://host:port" / "unix:///path.sock"), worker_id i connecting
         to addresses[i % len]. Empty = spawn local warm UDS daemons on
         demand, computing on the build's device.
     timeout: default per-request deadline (multiprocess / socket).
     max_workers: thread pool width (threadpool only).
+    program: relay program (shardmap only).
 
     `build(device=)` returns a fresh instance the caller owns (and must
     close); `resolve_transport(config)` instead returns a process-wide
@@ -644,6 +683,7 @@ class TransportConfig:
     addresses: tuple[str, ...] = ()
     timeout: float | None = None
     max_workers: int | None = None
+    program: str | None = None
 
     def __post_init__(self):
         if self.name not in _FACTORIES:
@@ -657,6 +697,8 @@ class TransportConfig:
             raise ValueError("addresses= applies to the socket transport")
         if self.max_workers is not None and self.name != "threadpool":
             raise ValueError("max_workers= applies to threadpool")
+        if self.program is not None and self.name != "shardmap":
+            raise ValueError("program= applies to shardmap")
         if self.timeout is not None and self.name not in (
             "multiprocess", "socket",
         ):
@@ -674,6 +716,8 @@ class TransportConfig:
             kwargs["timeout"] = self.timeout
         if self.max_workers is not None:
             kwargs["max_workers"] = self.max_workers
+        if self.program is not None:
+            kwargs["program"] = self.program
         return _FACTORIES[self.name](device=device, **kwargs)
 
 
@@ -681,14 +725,15 @@ _SHARED: dict[object, Transport] = {}
 _SHARED_LOCK = threading.Lock()
 
 
-def resolve_transport(spec=None, *, device=None) -> Transport:
+def resolve_transport(spec=None, *, distributed: bool = False,
+                      device=None) -> Transport:
     """The transport resolver — every `transport=` argument funnels here.
 
-      * None          → inline;
-      * a name string from {"inline", "threadpool", "multiprocess",
-        "socket"} → the process-wide shared instance on `device` (the
-        bare "socket" self-hosts one daemon per worker on `device`;
-        "shardmap" raises NotImplementedError);
+      * None          → inline (or shardmap when `distributed=True`);
+      * a name string from {"inline", "shardmap", "threadpool",
+        "multiprocess", "socket"} → the process-wide shared instance on
+        `device` (the bare "socket" self-hosts one daemon per worker on
+        `device`);
       * a `TransportConfig` → a shared instance keyed by the config and
         the device (`config.build()` gives a fresh one);
       * a `Transport` instance → returned as is (caller-owned).
@@ -697,9 +742,19 @@ def resolve_transport(spec=None, *, device=None) -> Transport:
     `close_all()` (atexit) closes the whole registry.
     """
     if isinstance(spec, Transport):
+        if distributed and spec.name != "shardmap":
+            raise ValueError(
+                "distributed=True conflicts with an explicit non-shardmap "
+                f"transport ({spec.name!r}); drop one of the two"
+            )
         return spec
     if spec is None:
-        spec = "inline"
+        spec = "shardmap" if distributed else "inline"
+    elif distributed and getattr(spec, "name", spec) != "shardmap":
+        raise ValueError(
+            f"distributed=True conflicts with transport={spec!r}; "
+            "pass transport='shardmap' (or drop distributed)"
+        )
     where = None if device is None else str(torch.device(device))
     if isinstance(spec, TransportConfig):
         with _SHARED_LOCK:

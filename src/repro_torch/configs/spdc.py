@@ -105,8 +105,7 @@ class SPDCConfig:
     # "multiprocess" (spawned workers, wire-codec messages) | "socket"
     # (warm worker daemons over TCP/UDS) — or an api.TransportConfig
     # (declarative: name + addresses + timeout; frozen/hashable, so this
-    # config stays hashable). Resolved by api.resolve_transport; the
-    # shardmap name is not ported (ROADMAP A12) and raises there.
+    # config stays hashable). Resolved by api.resolve_transport.
     transport: object = "inline"
     # rateless straggler-adaptive dispatch (DESIGN.md §8): over-decompose
     # into F > N strips and stream them to whichever workers are free —

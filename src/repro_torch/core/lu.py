@@ -344,8 +344,9 @@ def lu_block_row(
         rows on the same device: every product multiplies the same
         contiguous (b, b) blocks lu_nserver multiplies, so the device
         library sees the same problem.
-      * "pipeline" — full-row matmul accumulation, the shard_map server
-        program's order.
+      * "pipeline" — full-row matmul accumulation, the pipeline server
+        program's order (distrib.spdc_pipeline): one solve of the whole
+        row, its diagonal block the factorization's U_ii.
     """
     n = x.shape[-1]
     N = num_servers
@@ -369,10 +370,11 @@ def lu_block_row(
             ukk = u_above[..., kb : kb + b, kb : kb + b]
             l_row[..., :, kb : kb + b] = _trsm_right_upper(ukk, acc)
         s = x_row - l_row @ u_above
-        lii, _ = lu_diag_factor(s[..., :, s0 : s0 + b])
+        lii, uii = lu_diag_factor(s[..., :, s0 : s0 + b])
         l_row[..., :, s0 : s0 + b] = lii
         u_row = ops.trsm_lower(lii, s)
         u_row[..., :, :s0] = 0
+        u_row[..., :, s0 : s0 + b] = uii
         return l_row, u_row
 
     def blk(a, i, j):

@@ -246,13 +246,13 @@ def outsource_determinant_mixed(
 def _outsource(m, num_servers, *, pad_to, distributed, faults, tamper,
                transport, **client_kwargs):
     """The one-call facade's body: a client, its session, one run."""
-    from ..api import SPDCClient
+    from ..api import SPDCClient, resolve_transport
 
-    if distributed:
-        raise NotImplementedError("the shard_map pipeline: ROADMAP A12")
-    session = SPDCClient(**client_kwargs).open_session(
+    client = SPDCClient(**client_kwargs)
+    session = client.open_session(
         m, num_servers, faults=faults, tamper=tamper, pad_to=pad_to)
-    return session.run(transport)
+    return session.run(resolve_transport(
+        transport, distributed=distributed, device=client.device))
 
 
 def outsource_determinant(
@@ -290,6 +290,10 @@ def outsource_determinant(
     mode: "ewd" (row-divide by v, the paper's default) or "ewm".
     method: Authenticate residual — "q1", "q2", "q3" (default) or
         "q3_literal" (DESIGN.md §1.1.4).
+    distributed: route Parallelize through the multi-device pipeline
+        (distrib.spdc_pipeline: one mesh slot per server, each with a
+        stream of its own on the device); the same as
+        transport="shardmap". DESIGN.md §2.
     faithful_sign: the paper's literal (−1)^k Decipher sign
         (DESIGN.md §1.1.3).
     tamper: optional fn (L, U) -> (L, U) applied to the servers' factors
@@ -310,7 +314,8 @@ def outsource_determinant(
     growth_safe / equilibrate: growth controls (DESIGN.md §6); None = on
         below float64, off for float64.
     transport: None or "inline" (the fused in-process sweep),
-        "threadpool", "multiprocess", "socket" (warm worker daemons;
+        "shardmap" (the multi-device pipeline), "threadpool",
+        "multiprocess", "socket" (warm worker daemons;
         the bare name self-hosts one local daemon per worker), a
         TransportConfig (`TransportConfig("socket", addresses=...)`
         reaches running daemons), or a Transport instance; names and
@@ -323,9 +328,6 @@ def outsource_determinant(
         `report.fleet`.
     device: where the protocol computes; None = the CUDA device
         (RuntimeError without one), "cpu" for the plain path.
-
-    Not ported yet, and raising NotImplementedError: distributed= and the
-    shardmap transport (ROADMAP A12).
 
     Returns SPDCResult for one matrix, SPDCBatchResult for a stack or a
     list.

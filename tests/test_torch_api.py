@@ -25,6 +25,7 @@ from repro_torch.api import (
     EdgeServer,
     InlineTransport,
     MultiprocessTransport,
+    ShardMapTransport,
     ShardResult,
     ShardTask,
     SocketTransport,
@@ -191,8 +192,18 @@ def test_resolve_transport_rules():
     assert resolve_transport(inst) is inst
     with pytest.raises(ValueError, match="unknown transport"):
         resolve_transport("carrier-pigeon")
-    with pytest.raises(NotImplementedError, match="A12"):
-        resolve_transport("shardmap")
+    # "shardmap" (ROADMAP A12, ported; it raised before) resolves to one
+    # shared pipeline transport per device, as distributed=True does
+    sm = resolve_transport("shardmap", device=CPU)
+    assert isinstance(sm, ShardMapTransport) and sm.name == "shardmap"
+    assert sm.fused and sm.style == "pipeline" and sm.program == "baseline"
+    assert sm is resolve_transport(None, distributed=True, device=CPU)
+    assert resolve_transport(None, distributed=True).name == "shardmap"
+    with pytest.raises(ValueError, match="conflicts"):
+        resolve_transport("threadpool", distributed=True)
+    with pytest.raises(ValueError, match="conflicts"):
+        resolve_transport(inst, distributed=True)
+    assert resolve_transport(sm, distributed=True) is sm
     # "socket" (ROADMAP A9, ported) resolves to one shared self-hosting
     # transport per device; its daemons spawn at the first dispatch only
     sock = resolve_transport("socket", device=CPU)

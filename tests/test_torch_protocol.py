@@ -265,13 +265,21 @@ def test_recover_flag_runs_recovery(kwargs, replaced):
     assert got.det.allclose(Determinant(float(sign), float(logabs)))
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    ({"transport": "shardmap"}, "A12"),
-    ({"distributed": True}, "A12"),
-])
-def test_unported_features_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        repro_torch.outsource_determinant(_matrix(8, 0), 2, device=CPU, **kwargs)
+@pytest.mark.parametrize("kwargs", [
+    {"transport": "shardmap"},
+    {"distributed": True},
+], ids=["shardmap", "distributed"])
+def test_unported_features_raise(kwargs):
+    """transport="shardmap" and distributed=True (ROADMAP A12, ported;
+    they raised before): verified, the determinant and the verdict the
+    reference's distributed run gives on the same input, no comm log
+    (the pipeline's relay is the hop log of its mesh)."""
+    m = _matrix(8, 0)
+    got = repro_torch.outsource_determinant(m, 2, device=CPU, **kwargs)
+    want = r_protocol.outsource_determinant(m, 2, **kwargs)
+    assert got.verified and want.verified
+    assert _same_det(got.det, want.det)
+    assert got.comm is None and want.comm is None
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -303,8 +311,9 @@ def test_a9_features_match_reference(kwargs):
 
 def test_mixed_size_list_raises():
     """Mixed-size lists run (ROADMAP A11, ported; they raised before):
-    verified, with the reference's determinants and paddings. What still
-    raises is a list the schedule cannot serve, and distributed=."""
+    verified, with the reference's determinants and paddings, inline and
+    with distributed= (ROADMAP A12, ported). What still raises is a list
+    the schedule cannot serve."""
     ms = [_matrix(8, 0), _matrix(6, 1)]
     got = repro_torch.outsource_determinant(ms, 2, device=CPU)
     want = r_protocol.outsource_determinant(ms, 2)
@@ -314,8 +323,12 @@ def test_mixed_size_list_raises():
     assert all(_same_det(g, w) for g, w in zip(got.dets, want.dets))
     with pytest.raises(ValueError, match="pad_to"):
         repro_torch.outsource_determinant_mixed(ms, 2, pad_to=7, device=CPU)
-    with pytest.raises(NotImplementedError, match="A12"):
-        repro_torch.outsource_determinant(ms, 2, distributed=True, device=CPU)
+    got = repro_torch.outsource_determinant(ms, 2, distributed=True,
+                                            device=CPU)
+    want = r_protocol.outsource_determinant(ms, 2, distributed=True)
+    assert got.verified.all() and np.asarray(want.verified).all()
+    assert got.paddings == want.paddings == [0, 2]
+    assert all(_same_det(g, w) for g, w in zip(got.dets, want.dets))
 
 
 def test_lu_nserver_rejects_fault_plan_and_bad_partition():

@@ -1,8 +1,7 @@
 """Verification-driven recovery of the port against the JAX reference, on
 the CPU: localize → re-dispatch one shard → splice.
 
-Mirrors tests/test_recovery.py (except the shard_map case, ROADMAP A12)
-and the recovery cases of
+Mirrors tests/test_recovery.py and the recovery cases of
 tests/test_api.py (thread pool; worker processes at n = 16, one
 method). Both packages get the same numpy inputs, sized so the border is
 absent (p = 0) and the ciphertexts are bit-equal. Bars: the port's
@@ -157,6 +156,24 @@ def test_recovery_end_to_end_batched(kind):
     for got, want in zip(res.dets, honest.dets):
         assert got.sign == want.sign
         np.testing.assert_allclose(got.logabs, want.logabs, rtol=1e-10)
+
+
+def test_recovery_distributed_pipeline():
+    """Faults injected on the pipeline (distributed=True, ROADMAP A12)
+    heal the same way, repaired in the pipeline's operation order: the
+    first re-dispatch targets the faulty server with the reference's
+    event, within N rounds, and the determinant equals the honest one
+    at rtol 1e-10."""
+    m = _wellcond(32, seed=13)
+    honest = _port(m)
+    fault = ServerFault(server=2, kind="dropout")
+    res = _port(m, fault, distributed=True, recover=True, standby=1)
+    want = _ref(m, fault, distributed=True, recover=True, standby=1)
+    rep = res.report.recovery
+    assert res.verified and rep.ok and want.verified
+    assert rep.events[0].server == 2 and rep.rounds <= N
+    _same_report(rep, want.report.recovery)
+    np.testing.assert_allclose(res.det.logabs, honest.det.logabs, rtol=1e-10)
 
 
 def test_recovery_in_band_cascade():
