@@ -12,7 +12,9 @@ Phases, each printed as one JSON line:
    with another FMA contraction and summation order; a stack's last
    panel tile bit-equal to the same tile alone);
 3. `outsource_determinant` on one n = 4096 float64 matrix over N = 4
-   servers (q3, then q1 and q2), checked against torch.linalg.slogdet;
+   servers (q3, then q1 and q2), checked against torch.linalg.slogdet,
+   with Q3's cost on its factors (compensated against a working-precision
+   sum, `q3_cost`);
 4. a (16, 1024, 1024) float64 stack;
 5. n = 4094, which the border pads to 4096;
 6. tampered runs: q3 must reject the tampered matrix and only it;
@@ -56,7 +58,17 @@ Phases, each printed as one JSON line:
    plain prefill with the same weights; `greedy_generate` at the
    launcher's defaults (4 × 16 prompts, 32 new tokens), the path's own
    run, whose launches the kernels line reports; one warm prefill under
-   torch.profiler.
+   torch.profiler. Then each other model family at full width in bf16
+   (SERVE_MODELS: gemma3-1b, granite-moe-1b-a400m, mamba2-370m, llama4
+   at 4 layers, qwen2-vl at 2 layers, hubert-xlarge), counts set to 0
+   before each: prefill of 4 × 2048 (llama4: 1 × 16384, two chunks
+   folded into the batch) with a flash launch per attention layer, one
+   profiled; decode against prefill in bf16 (gemma3 over RING_LEN
+   tokens, past its window, so its rings wrap) and in f32 (windows cut
+   to F32_WINDOW), on the dense MoE; the f32 card prefill against the
+   CPU's; greedy generation for the token decoders; the flash launches
+   by route (FlashRoutes), and the kernel against its plain version at
+   the families' shapes (models_vs_plain).
 
 Then, from a random stream of their own (so the phases above keep their
 inputs), the f32 and mixed-precision slice and recovery, before phase 12:
@@ -195,7 +207,9 @@ the operands the pipeline phase gave it, launches from its single run), "<kernel
 path runs them: launches null, with a note), each with the device
 kernels' template names the profiler reports, and "flash_attention:f32"
 (the f32 kernel at the prefill and decode shapes, launched by phase 13's
-f32 runs). Each timing names the
+f32 runs), then "flash_attention:sliding", ":ring_decode", ":chunk_fold"
+and ":non_causal" at the model families' shapes, with the launches of
+each route over phase 13's family runs. Each timing names the
 profiler windows it took (profile_windows); the run line counts the
 timings that needed more than one and names their rows, counts the
 windows that lost a device event (each profiled again), and gives the
@@ -298,6 +312,35 @@ CPU_CHECK_LEN = 64
 #: prefill against the CPU's plain one: summation order again
 SERVE_TOL = {"decode_vs_prefill_bf16": 5e-2, "decode_vs_prefill_f32": 1e-4,
              "card_vs_cpu_f32": 1e-4}
+#: the bf16 decode-against-prefill bound of an arch whose depth and mixer
+#: take bf16's rounding past SERVE_TOL's: mamba2-370m's 48 SSD layers,
+#: whose chunked prefill rounds each layer's output to bf16 once more
+#: than the decode's recurrence (the reference's _ssd_chunked returns
+#: its input's dtype). The reference's own gap at full width is 0.0572,
+#: the port's 0.0593 on the same weights, the two packages' bf16 prefills
+#: 0.0551 apart (reference_serve_gap.py, CPU, 4 × 128 tokens)
+SERVE_TOL_BF16 = {"mamba2-370m": 1e-1}
+#: the model families the serve phase runs beside SERVE_ARCH, at full
+#: width, with their depth cut (None: full depth): qwen2-vl's 80 layers
+#: of width 8192 (72B parameters) and llama4's 48 (109B) do not fit the
+#: card, so they run a few layers
+SERVE_MODELS = (("gemma3-1b", None), ("granite-moe-1b-a400m", None),
+                ("mamba2-370m", None), ("llama4-scout-17b-a16e", 4),
+                ("qwen2-vl-72b", 2), ("hubert-xlarge", None))
+#: gemma3's bf16 decode against prefill runs this many tokens, past its
+#: 1024-token window, so its sliding layers' rings wrap
+RING_LEN = 1088
+#: the window the f32 decode against prefill (CONSISTENCY_LEN tokens) and
+#: the card-against-CPU prefill (CPU_CHECK_LEN tokens) cut local layers
+#: to, so that both run the local prefill and wrap the rings; llama4's
+#: bf16 run cuts its 8192-token chunks to F32_WINDOW too
+F32_WINDOW, CPU_WINDOW = 64, 16
+#: a prefill of one row past llama4's 8192-token chunk: two chunks,
+#: folded into the batch
+CHUNK_PREFILL = (1, 16384)
+#: the card-against-CPU check copies the f32 model to the host: models
+#: above this many parameters skip it (llama4's 4 layers hold 10.4B)
+CPU_CHECK_MAX_PARAMS = 2e9
 
 
 #: the mixed routes (the reference's acc_dtype): (route, storage type,
@@ -791,6 +834,7 @@ def phase_single(rng, dev) -> tuple[dict, dict]:
     warm = repro_torch.outsource_determinant(m, N_SERVERS)
     wall = time.perf_counter() - t0
     check(warm.verified and warm.det.allclose(want), "single warm run")
+    q3_cost = verify_cost(m)
     emit({"phase": "single", "n": SINGLE_N, "servers": N_SERVERS,
           "dtype": "float64", "method": "q3", "rotate_k": res.meta.rotate_k,
           "verified": res.verified, "residual": res.residual,
@@ -799,8 +843,30 @@ def phase_single(rng, dev) -> tuple[dict, dict]:
           "sign": res.det.sign, "launches": launches,
           "expected_launches": want_counts,
           "trsm_launches_by_triangle_rows": by_rows, "q1_q2": others,
-          "warm_wall_s": wall, "warm_timings": timings(warm)})
+          "warm_wall_s": wall, "warm_timings": timings(warm),
+          "q3_cost": q3_cost})
     return launches, strips
+
+
+def verify_cost(m: np.ndarray) -> dict:
+    """Authenticate's Q3 on the card at the single phase's shape: the
+    compensated sums (CUDA-event ms) against the working-precision sum
+    that Q3 used before them, on the same factors, with both residuals."""
+    from repro_torch.api import SPDCClient
+    from repro_torch.core.lu import lu_nserver
+    from repro_torch.core.verify import q3
+
+    x = SPDCClient().open_session(m, N_SERVERS).x_aug
+    l, u, _ = lu_nserver(x, N_SERVERS)
+
+    def working_precision():
+        diag = torch.einsum("...ij,...ji->...i", torch.tril(l), torch.triu(u))
+        return torch.abs(diag - torch.diagonal(x, dim1=-2, dim2=-1)).sum(dim=-1)
+
+    return {"n": x.shape[-1], "q3_ms": event_ms(lambda: q3(l, u, x), 10),
+            "working_precision_ms": event_ms(working_precision, 10),
+            "residual": float(q3(l, u, x)),
+            "working_precision_residual": float(working_precision())}
 
 
 def phase_batch(rng, dev) -> dict:
@@ -2987,10 +3053,12 @@ def decode_against_prefill(ops, model, cfg, tokens) -> dict:
             "flash_launches": launches["flash_attention"]}
 
 
-def phase_serve(rng, dev, seed: int) -> tuple[dict, int]:
-    """LM serving of tinyllama-1.1b at full width and depth on the card.
-    Returns the greedy run's launches and the f32 flash launches (the
-    f32 decode against prefill and the f32 card prefill)."""
+def phase_serve(rng, dev, seed: int) -> tuple[dict, int, tuple]:
+    """LM serving of tinyllama-1.1b at full width and depth on the card,
+    then of the other model families (serve_models). Returns the greedy
+    run's launches, the f32 flash launches (the f32 decode against
+    prefill and the f32 card prefill) and serve_models' (launches by
+    arch, flash launches by route)."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
@@ -3076,7 +3144,10 @@ def phase_serve(rng, dev, seed: int) -> tuple[dict, int]:
                      "sample": out[0, :24].tolist()},
           "launches": gen_launches, "phase_s": time.perf_counter() - phase_t0})
     emit(profile)
-    return gen_launches, f32["flash_launches"] + card_launches["flash_attention"]
+    # the other model families, each with its counts set to 0 before it
+    models = serve_models(dev, seed)
+    return (gen_launches, f32["flash_launches"] + card_launches["flash_attention"],
+            models)
 
 
 def serve_profile(model, prefill, batch) -> dict:
@@ -3097,6 +3168,314 @@ def serve_profile(model, prefill, batch) -> dict:
             "device_busy_share": busy_ms / (host_s * 1e3),
             "device_launches": sum(c for _, c in by_kernel.values()),
             "top_device_ms": {k: {"ms": v[0], "count": v[1]} for k, v in top}}
+
+
+class FlashRoutes:
+    """While installed, counts the flash kernel's launches by route: the
+    wrapper ops.flash_attention is wrapped, and so is the model's
+    attention function (blocks.attention), which tells it the layer kind
+    and phase that called. Routes: causal and non_causal prefill,
+    sliding (the window route), chunk_fold (a chunked layer's chunks
+    folded into the batch), decode over a full cache and ring_decode
+    over a local layer's ring."""
+
+    NAMES = ("causal", "non_causal", "sliding", "chunk_fold", "decode",
+             "ring_decode")
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.models import blocks
+
+        self.ops, self.blocks = ops, blocks
+        self.counts = dict.fromkeys(self.NAMES, 0)
+        self.caller = None
+
+    def __enter__(self):
+        ops, blocks = self.ops, self.blocks
+        self.saved = flash, attention = ops.flash_attention, blocks.attention
+
+        def layer(p, x, cfg, positions, *, kind="full", cache=None):
+            w = cfg.window
+            self.caller = (kind, cache is not None,
+                           bool(w) and 1 < w < x.shape[1])
+            try:
+                return attention(p, x, cfg, positions, kind=kind, cache=cache)
+            finally:
+                self.caller = None
+
+        def counting(q, k, v, *, causal=True, window=None, scale=None):
+            before = ops.LAUNCHES["flash_attention"]
+            out = flash(q, k, v, causal=causal, window=window, scale=scale)
+            kind, decode, local = self.caller or ("full", False, False)
+            if decode:
+                route = "decode" if kind == "full" else "ring_decode"
+            elif window is not None:
+                route = "sliding"
+            elif kind == "chunked" and local:
+                route = "chunk_fold"
+            else:
+                route = "causal" if causal else "non_causal"
+            self.counts[route] += ops.LAUNCHES["flash_attention"] - before
+            return out
+
+        ops.flash_attention, blocks.attention = counting, layer
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.flash_attention, self.blocks.attention = self.saved
+        return False
+
+
+def model_inputs(cfg, dev, b: int, s: int, seed: int, stream: int) -> dict:
+    """A prompt batch for cfg: SyntheticLM tokens, or for a stub frontend
+    standard-normal embeddings drawn on the card from seed and stream."""
+    from repro_torch.train.data import SyntheticLM
+
+    if cfg.frontend is None:
+        return {"tokens": SyntheticLM(cfg, seed=seed).batch(stream, b, s)[
+            "tokens"].to(dev)}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed * 1000 + stream)
+    return {"embeds": torch.randn((b, s, cfg.d_model), generator=gen,
+                                  device=dev).to(cfg.dtype)}
+
+
+def attention_layers(cfg) -> int:
+    return sum(mixer != "ssm" for mixer, _ in cfg.layer_list())
+
+
+def decode_vs_prefill(ops, model, cfg, batch: dict) -> dict:
+    """Decode the batch's S positions one by one from empty caches (a ring
+    for local layers, state for SSM layers); the last logits against the
+    prefill of the same inputs."""
+    from repro_torch.serve.kvcache import init_caches
+    from repro_torch.serve.steps import build_decode_step, build_prefill_step
+
+    key, inputs = next(iter(batch.items()))
+    b, s = inputs.shape[:2]
+    want = build_prefill_step(cfg)(model, batch)
+    caches = init_caches(cfg, b, s, device=inputs.device)
+    decode = build_decode_step(cfg)
+
+    def run():
+        logits = None
+        for t in range(s):
+            pos = torch.full((b,), t, dtype=torch.int32, device=inputs.device)
+            logits, _ = decode(model, caches, {key: inputs[:, t:t + 1]}, pos)
+        return logits
+
+    (got, launches), seconds = wall(lambda: counted(ops, run))
+    check(launches["flash_attention"] == attention_layers(cfg) * s,
+          f"{cfg.name} decode flash launches {launches['flash_attention']}")
+    return {"rel_err": rel_err(got, want, cfg.vocab_size),
+            "max_abs_logits": float(want[:, :cfg.vocab_size].abs().max()),
+            "decode_steps": s, "decode_s": seconds,
+            "flash_launches": launches["flash_attention"]}
+
+
+def serve_model(arch: str, layers: int | None, dev, seed: int) -> dict:
+    """One model family on the card in bf16 from seeded weights: prefill
+    (launches, warm time, one profiled call), decode against prefill in
+    bf16 and f32 (SERVE_TOL), the f32 card prefill against the CPU's, and
+    greedy generation for the token decoders. The consistency gates run
+    the dense MoE, as the reference's decode test does: capacity drops
+    depend on the token group, which a prefill and a decode step size
+    differently. Returns the phase line; its "launches" are the whole
+    run's."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.steps import build_prefill_step, greedy_generate
+
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    cfg = get_config(arch)
+    if layers:
+        cfg = replace(cfg, num_layers=layers)
+    model, init_s = wall(lambda: init_lm(cfg, seed, device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    chunked = any(m == "attn_chunked" for m, _ in cfg.layer_list())
+    b, s = CHUNK_PREFILL if chunked else (PREFILL_BATCH, PREFILL_LEN)
+    batch = model_inputs(cfg, dev, b, s, seed, 0)
+    prefill = build_prefill_step(cfg)
+    (logits, launches), cold_s = wall(
+        lambda: counted(ops, lambda: prefill(model, batch)))
+    check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          f"{arch} prefill logits are not finite")
+    check(launches["flash_attention"] == attention_layers(cfg),
+          f"{arch} prefill flash launches {launches['flash_attention']}")
+    warm = [wall(lambda: prefill(model, batch))[1] for _ in range(3)]
+    warm_s = float(np.median(warm))
+    events, host_s, _ = device_events(lambda: prefill(model, batch), 1)
+    check(bool(events), f"{arch}: the profiler recorded no device activity")
+    by_kernel: dict[str, list] = {}
+    for evt in events:
+        entry = by_kernel.setdefault(short_name(evt.name), [0.0, 0])
+        entry[0] += evt.time_range.elapsed_us() / 1e3
+        entry[1] += 1
+    busy_ms = sum(ms for ms, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8]
+    line = {"phase": "serve", "arch": arch, "params": n_params,
+            "layers": cfg.num_layers, "depth_cut": layers,
+            "dtype": cfg.activation_dtype, "init_s": init_s,
+            "prefill": {"batch": b, "prompt": s, "input": next(iter(batch)),
+                        "cold_s": cold_s, "warm_s": warm_s,
+                        "warm_runs_s": warm, "tokens_per_s": b * s / warm_s,
+                        "flash_launches_per_call": launches["flash_attention"]},
+            "prefill_profile": {"wall_ms": host_s * 1e3, "device_ms": busy_ms,
+                                "device_busy_share": busy_ms / (host_s * 1e3),
+                                "device_launches": sum(
+                                    c for _, c in by_kernel.values()),
+                                "top_device_ms": {k: {"ms": v[0], "count": v[1]}
+                                                  for k, v in top}}}
+    gate = replace(cfg, moe_impl="dense") if cfg.num_experts else cfg
+    if cfg.causal:
+        # gemma3 at its own window over RING_LEN tokens; llama4's chunks
+        # cut to F32_WINDOW, or 128 tokens would stay inside one
+        length = (RING_LEN if cfg.window and cfg.window < RING_LEN
+                  else CONSISTENCY_LEN)
+        bf16_cfg = replace(gate, window=F32_WINDOW) if chunked else gate
+        long = model_inputs(cfg, dev, PREFILL_BATCH, length, seed, 1)
+        bf16 = decode_vs_prefill(ops, model, bf16_cfg, long)
+        bf16["window"] = bf16_cfg.window
+        # one expert a token: a routing tie broken the other way by bf16
+        # rounding swaps the whole expert, so llama4's bf16 run is read,
+        # not gated; its f32 run is
+        bf16["tolerance"] = SERVE_TOL_BF16.get(
+            arch, SERVE_TOL["decode_vs_prefill_bf16"])
+        bf16["gated"] = cfg.experts_per_token != 1
+        if bf16["gated"]:
+            check(bf16["rel_err"] <= bf16["tolerance"],
+                  f"{arch} bf16 decode vs prefill: {bf16['rel_err']}")
+        line["decode_vs_prefill"] = {"bf16": bf16}
+        if cfg.frontend is None:
+            gen = model_inputs(cfg, dev, GEN_BATCH, GEN_PROMPT, seed, 2)
+            (out, gen_launches), gen_s = wall(lambda: counted(
+                ops, lambda: greedy_generate(cfg, model, gen["tokens"],
+                                             GEN_STEPS)))
+            check(tuple(out.shape) == (GEN_BATCH, GEN_PROMPT + GEN_STEPS),
+                  f"{arch} greedy output shape {tuple(out.shape)}")
+            check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+                  f"{arch} greedy tokens outside the vocabulary")
+            steps = GEN_PROMPT + GEN_STEPS - 1
+            check(gen_launches["flash_attention"]
+                  == attention_layers(cfg) * steps,
+                  f"{arch} greedy flash launches "
+                  f"{gen_launches['flash_attention']}")
+            line["greedy"] = {"batch": GEN_BATCH, "prompt": GEN_PROMPT,
+                              "generated": GEN_STEPS, "seconds": gen_s,
+                              "tokens_per_s": GEN_BATCH * GEN_STEPS / gen_s,
+                              "flash_launches": gen_launches["flash_attention"],
+                              "sample": out[0, :16].tolist()}
+    del model
+    torch.cuda.empty_cache()
+
+    cfg32 = replace(gate, activation_dtype="float32", params_dtype="float32")
+    model32 = init_lm(cfg32, seed, device=dev)
+    if cfg.causal:
+        f32_cfg = replace(cfg32, window=F32_WINDOW) if cfg.window else cfg32
+        short = model_inputs(cfg32, dev, PREFILL_BATCH, CONSISTENCY_LEN, seed, 1)
+        f32 = decode_vs_prefill(ops, model32, f32_cfg, short)
+        f32["window"] = f32_cfg.window
+        check(f32["rel_err"] <= SERVE_TOL["decode_vs_prefill_f32"],
+              f"{arch} f32 decode vs prefill: {f32['rel_err']}")
+        line["decode_vs_prefill"]["f32"] = f32
+        line["decode_vs_prefill"]["tolerance"] = {
+            k: v for k, v in SERVE_TOL.items() if k.startswith("decode")}
+    if n_params <= CPU_CHECK_MAX_PARAMS:
+        cpu_cfg = replace(cfg32, window=CPU_WINDOW) if cfg.window else cfg32
+        one = model_inputs(cfg32, dev, 1, CPU_CHECK_LEN, seed, 3)
+        on_card, card_launches = counted(
+            ops, lambda: build_prefill_step(cpu_cfg)(model32, one))
+        check(card_launches["flash_attention"] == attention_layers(cfg),
+              f"{arch} f32 prefill flash launches")
+        model32.cpu()
+        torch.cuda.empty_cache()
+        on_cpu, cpu_s = wall(lambda: build_prefill_step(cpu_cfg)(
+            model32, {k: t.cpu() for k, t in one.items()}))
+        card_vs_cpu = rel_err(on_card.cpu(), on_cpu, cfg.vocab_size)
+        check(card_vs_cpu <= SERVE_TOL["card_vs_cpu_f32"],
+              f"{arch} f32 card vs CPU prefill: {card_vs_cpu}")
+        line["card_vs_cpu_f32"] = {"batch": 1, "prompt": CPU_CHECK_LEN,
+                                   "window": cpu_cfg.window,
+                                   "rel_err": card_vs_cpu, "cpu_s": cpu_s,
+                                   "tolerance": SERVE_TOL["card_vs_cpu_f32"]}
+    del model32
+    torch.cuda.empty_cache()
+    line["launches"] = dict(ops.LAUNCHES)
+    line["phase_s"] = time.perf_counter() - t0
+    return line
+
+
+def serve_models(dev, seed: int) -> tuple[dict, dict]:
+    """serve_model over SERVE_MODELS, each run with the counts set to 0
+    just before it, under FlashRoutes. Returns (launches by arch, flash
+    launches by route over all of them)."""
+    t0 = time.perf_counter()
+    by_arch = {}
+    with FlashRoutes() as routes:
+        for arch, layers in SERVE_MODELS:
+            line = serve_model(arch, layers, dev, seed)
+            by_arch[arch] = line["launches"]
+            emit(line)
+    for route in ("sliding", "chunk_fold", "ring_decode", "non_causal"):
+        check(routes.counts[route] > 0,
+              f"the flash route {route} never ran: {routes.counts}")
+    emit({"phase": "serve_models", "archs": [a for a, _ in SERVE_MODELS],
+          "flash_routes": routes.counts, "phase_s": time.perf_counter() - t0})
+    return by_arch, routes.counts
+
+
+def models_vs_plain(rng, dev) -> dict:
+    """The flash kernel against its plain version at the shapes the
+    model families give it, in bf16 (FLASH_TOL's rule): gemma3's sliding
+    prefill (4 × 2048, 4 query heads over 1 kv head, D 256, window 1024)
+    and its decode over a full 1024-slot ring; llama4's prefill of
+    16384 tokens folded into two 8192-token chunks (40 heads over 8,
+    D 128), the plain version run on one kv-head group of one chunk at a
+    time to fit the card; hubert's non-causal prefill (4 × 2048, 16
+    heads, D 80). Returns the largest error by kernels-line row."""
+    from repro_torch.kernels import ops, ref
+
+    bf16 = torch.bfloat16
+    errs: dict[str, float] = {}
+
+    def judge(name, label, got, want, v, **kw):
+        reading = flash_compare(got, want, v)
+        emit({"phase": "kernel_vs_plain", "kernel": "flash_attention",
+              "where": "models", "case": label, "q": list(got.shape),
+              "kv": list(v.shape), **kw, **reading})
+        check(reading["within"], f"flash_attention {label}: {reading}")
+        errs[name] = max(errs.get(name, 0.0), reading["max_abs_err"])
+
+    q, k, v = flash_inputs(rng, dev, bf16, 4, 4, 1, 2048, 2048, 256)
+    judge("flash_attention:sliding", "gemma3 sliding prefill",
+          ops.flash_attention(q, k, v, causal=True, window=1024),
+          ref.flash_attention_ref(q, k, v, causal=True, window=1024), v,
+          window=1024)
+    q, k, v = flash_inputs(rng, dev, bf16, 4, 4, 1, 1, 1024, 256, 1024)
+    judge("flash_attention:ring_decode", "gemma3 decode over a full ring",
+          ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v), v)
+    q, k, v = flash_inputs(rng, dev, bf16, 2, 40, 8, 8192, 8192, 128)
+    got = ops.flash_attention(q, k, v, causal=True)
+    for c in range(2):
+        for g in range(8):
+            heads = slice(5 * g, 5 * g + 5)
+            judge("flash_attention:chunk_fold",
+                  f"llama4 chunk {c} kv head {g}", got[c:c + 1, heads],
+                  ref.flash_attention_ref(q[c:c + 1, heads],
+                                          k[c:c + 1, g:g + 1],
+                                          v[c:c + 1, g:g + 1], causal=True),
+                  v[c:c + 1, g:g + 1])
+    del q, k, v, got
+    q, k, v = flash_inputs(rng, dev, bf16, 4, 16, 16, 2048, 2048, 80)
+    judge("flash_attention:non_causal", "hubert prefill",
+          ops.flash_attention(q, k, v, causal=False),
+          ref.flash_attention_ref(q, k, v, causal=False), v, causal=False)
+    torch.cuda.empty_cache()
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -3362,6 +3741,76 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
              "prefill over 128 tokens, and the f32 card prefill); f32 on "
              "the FMA pipes, one launch a call, prefill and decode; the "
              "bound at the f32 rate")
+    # the model families' shapes in bf16, launches by route over the
+    # serve phase's model runs (FlashRoutes); the library calls get K/V
+    # repeated to the query heads beforehand, so SDPA takes its own
+    # kernels and not a materialized fallback
+    w, s2 = 1024, PREFILL_LEN
+    q, k, v = flash_inputs(rng, dev, bf16, fb, 4, 1, s2, s2, 256)
+    kr, vr = (t.repeat_interleave(4, dim=1) for t in (k, v))
+    i = torch.arange(s2, device=dev)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+    pairs = sum(min(t + 1, w) for t in range(s2))
+    row("flash_attention:sliding", "flash_attn.cu",
+        "src/repro/kernels/flash_attn.py:79", [fb, 4, s2, 256],
+        lambda: ops.flash_attention(q, k, v, causal=True, window=w),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True, window=w),
+        lambda: sdpa(q, kr, vr, attn_mask=band), 10, 3,
+        2 * (2 * fb * 4 * s2 * 256 + 2 * fb * s2 * 256),
+        4 * fb * 4 * 256 * pairs, dtype=bf16, kv_shape=[fb, 1, s2, 256],
+        window=w, expect_launches=flash_attn.cuda_launches(q, k),
+        note="gemma3-1b's sliding layers: the window route, prefill "
+             "past the 1024-token window; the bound counts the unmasked "
+             "pairs, Σ_i min(i + 1, W); the library call is SDPA with "
+             "the band as a boolean mask")
+    q, k, v = flash_inputs(rng, dev, bf16, fb, 4, 1, 1, w, 256, w)
+    kr, vr = (t.repeat_interleave(4, dim=1) for t in (k, v))
+    row("flash_attention:ring_decode", "flash_attn.cu",
+        "src/repro/kernels/flash_attn.py:79", [fb, 4, 1, 256],
+        lambda: ops.flash_attention(q, k, v), lambda: ref.flash_attention_ref(q, k, v),
+        lambda: sdpa(q, kr, vr), 50, 10,
+        2 * (2 * fb * 4 * 256 + 2 * fb * w * 256), 4 * fb * 4 * w * 256,
+        dtype=bf16, kv_shape=[fb, 1, w, 256],
+        expect_launches=flash_attn.cuda_launches(q, k),
+        note="gemma3-1b's sliding layers in decode, over a wrapped ring "
+             "of 1024 slots (every slot attended): the decode route "
+             "(packed GQA group, keys split into chunks, then merged)")
+    del q, k, v, kr, vr
+    cw, heads, kvh, d2 = 8192, 40, 8, 128
+    q, k, v = flash_inputs(rng, dev, bf16, 2, heads, kvh, cw, cw, d2)
+    kr, vr = (t.repeat_interleave(heads // kvh, dim=1) for t in (k, v))
+
+    def plain_chunks():
+        for c in range(2):
+            for g in range(kvh):
+                hs = slice(g * heads // kvh, (g + 1) * heads // kvh)
+                ref.flash_attention_ref(q[c:c + 1, hs], k[c:c + 1, g:g + 1],
+                                        v[c:c + 1, g:g + 1], causal=True)
+
+    row("flash_attention:chunk_fold", "flash_attn.cu",
+        "src/repro/kernels/flash_attn.py:79", [2, heads, cw, d2],
+        lambda: ops.flash_attention(q, k, v, causal=True), plain_chunks,
+        lambda: sdpa(q, kr, vr, is_causal=True), 5, 1,
+        2 * (2 * 2 * heads * cw * d2 + 2 * 2 * kvh * cw * d2),
+        4 * heads * d2 * 2 * (cw * (cw + 1) // 2), dtype=bf16,
+        kv_shape=[2, kvh, cw, d2], expect_launches=flash_attn.cuda_launches(q, k),
+        note="llama4's chunked layers: a 16384-token prefill folded into "
+             "two 8192-token chunks as the batch, run causal; the plain "
+             "version runs one kv-head group of one chunk at a time (16 "
+             "calls) to fit the card")
+    del q, k, v, kr, vr
+    q, k, v = flash_inputs(rng, dev, bf16, fb, 16, 16, s2, s2, 80)
+    row("flash_attention:non_causal", "flash_attn.cu",
+        "src/repro/kernels/flash_attn.py:79", [fb, 16, s2, 80],
+        lambda: ops.flash_attention(q, k, v, causal=False),
+        lambda: ref.flash_attention_ref(q, k, v, causal=False),
+        lambda: sdpa(q, k, v), 10, 3, 2 * 4 * fb * 16 * s2 * 80,
+        4 * fb * 16 * s2 * s2 * 80, dtype=bf16, kv_shape=[fb, 16, s2, 80],
+        expect_launches=flash_attn.cuda_launches(q, k),
+        note="hubert-xlarge, the encoder: non-causal prefill at head "
+             "dimension 80")
+    del q, k, v
+    torch.cuda.empty_cache()
     # the f32 routes the f32 protocol and plain f32 lu_blocked run, and
     # the mixed routes (both pairs; mixed lu_blocked runs f32 -> f64):
     # the bound counts the storage type's bytes and the arithmetic
@@ -3541,8 +3990,14 @@ def main() -> int:
     for name, err in gateway["errs"].items():
         errs[name] = max(errs[name], err)
     errs["flash_attention"], errs["flash_attention:f32"] = phase_flash(rng, dev)
-    serve_launches, f32_flash_launches = phase_serve(rng, dev, args.seed)
+    serve_launches, f32_flash_launches, (model_launches, flash_routes) = \
+        phase_serve(rng, dev, args.seed)
     per_phase["serve"] = (serve_launches, SERVE_PATH)
+    from repro_torch.configs import get_config
+    for arch, arch_launches in model_launches.items():
+        path = SERVE_PATH if attention_layers(get_config(arch)) else ()
+        per_phase[f"serve {arch}"] = (arch_launches, path)
+    errs.update(models_vs_plain(rng, dev))
     for phase, (launches, path) in per_phase.items():
         for name in path:
             check(launches[name] > 0, f"{name} never launched in phase {phase}")
@@ -3564,6 +4019,8 @@ def main() -> int:
     for leg in TRISOLVE_LEGS:
         launches[f"trsm:trisolve_{leg}"] = linalg["legs"][leg]
     launches["trsm_lower:row_solve"] = row_solve["calls"]
+    for route in ("sliding", "ring_decode", "chunk_fold", "non_causal"):
+        launches[f"flash_attention:{route}"] = flash_routes[route]
     errs["trsm_lower:row_solve"] = row_solve["max_abs_err"]
     line = kernels_line(rng, dev, launches, errs, strips, linalg["operands"],
                         gateway["flush"], row_solve["operands"])

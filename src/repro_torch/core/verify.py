@@ -6,6 +6,12 @@ Q1 (Gao & Yu):  vector residual   L(U r) − X r
 Q2 (paper):     scalar residual   (Lᵀr)ᵀ(U r) − (rᵀ X) r
 Q3 (paper):     deterministic     Σ_i |Σ_{j≤i} L_ij U_ji − x_ii|
 
+Q3's diagonal sums are compensated (`compensated.diagonal_residuals`),
+so a Q3 residual is the factors' exact one. Under the element growth of
+a rotated ciphertext their terms cancel by many orders of magnitude, and
+a sum in the working precision, as the reference's, is off by up to
+u·Σ_j|L_ij U_ji|, which can pass the capped ε (ROADMAP §C).
+
 All are O(n²): matrix–vector products or the diagonal band terms. Every
 check is batch-aware: (..., n, n) factors give per-matrix residuals, so a
 tampered matrix in a batch is flagged on its own.
@@ -32,6 +38,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .compensated import accurate_sum, diagonal_residuals
+
 
 def q1(l: torch.Tensor, u: torch.Tensor, x: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Gao & Yu's vector check: L(Ur) − Xr. Zero vector iff LU consistent."""
@@ -48,23 +56,16 @@ def q2(l: torch.Tensor, u: torch.Tensor, x: torch.Tensor, r: torch.Tensor) -> to
     return (lt_r * u_r).sum(dim=-1) - (rx * r).sum(dim=-1)
 
 
-def _lu_diag(l: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """(L·U)_ii = Σ_{j≤i} L_ij U_ji from the triangles alone."""
-    return torch.einsum("...ij,...ji->...i", torch.tril(l), torch.triu(u))
-
-
 def q3(l: torch.Tensor, u: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Deterministic diagonal check, per-element abs (the form the paper's
     own correctness proof §V.C.2 uses): Σ_i |(L·U)_ii − x_ii|."""
-    diag_x = torch.diagonal(x, dim1=-2, dim2=-1)
-    return torch.abs(_lu_diag(l, u) - diag_x).sum(dim=-1)
+    return torch.abs(diagonal_residuals(l, u, x)).sum(dim=-1)
 
 
 def q3_paper_literal(l: torch.Tensor, u: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Q3 exactly as §IV.E.2 writes it: |Σ_i (Σ_{j≤i} L_ij U_ji − x_ii)| —
     weaker than q3, opposite-sign per-row errors cancel."""
-    diag_x = torch.diagonal(x, dim1=-2, dim2=-1)
-    return torch.abs((_lu_diag(l, u) - diag_x).sum(dim=-1))
+    return torch.abs(accurate_sum(diagonal_residuals(l, u, x)))
 
 
 def _host(t: torch.Tensor):
@@ -141,7 +142,7 @@ def per_server_residuals(
         blocked = terms.reshape(*terms.shape[:-1], num_servers, n // num_servers)
         out = blocked.amax(dim=-1)
     elif method == "q3":
-        terms = torch.abs(_lu_diag(l, u) - torch.diagonal(x, dim1=-2, dim2=-1))
+        terms = torch.abs(diagonal_residuals(l, u, x))
         blocked = terms.reshape(*terms.shape[:-1], num_servers, n // num_servers)
         out = blocked.sum(dim=-1)
     else:

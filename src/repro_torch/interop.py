@@ -7,12 +7,14 @@ and Python values — for instance those another SPDC implementation
 produced — so the port's `keygen`, `authenticate` and `decipher` can
 consume them.
 
-The LM serving path has weights and KV caches. `lm_params_from_numpy`
+The LM serving path has weights and decode caches. `lm_params_from_numpy`
 and `caches_from_numpy` take them in the reference's tree layout (nested
 dicts of arrays, each layer-pattern position stacked over a leading
 "periods" axis, the rest under "remainder") and return the port's model
 and per-layer cache list, so both packages can compute on identical
-weights. They import the LM stack when called, so the SPDC side of this
+weights: token tables or stub-frontend adapters, attention, MLP, MoE and
+SSM layers, full and ring KV caches and SSM state caches. They import
+the LM stack when called, so the SPDC side of this
 module does not load it.
 """
 from __future__ import annotations
@@ -110,8 +112,12 @@ def lm_params_from_numpy(cfg, tree: dict, *, device=None) -> LM:
 
     device = resolve_device(device)
     model = LM(cfg, Initializer(0, cfg.param_dtype, "meta"))
-    flat = {"embed": tree["embed"], "lm_head": tree["lm_head"],
+    flat = {"lm_head": tree["lm_head"],
             "final_norm.gamma": tree["final_norm"]["gamma"]}
+    if "embed" in tree:
+        flat["embed"] = tree["embed"]
+    if "frontend" in tree:
+        flat["frontend.adapter"] = tree["frontend"]["adapter"]
     if "beta" in tree["final_norm"]:
         flat["final_norm.beta"] = tree["final_norm"]["beta"]
     for i, layer in enumerate(_layer_trees(cfg, tree["stack"])):
@@ -133,15 +139,20 @@ def lm_params_from_numpy(cfg, tree: dict, *, device=None) -> LM:
 def caches_from_numpy(cfg, tree: dict, *, device=None) -> list[dict]:
     """The port's per-layer cache list from the reference's
     `init_caches(cfg, batch, max_seq)` tree as numpy arrays (k, v, pos and
-    step of every layer), each leaf checked against the port's own."""
+    step of every attention layer, full or ring; state and conv of every
+    SSM layer), each leaf checked against the port's own."""
     from .serve.kvcache import init_caches
 
     device = resolve_device(device)
     layers = _layer_trees(cfg, tree)
     kinds = [mixer for mixer, _ in cfg.layer_list()]
-    full = [i for i, mixer in enumerate(kinds) if mixer == "attn_full"]
-    k_shape = np.shape(layers[full[0] if full else 0]["k"])
-    caches = init_caches(cfg, k_shape[0], k_shape[1], device=device)
+    batch = np.shape(next(iter(layers[0].values())))[0]
+    # max_seq is a full layer's length; a model with only ring layers
+    # needs just their length, and one with only SSM layers none
+    attn = ([i for i, mixer in enumerate(kinds) if mixer == "attn_full"]
+            or [i for i, mixer in enumerate(kinds) if mixer != "ssm"])
+    max_seq = np.shape(layers[attn[0]]["k"])[1] if attn else 1
+    caches = init_caches(cfg, batch, max_seq, device=device)
     for i, (cache, layer) in enumerate(zip(caches, layers)):
         if set(cache) != set(layer):
             raise ValueError(f"layer {i}: leaves {sorted(layer)}, the port's "

@@ -7,9 +7,8 @@ the layers unstacked in an `nn.ModuleList`, in the order
 `cfg.layer_list()` gives (interop.lm_params_from_numpy unstacks the
 reference's periods into it).
 
-mixer ∈ {"attn_full", "attn_sliding", "attn_chunked"}; "ssm" waits for
-the mamba2/jamba slice and the "moe" ffn for granite (ROADMAP A14), and
-both raise when the model is built.
+mixer ∈ {"attn_full", "attn_sliding", "attn_chunked", "ssm"}
+ffn   ∈ {"mlp", "moe", "none"}
 """
 from __future__ import annotations
 
@@ -19,28 +18,29 @@ from torch import nn
 from .attention import attention, init_attention
 from .common import Initializer, apply_norm, init_norm
 from .mlp import apply_mlp, init_mlp
+from .moe import apply_moe, init_moe
+from .ssm import apply_ssm, init_ssm
 
 _KIND = {"attn_full": "full", "attn_sliding": "sliding",
          "attn_chunked": "chunked"}
 
 
 class Layer(nn.Module):
-    """mixer_norm, mixer (attention), and ffn_norm, ffn (MLP) unless the
-    ffn is "none"."""
+    """mixer_norm, mixer (attention or SSM), and ffn_norm, ffn (MLP or
+    MoE) unless the ffn is "none"."""
 
     def __init__(self, ini: Initializer, cfg, mixer: str, ffn: str):
         super().__init__()
-        if mixer not in _KIND:
-            raise NotImplementedError(
-                f"{mixer!r} mixers come with the mamba2/jamba slice (ROADMAP A14)")
-        if ffn == "moe":
-            raise NotImplementedError(
-                "MoE feed-forward comes with the granite slice (ROADMAP A14)")
+        if mixer != "ssm" and mixer not in _KIND:
+            raise ValueError(f"unknown mixer {mixer!r}")
         self.mixer_norm = init_norm(ini, cfg.d_model, cfg.norm_type)
-        self.mixer = init_attention(ini, cfg)
+        if mixer == "ssm":
+            self.mixer = init_ssm(ini, cfg)
+        else:
+            self.mixer = init_attention(ini, cfg)
         if ffn != "none":
             self.ffn_norm = init_norm(ini, cfg.d_model, cfg.norm_type)
-            self.ffn = init_mlp(ini, cfg)
+            self.ffn = init_moe(ini, cfg) if ffn == "moe" else init_mlp(ini, cfg)
 
 
 def init_layer(ini: Initializer, cfg, mixer: str, ffn: str) -> Layer:
@@ -57,12 +57,16 @@ def apply_layer(
     cache: dict | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
     h = apply_norm(p.mixer_norm, x, cfg.norm_type)
-    mx, cache = attention(p.mixer, h, cfg, positions, kind=_KIND[mixer],
-                          cache=cache)
+    if mixer == "ssm":
+        mx, cache = apply_ssm(p.mixer, h, cfg, cache=cache)
+    else:
+        mx, cache = attention(p.mixer, h, cfg, positions, kind=_KIND[mixer],
+                              cache=cache)
     x = x + mx
     if ffn != "none":
         h = apply_norm(p.ffn_norm, x, cfg.norm_type)
-        x = x + apply_mlp(p.ffn, h, cfg)
+        f = apply_moe(p.ffn, h, cfg) if ffn == "moe" else apply_mlp(p.ffn, h, cfg)
+        x = x + f
     return x, cache
 
 

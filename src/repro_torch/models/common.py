@@ -1,9 +1,8 @@
-"""Shared model machinery: the parameter factory, norms, RoPE.
+"""Shared model machinery: the parameter factory, norms, RoPE and M-RoPE.
 
 Port of src/repro/models/common.py. Parameters live in `nn.Module`s, so
 the reference's spec-carrying `Px` leaves and `split_tree` have no
 counterpart here (on one device every logical sharding spec is a no-op).
-M-RoPE (`apply_mrope`) comes with the qwen2-vl slice (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -96,20 +95,15 @@ def apply_norm(p: Norm, x: torch.Tensor, kind: str = "rmsnorm") -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# RoPE (half-split convention)
+# RoPE (half-split convention) + M-RoPE (Qwen2-VL §3.1)
 # ---------------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=F32, device=device) / head_dim
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 1e4) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) int. Rotates in f32, then casts
-    back to x's dtype."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, device=x.device)  # (d/2,)
-    ang = positions[..., None].to(F32) * freqs  # (B, S, d/2)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, D) rotated by angles (B, S, D/2) in f32, cast back."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
@@ -117,18 +111,55 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int. Rotates in f32, then casts
+    back to x's dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # (d/2,)
+    return _rotate(x, positions[..., None].to(F32) * freqs)
+
+
+def mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """Qwen2-VL's (temporal, h, w) = (16, 24, 24) of the 64 freq slots at
+    head_dim 128, generalized proportionally (1/4, 3/8, 3/8)."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
+                sections: tuple[int, int, int] | None = None) -> torch.Tensor:
+    """M-RoPE: the head_dim/2 freq slots split into (temporal, h, w)
+    sections, each rotated by its own position stream. positions:
+    (B, S, 3); for the text-only backbone all three streams equal the
+    text position, which makes this plain RoPE."""
+    d = x.shape[-1]
+    if sections is None:
+        sections = mrope_sections(d)
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not split {d // 2} slots")
+    freqs = rope_freqs(d, theta, device=x.device)  # (d/2,)
+    # which position stream each freq slot reads
+    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                     torch.tensor(sections, device=x.device))
+    pos_per_slot = positions.to(F32)[..., sec_id]  # (B, S, d/2)
+    return _rotate(x, pos_per_slot * freqs)
+
+
 def positions_for(cfg, batch: int, seq: int, offset=0, device=None) -> torch.Tensor:
     """Position stream (B, S) for a text segment starting at `offset` (an
-    int, or one offset per row)."""
-    if cfg.rope_type == "mrope":
-        raise NotImplementedError(
-            "M-RoPE position streams come with the qwen2-vl slice (ROADMAP A14)")
+    int, or one offset per row); (B, S, 3), three equal streams, under
+    M-RoPE."""
     off = torch.as_tensor(offset, device=device).reshape(-1, 1)
-    pos = torch.arange(seq, device=device)[None, :] + off
-    return pos.expand(batch, seq)
+    pos = (torch.arange(seq, device=device)[None, :] + off).expand(batch, seq)
+    if cfg.rope_type == "mrope":
+        return pos[..., None].expand(batch, seq, 3)
+    return pos
 
 
 __all__ = [
     "Initializer", "Norm", "rms_norm", "layer_norm", "init_norm",
-    "apply_norm", "rope_freqs", "apply_rope", "positions_for",
+    "apply_norm", "rope_freqs", "apply_rope", "mrope_sections", "apply_mrope",
+    "positions_for",
 ]

@@ -1,11 +1,13 @@
-"""Full model assembly: embeddings → layer stack → norm → last-position
-logits.
+"""Full model assembly: embeddings or a stub frontend → layer stack →
+norm → last-position logits. Decoder-only LMs and the encoder-only audio
+arch share this file (cfg.causal distinguishes them).
 
-Port of src/repro/models/lm.py for the decoder-only text path. The vocab
-table is padded to a multiple of 2048 and padded logit slots are masked
-to −1e30, as in the reference. Stub frontends (qwen2-vl, hubert) come
-with their slice, and the chunked cross-entropy (`lm_loss`, `_chunk_ce`)
-with training (ROADMAP A14).
+Port of src/repro/models/lm.py. The vocab table is padded to a multiple
+of 2048 and padded logit slots are masked to −1e30, as in the reference.
+A stub frontend (qwen2-vl's vision, hubert's audio) takes precomputed
+embeddings through one linear adapter in place of the token table. The
+chunked cross-entropy (`lm_loss`, `_chunk_ce`) comes with training
+(ROADMAP A14.5).
 """
 from __future__ import annotations
 
@@ -24,19 +26,27 @@ def padded_vocab(cfg, multiple: int = 2048) -> int:
     return -(-v // multiple) * multiple
 
 
+class Frontend(nn.Module):
+    """The stub frontend's adapter (d, d): it stands in for the
+    patch/frame projection of the embeddings the inputs carry."""
+
+    def __init__(self, ini: Initializer, d: int):
+        super().__init__()
+        self.adapter = ini.normal((d, d))
+
+
 class LM(nn.Module):
-    """embed (Vp, d), stack (one Layer per layer), final_norm, lm_head
-    (d, Vp)."""
+    """embed (Vp, d) or, with a stub frontend, frontend.adapter (d, d);
+    stack (one Layer per layer), final_norm, lm_head (d, Vp)."""
 
     def __init__(self, cfg, ini: Initializer):
         super().__init__()
-        if cfg.frontend is not None:
-            raise NotImplementedError(
-                f"the {cfg.frontend} frontend stub comes with its slice "
-                "(ROADMAP A14)")
         vp = padded_vocab(cfg)
         self.cfg = cfg
-        self.embed = ini.normal((vp, cfg.d_model))
+        if cfg.frontend is None:
+            self.embed = ini.normal((vp, cfg.d_model))
+        else:
+            self.frontend = Frontend(ini, cfg.d_model)
         self.stack = init_stack(ini, cfg)
         self.final_norm = init_norm(ini, cfg.d_model, cfg.norm_type)
         self.lm_head = ini.normal((cfg.d_model, vp))
@@ -50,7 +60,11 @@ def init_lm(cfg, seed: int = 0, *, device=None) -> LM:
 
 
 def embed_inputs(params: LM, batch: dict, cfg) -> torch.Tensor:
-    return params.embed[batch["tokens"]].to(cfg.dtype)
+    """batch["tokens"] (B, S) through the table, or with a stub frontend
+    batch["embeds"] (B, S, d) through the adapter."""
+    if cfg.frontend is None:
+        return params.embed[batch["tokens"]].to(cfg.dtype)
+    return (batch["embeds"].to(cfg.dtype) @ params.frontend.adapter).to(cfg.dtype)
 
 
 def forward_hidden(

@@ -16,7 +16,8 @@ from .kvcache import init_caches
 
 def build_prefill_step(cfg):
     """prefill_step(params, batch) -> last-position logits (B, Vp), f32.
-    batch carries tokens (B, S) for the full prompt."""
+    batch carries tokens (B, S) (or a stub frontend's embeds (B, S, d))
+    for the full prompt."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -29,13 +30,17 @@ def build_prefill_step(cfg):
 def build_decode_step(cfg):
     """decode_step(params, caches, inputs, pos) -> (logits, caches).
 
-    inputs: {"tokens": (B, 1)}; pos: (B,) absolute position of this token
-    (== number of tokens already in the cache)."""
+    inputs: {"tokens": (B, 1)} or {"embeds": (B, 1, d)}; pos: (B,)
+    absolute position of this token (== number of tokens already in the
+    cache), three equal streams of it under M-RoPE."""
 
     @torch.no_grad()
     def decode_step(params, caches, inputs, pos):
+        positions = pos[:, None]
+        if cfg.rope_type == "mrope":
+            positions = positions[..., None].expand(-1, -1, 3)
         hidden, caches = forward_hidden(params, inputs, cfg,
-                                        positions=pos[:, None], caches=caches)
+                                        positions=positions, caches=caches)
         return lm_logits_last(params, hidden, cfg), caches
 
     return decode_step

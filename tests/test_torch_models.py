@@ -31,7 +31,6 @@ from repro.train import data as r_data
 from repro_torch import configs, interop
 from repro_torch.kernels import ops
 from repro_torch.models import attention, common, mlp
-from repro_torch.models.blocks import init_layer
 from repro_torch.models.lm import forward_hidden, init_lm, padded_vocab
 from repro_torch.serve import kvcache, steps
 from repro_torch.train import data
@@ -331,37 +330,6 @@ def test_synthetic_markov_table_bit_equal_to_reference(cfgs):
         assert all(toks[b, t] in src.nexts[toks[b, t - 1]] for b in range(4))
     np.testing.assert_array_equal(toks, src.batch(3, 4, 40)["tokens"].numpy())
     assert not np.array_equal(toks, src.batch(4, 4, 40)["tokens"].numpy())
-
-
-# ------------------------------------------------ what waits, and why
-def _smoke(arch, **kw):
-    return dataclasses.replace(configs.smoke_config(arch), **kw)
-
-
-@pytest.mark.parametrize("what", ["ssm", "moe", "sliding", "chunked", "mrope",
-                                  "frontend"])
-def test_unported_mixers_raise(what):
-    ini = common.Initializer(0, torch.float32)
-    cfg = configs.smoke_config(ARCH)
-    x = torch.zeros(1, 4, cfg.d_model)
-    pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="A14"):
-        if what == "ssm":
-            init_lm(configs.smoke_config("mamba2-370m"), device="cpu")
-        elif what == "moe":
-            init_layer(ini, configs.smoke_config("granite-moe-1b-a400m"),
-                       "attn_full", "moe")
-        elif what in ("sliding", "chunked"):
-            layer = attention.init_attention(ini, cfg)
-            attention.attention(layer, x, _smoke(ARCH, window=2), pos, kind=what)
-        elif what == "mrope":
-            layer = attention.init_attention(ini, cfg)
-            attention.attention(layer, x, _smoke(ARCH, rope_type="mrope"), pos)
-        else:
-            init_lm(configs.smoke_config("hubert-xlarge"), device="cpu")
-    if what == "ssm":
-        with pytest.raises(NotImplementedError, match="A14"):
-            kvcache.init_caches(configs.smoke_config("mamba2-370m"), 1, 4)
 
 
 def test_interop_checks_shapes(cfgs, weights):

@@ -368,6 +368,72 @@ def test_det_from_lu_and_diagnostic_residuals_match_reference(pair):
     assert np.all(got <= 1e-9) and np.all(np.asarray(want) <= 1e-9)
 
 
+def _exact_q3(l, u, x) -> float:
+    """Σ_i |Σ_{j≤i} L_ij U_ji − x_ii| of one matrix, in rational arithmetic."""
+    from fractions import Fraction
+
+    l, u, x = (np.asarray(a, dtype=np.float64) for a in (l, u, x))
+    total = Fraction(0)
+    for i in range(x.shape[-1]):
+        s = sum((Fraction(l[i, j]) * Fraction(u[j, i]) for j in range(i + 1)),
+                Fraction(0))
+        total += abs(s - Fraction(x[i, i]))
+    return float(total)
+
+
+def test_growth_run_verified_by_its_exact_q3_residual():
+    """_mat(13, seed=169509) of the overload tests: its k = 1 ciphertext
+    grows 3.1e5-fold, and the terms of its diagonal sums cancel by many
+    orders of magnitude. Summed in the working precision, the port's Q3
+    read 1.01e-8 against ε 7.17e-9 and rejected this honest run. It is
+    now the exact residual of the port's factors, 2.19e-9, below the
+    3.38e-9 of the reference's own factors, and the verdict is the
+    reference's (q3_growth_scan.py --reference prints all five)."""
+    m = np.random.default_rng(169509).standard_normal((13, 13)) + 13 * np.eye(13)
+    got = repro_torch.outsource_determinant(m, 2, device=CPU)
+    want = r_protocol.outsource_determinant(m, 2)
+    assert got.verified is want.verified is True
+    assert _same_det(got.det, want.det)
+    port = SPDCClient(device=CPU).open_session(m, 2)
+    l, u, _ = t_lu.lu_nserver(port.x_aug, 2)
+    exact = _exact_q3(l, u, port.x_aug)
+    assert got.residual == pytest.approx(exact, rel=1e-12)
+    assert got.residual <= got.report.verdict.eps
+    ref = r_api.SPDCClient().open_session(m, 2)
+    l_r, u_r, _ = r_lu.lu_nserver(ref.x_aug, 2)
+    assert exact <= _exact_q3(l_r, u_r, ref.x_aug)
+
+
+#: (seed, n, padded size) of growth runs (3e5-7e5-fold) whose diagonal
+#: sums cancel by many orders of magnitude: the overload tests' requests
+#: 1695/9, 8118/3 and 8955/5 at their gateway buckets
+GROWTH_RUNS = [(169509, 13, 16), (811803, 8, 8), (895505, 6, 8)]
+
+
+@pytest.mark.parametrize("method", ["q3", "q3_literal"])
+@pytest.mark.parametrize("seed,n,pad_to", GROWTH_RUNS)
+def test_q3_is_the_exact_residual_under_growth(seed, n, pad_to, method):
+    """Authenticate's Q3 forms are the exact residuals of the factors
+    they are given, to a relative 1e-12, the reference's factors too."""
+    m = np.random.default_rng(seed).standard_normal((n, n)) + n * np.eye(n)
+    ref = r_api.SPDCClient().open_session([m], 2, pad_to=pad_to)
+    l_r, u_r, _ = r_lu.lu_nserver(ref.x_aug, 2)
+    x = np.asarray(ref.x_aug)[0]
+    l, u = np.asarray(l_r)[0], np.asarray(u_r)[0]
+    got = authenticate(*map(torch.from_numpy, (l, u, x)), num_servers=2,
+                       method=method)
+    if method == "q3":
+        want = _exact_q3(l, u, x)
+    else:
+        from fractions import Fraction
+
+        want = float(abs(sum(
+            (sum((Fraction(l[i, j]) * Fraction(u[j, i]) for j in range(i + 1)),
+                 Fraction(0)) - Fraction(x[i, i]) for i in range(pad_to)),
+            Fraction(0))))
+    assert got.residual == pytest.approx(want, rel=1e-12, abs=1e-300)
+
+
 def test_inline_transport_lifecycle():
     from repro_torch.api import InlineTransport, TransportError, resolve_transport
 
