@@ -70,6 +70,29 @@ Phases, each printed as one JSON line:
    by route (FlashRoutes), and the kernel against its plain version at
    the families' shapes (models_vs_plain).
 
+14. train, from a seventh random stream, within TRAIN_BUDGET_S: the flash
+   kernel under autograd at tinyllama's prefill shape (q (4, 32, 2048, 64),
+   kv (4, 4, 2048, 64), causal) in bf16 and f32, its forward within
+   FLASH_TOL of the plain version and dq, dk, dv bit-equal to autograd
+   through the plain version, with the forward's and the plain
+   backward's device ms; tinyllama at full width with 2 layers in f32,
+   batch 2 x 256, on the same seeded weights on the card and the CPU: the
+   loss, every gradient leaf (none zero, wq/wk/wv included) and the
+   parameters after one AdamW step (TRAIN_TOL); tinyllama-1.1b at full
+   width and depth in its config's dtypes (bf16, f32 AdamW state, remat
+   "nothing"), batch 4 x 2048: every leaf's gradient nonzero and
+   finite, then, the counts set to 0, a warm step and 4 timed steps on
+   one batch with AdamWConfig(lr=1e-3, warmup_steps=1): each step's
+   wall, tokens/s, the loss (it must fall), the grad norm (finite),
+   torch.cuda.max_memory_allocated, 44 flash launches a step (22
+   forwards, 22 remat recomputes), and one step under torch.profiler
+   split into forward, the flash kernel, the plain attention backward,
+   the rest of the backward and the optimizer, with the busy share; the
+   launcher in process (`repro_torch.launch.train.main`, repro-100m,
+   batch 8 x 256, SDC on, a checkpoint every 20 steps) to 40 steps, then
+   again to 50, which must resume from step 40, with no SDC rejection
+   and the checkpoint writes' walls; the checkpoints are removed.
+
 Then, from a random stream of their own (so the phases above keep their
 inputs), the f32 and mixed-precision slice and recovery, before phase 12:
 
@@ -207,8 +230,10 @@ the operands the pipeline phase gave it, launches from its single run), "<kernel
 path runs them: launches null, with a note), each with the device
 kernels' template names the profiler reports, and "flash_attention:f32"
 (the f32 kernel at the prefill and decode shapes, launched by phase 13's
-f32 runs), then "flash_attention:sliding", ":ring_decode", ":chunk_fold"
-and ":non_causal" at the model families' shapes, with the launches of
+f32 runs; the flash_attention row also carries phase 14's launches,
+`launches_train`, and its autograd case), then
+"flash_attention:sliding", ":ring_decode", ":chunk_fold" and
+":non_causal" at the model families' shapes, with the launches of
 each route over phase 13's family runs. Each timing names the
 profiler windows it took (profile_windows); the run line counts the
 timings that needed more than one and names their rows, counts the
@@ -221,7 +246,8 @@ event out of a window).
 Each phase is driven with the launch counts set to 0 just before it and
 read just after, and fails if a kernel of its path never launched. Then
 it prints the whole run's wall time and the kernels line (launches on
-phase 3 — the Schur kernel's on phase 8, flash attention's on phase 13 —
+phase 3 — the Schur kernel's on phase 8, flash attention's on phase 13
+and, as launches_train, on phase 14's timed steps —
 error from phases 2, 7 and 12 and the gateway's, time per launch
 beside the plain version, the library call where one computes the same function, and the
 least time the card could take; the CUDA launches one wrapper call
@@ -341,6 +367,24 @@ CHUNK_PREFILL = (1, 16384)
 #: the card-against-CPU check copies the f32 model to the host: models
 #: above this many parameters skip it (llama4's 4 layers hold 10.4B)
 CPU_CHECK_MAX_PARAMS = 2e9
+#: the train phase. The card-against-CPU step: tinyllama at full width
+#: with TRAIN_CPU_LAYERS layers in f32, batch TRAIN_CPU_SHAPE, and its
+#: bars: the loss relative, each gradient leaf on its own max|g|, and the
+#: parameters after one AdamW step absolute. Summation order alone
+#: differs, so loss and gradients sit near f32 rounding; the step moves
+#: a parameter by lr·m̂/(√v̂ + eps), ≈ ±lr₁ at step 1 for ANY gradient
+#: above eps, so an element whose gradient is rounding noise may move
+#: the other way on the other device: AdamWConfig()'s lr₁ = 3e-4/100
+#: bounds that at 6e-6. The full model: batch TRAIN_SHAPE, a warm step
+#: and TRAIN_STEPS timed ones. The launcher: TRAIN_LAUNCH to each of
+#: TRAIN_LAUNCH_STEPS (the second resumes from the first's checkpoint).
+TRAIN_CPU_LAYERS, TRAIN_CPU_SHAPE = 2, (2, 256)
+TRAIN_TOL = {"loss": 1e-5, "grad": 1e-4, "params": 1e-5}
+TRAIN_SHAPE, TRAIN_STEPS = (4, 2048), 4
+TRAIN_LAUNCH = ["--arch", "repro-100m", "--batch", "8", "--seq", "256",
+                "--ckpt-every", "20", "--sdc"]
+TRAIN_LAUNCH_STEPS = (40, 50)
+TRAIN_BUDGET_S = 150.0
 
 
 #: the mixed routes (the reference's acc_dtype): (route, storage type,
@@ -3479,15 +3523,273 @@ def models_vs_plain(rng, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+def train_autograd(rng, dev) -> dict:
+    """The flash kernel under autograd at tinyllama's prefill shape, bf16
+    and f32, q, k and v as the model's (B, S, H, D) views: the forward
+    within FLASH_TOL of the plain version, dq, dk and dv bit-equal to
+    autograd through the plain version (the backward IS that autograd),
+    the forward's device ms and the plain backward's. Returns the bf16
+    case (the kernels line's autograd_case) and the f32 one."""
+    from repro_torch.kernels import flash_grad, ops, ref
+
+    (hq, hkv, d), b, s = FLASH_HEADS, PREFILL_BATCH, PREFILL_LEN
+    cases = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (t.detach().requires_grad_()
+                   for t in flash_inputs(rng, dev, dtype, b, hq, hkv, s, s, d))
+        g = torch.from_numpy(rng.standard_normal((b, s, hq, d), dtype=np.float32)
+                             ).to(dev, dtype).transpose(1, 2)
+        got, launches = counted(ops, lambda: ops.flash_attention(q, k, v, causal=True))
+        check(launches["flash_attention"] == 1 and got.grad_fn is not None,
+              "the flash kernel did not run under autograd")
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        reading = flash_compare(got.detach(), want.detach(), v.detach())
+        check(reading["within"], f"flash forward under autograd {dtype}: {reading}")
+        grads = torch.autograd.grad(got, (q, k, v), g)
+        plain = torch.autograd.grad(want, (q, k, v), g)
+        bit_equal = [bool(torch.equal(a, c)) for a, c in zip(grads, plain)]
+        check(all(bit_equal), f"dq, dk, dv against the plain version: {bit_equal}")
+        del got, want, grads, plain
+        fwd_ms, fwd_event, _ = timed(
+            lambda: ops.flash_attention(q, k, v, causal=True), 10)
+        bwd_ms, bwd_event, _ = timed(
+            lambda: flash_grad.flash_attention_backward(q, k, v, g, True), 3)
+        cases[str(dtype).removeprefix("torch.")] = {
+            "q": list(q.shape), "kv": list(k.shape), "causal": True,
+            "forward_ms": fwd_ms, "forward_event_ms": fwd_event,
+            "plain_backward_ms": bwd_ms, "plain_backward_event_ms": bwd_event,
+            "grads_bit_equal_to_plain": bit_equal, **reading}
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    emit({"phase": "train_autograd", **cases,
+          "units": "device ms a call under torch.profiler; the backward is "
+                   "autograd through flash_attention_ref, recomputed"})
+    return cases
+
+
+def train_card_vs_cpu(dev, seed: int) -> dict:
+    """tinyllama at full width, TRAIN_CPU_LAYERS layers, f32, on the same
+    seeded weights on the card and the CPU: the loss, every gradient leaf
+    and the parameters after one AdamW step (TRAIN_TOL)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import init_lm, with_parameters
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
+    from repro_torch.train.steps import loss_and_grads
+
+    t0 = time.perf_counter()
+    cfg = replace(get_config(SERVE_ARCH), num_layers=TRAIN_CPU_LAYERS,
+                  activation_dtype="float32", params_dtype="float32")
+    cpu = init_lm(cfg, seed, device="cpu")
+    card = with_parameters(cpu, {n: p.to(dev) for n, p in cpu.named_parameters()})
+    batch = SyntheticLM(cfg, seed=seed).batch(0, *TRAIN_CPU_SHAPE)
+    opt_cfg = AdamWConfig()
+    runs = {}
+    for where, model, bt in (("card", card, {k: v.to(dev) for k, v in batch.items()}),
+                             ("cpu", cpu, batch)):
+        (loss, grads), seconds = wall(lambda: loss_and_grads(model, bt, cfg))
+        params, _, _ = adamw_update(dict(model.named_parameters()), grads,
+                                    init_opt_state(model, opt_cfg), opt_cfg)
+        runs[where] = (loss.cpu(), {n: x.cpu() for n, x in grads.items()},
+                       {n: x.cpu() for n, x in params.items()}, seconds)
+    (l1, g1, p1, card_s), (l0, g0, p0, cpu_s) = runs["card"], runs["cpu"]
+    loss_rel = float(abs(l1 - l0) / abs(l0))
+    grad_err = {n: float((g1[n] - g0[n]).abs().max() / g0[n].abs().max())
+                for n in g0 if float(g0[n].abs().max()) > 0}
+    zero = sorted(n for n in g0 if float(g0[n].abs().max()) == 0
+                  or float(g1[n].abs().max()) == 0)
+    param_err = max(float((p1[n] - p0[n]).abs().max()) for n in p0)
+    qkv = {n: float(g1[n].abs().max()) for n in g1
+           if n.rsplit(".", 1)[-1] in ("wq", "wk", "wv")}
+    line = {"phase": "train_card_vs_cpu", "layers": cfg.num_layers,
+            "batch": list(TRAIN_CPU_SHAPE), "loss_card": float(l1),
+            "loss_cpu": float(l0), "loss_rel_err": loss_rel,
+            "worst_grad_leaf": max(grad_err, key=grad_err.get),
+            "worst_grad_err_of_max": max(grad_err.values()),
+            "zero_grad_leaves": zero, "max_abs_grad_qkv": qkv,
+            "params_after_step_max_abs_err": param_err,
+            "card_s": card_s, "cpu_s": cpu_s, "tolerance": TRAIN_TOL,
+            "phase_s": time.perf_counter() - t0}
+    emit(line)
+    check(loss_rel <= TRAIN_TOL["loss"], f"card vs CPU loss {loss_rel}")
+    check(not zero and all(v > 0 for v in qkv.values()),
+          f"zero gradients on {zero}")
+    check(max(grad_err.values()) <= TRAIN_TOL["grad"],
+          f"card vs CPU gradient {line['worst_grad_leaf']}")
+    check(param_err <= TRAIN_TOL["params"], f"card vs CPU params {param_err}")
+    return line
+
+
+def train_split(events_and_host) -> dict:
+    """A training step's device time by part, from one profiled step: the
+    flash kernel (B6: the forwards and the remat recomputes), the plain
+    attention backward (launched inside flash_grad's range), the rest of
+    the backward, the forward and the optimizer (by the steps' ranges
+    their launches fall in), and the card's busy share of the wall."""
+    from repro_torch.kernels import flash_grad
+    from repro_torch.train import steps
+
+    everything, host_s = events_and_host
+    events, lost, _ = timed_device_events(everything)
+    cuda = torch.autograd.DeviceType.CUDA
+    host = [e for e in everything if e.device_type != cuda]
+    names = (flash_grad.BACKWARD_RANGE, steps.OPTIMIZER_RANGE,
+             steps.BACKWARD_RANGE, steps.FORWARD_RANGE)
+    spans = {n: [(e.time_range.start, e.time_range.end) for e in host
+                 if e.name == n] for n in names}
+    launched = {e.id: e.time_range.start for e in host if LAUNCH_CALL.match(e.name)}
+    parts = dict.fromkeys(("forward", "flash_kernel_b6", "plain_attention_backward",
+                           "other_backward", "optimizer", "other"), 0.0)
+    label = {flash_grad.BACKWARD_RANGE: "plain_attention_backward",
+             steps.OPTIMIZER_RANGE: "optimizer",
+             steps.BACKWARD_RANGE: "other_backward",
+             steps.FORWARD_RANGE: "forward"}
+    for evt in events:
+        ms = evt.time_range.elapsed_us() / 1e3
+        if short_name(evt.name).startswith("flash_"):
+            parts["flash_kernel_b6"] += ms
+            continue
+        t = launched[evt.id]
+        where = next((label[n] for n in names
+                      if any(a <= t <= b for a, b in spans[n])), "other")
+        parts[where] += ms
+    busy = sum(parts.values())
+    return {"device_ms": parts, "device_busy_ms": busy, "wall_ms": host_s * 1e3,
+            "device_busy_share": busy / (host_s * 1e3), "lost_events": lost}
+
+
+def train_full(dev, seed: int) -> tuple[dict, dict]:
+    """tinyllama-1.1b at full width and depth in its config's dtypes (bf16
+    params and activations, f32 AdamW state, remat "nothing"), batch
+    TRAIN_SHAPE: every leaf's gradient nonzero and finite; then, the
+    counts set to 0, one warm step and TRAIN_STEPS timed steps on one
+    batch (the falling loss, finite grad norms, 2 flash launches a
+    layer a step: the forward and its remat recompute), then one step
+    under torch.profiler (train_split). Returns (the line, the steps'
+    launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import build_train_step, loss_and_grads
+
+    t0 = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    model = init_lm(cfg, seed, device=dev)
+    batch = {k: v.to(dev) for k, v in
+             SyntheticLM(cfg, seed=seed).batch(0, *TRAIN_SHAPE).items()}
+    _, grads = loss_and_grads(model, batch, cfg)
+    bad = sorted(n for n, x in grads.items()
+                 if not bool(torch.isfinite(x).all()) or float(x.abs().max()) == 0)
+    check(not bad, f"zero or non-finite gradients on {bad}")
+    del grads
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1)
+    opt = init_opt_state(model, opt_cfg)
+    step = build_train_step(cfg, opt_cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    steps_run = []
+    for _ in range(1 + TRAIN_STEPS):
+        (out, launches), seconds = wall(lambda: counted(
+            ops, lambda: step(model, opt, batch)))
+        model, opt, metrics = out
+        steps_run.append({"wall_s": seconds, "loss": float(metrics["loss"]),
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "lr": float(metrics["lr"]),
+                          "flash_launches": launches["flash_attention"]})
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    timed_steps = steps_run[1:]
+    walls = [r["wall_s"] for r in timed_steps]
+    losses = [r["loss"] for r in steps_run]
+    split = train_split(profiled(lambda: step(model, opt, batch), 1))
+    line = {"phase": "train", "arch": SERVE_ARCH, "layers": cfg.num_layers,
+            "params": sum(p.numel() for p in model.parameters()),
+            "dtype": cfg.activation_dtype, "opt_dtype": cfg.optimizer_dtype,
+            "remat": cfg.remat, "batch": list(TRAIN_SHAPE), "steps": steps_run,
+            "step_wall_s": float(np.median(walls)),
+            "tokens_per_s": TRAIN_SHAPE[0] * TRAIN_SHAPE[1] / float(np.median(walls)),
+            "max_memory_allocated_bytes": peak,
+            "flash_launches_per_step": 2 * cfg.num_layers,
+            "profile": split, "phase_s": time.perf_counter() - t0}
+    emit(line)
+    check(all(r["flash_launches"] == 2 * cfg.num_layers for r in steps_run),
+          f"flash launches a step: {[r['flash_launches'] for r in steps_run]}")
+    check(all(math.isfinite(r["grad_norm"]) for r in steps_run),
+          "a grad norm is not finite")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return line, launches
+
+
+def train_launcher() -> dict:
+    """The launcher in process: TRAIN_LAUNCH's run with a checkpoint every
+    20 steps and the SDC check, then again to 50 steps, which must resume
+    from step 40; both with no SDC rejection (the launcher itself
+    asserts that the loss fell). The checkpoint directory is removed."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    runs = []
+    try:
+        for steps in TRAIN_LAUNCH_STEPS:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                t0 = time.perf_counter()
+                code = train.main([*TRAIN_LAUNCH, "--steps", str(steps),
+                                   "--ckpt", root])
+                seconds = time.perf_counter() - t0
+            lines = out.getvalue().splitlines()
+            runs.append({"steps": steps, "exit": code, "seconds": seconds,
+                         "lines": lines})
+            check(code == 0 and any("sdc_rejects=0" in ln for ln in lines),
+                  f"launcher run to {steps} steps: {lines}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    first, second = TRAIN_LAUNCH_STEPS
+    check(f"resume_from={first}" in runs[1]["lines"][0],
+          f"the second run did not resume from step {first}: {runs[1]['lines']}")
+    return {"phase": "train_launcher", "argv": TRAIN_LAUNCH, "runs": runs}
+
+
+def phase_train(rng, dev, seed: int) -> tuple[dict, dict]:
+    """Training on the card (module docstring): B6 under autograd, card
+    against CPU, tinyllama-1.1b at full size, the launcher; within
+    TRAIN_BUDGET_S. Returns (the flash kernel's autograd case for the
+    kernels line, the full model's steps' launches)."""
+    t0 = time.perf_counter()
+    autograd = train_autograd(rng, dev)
+    train_card_vs_cpu(dev, seed)
+    full, launches = train_full(dev, seed)
+    emit(train_launcher())
+    phase_s = time.perf_counter() - t0
+    emit({"phase": "train_wall", "phase_s": phase_s, "budget_s": TRAIN_BUDGET_S})
+    check(phase_s <= TRAIN_BUDGET_S, f"the train phase took {phase_s:.1f} s")
+    return {"autograd_case": autograd, "launches_train": launches["flash_attention"],
+            "train_steps": len(full["steps"])}, launches
+
+
+# ---------------------------------------------------------------------------
 def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
                  trisolve_operands, gateway_flush: dict,
-                 row_solve_operands) -> dict:
+                 row_solve_operands, train_flash: dict) -> dict:
     """Time each kernel, its plain version and the library call at the
     phase-3 shapes, beside its bound; `strips` holds phase 3's strip
     launches of each TRSM wrapper, `trisolve_operands` the linalg phase's
     factors and a right-hand side at its inverse round's chunk shape,
     `gateway_flush` the launches of the gateway phase's full flush,
-    `row_solve_operands` the pipeline phase's first block-row solve."""
+    `row_solve_operands` the pipeline phase's first block-row solve,
+    `train_flash` the train phase's flash launches and autograd case."""
     from repro_torch.kernels import flash_attn, ops, ref, trsm
 
     f64 = torch.float64
@@ -3709,8 +4011,13 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         expect_launches=flash_attn.cuda_launches(q, k),
         decode_case={"q": [fb, hq, 1, d], "kv_prefix": [fb, hkv, s, d],
                      **decode_case},
+        launches_train=train_flash["launches_train"],
+        autograd_case=train_flash["autograd_case"],
         note="launches from the serve phase's greedy_generate run (22 "
-             "layers x 47 decode steps); causal prefill counted at half "
+             "layers x 47 decode steps), launches_train from the train "
+             "phase's tinyllama steps (22 forwards and 22 remat recomputes "
+             "a step, under autograd; autograd_case: the forward kernel and "
+             "the plain backward at the prefill shape); causal prefill counted at half "
              "of 4·B·Hq·S²·D; bf16 tensor cores (mma.sync), decode packs "
              "each GQA group and splits the keys, then merges the chunks "
              "(decode_case's cuda_launches_per_call); the library call "
@@ -3944,6 +4251,7 @@ def main() -> int:
     rng_linalg = np.random.default_rng([args.seed, 3])
     rng_gateway = np.random.default_rng([args.seed, 4])
     rng_pipeline = np.random.default_rng([args.seed, 5])
+    rng_train = np.random.default_rng([args.seed, 6])
     dev = torch.device("cuda", torch.cuda.current_device())
 
     phase_build()
@@ -3998,6 +4306,8 @@ def main() -> int:
         path = SERVE_PATH if attention_layers(get_config(arch)) else ()
         per_phase[f"serve {arch}"] = (arch_launches, path)
     errs.update(models_vs_plain(rng, dev))
+    train_flash, per_phase["train"] = phase_train(rng_train, dev, args.seed)
+    per_phase["train"] = (per_phase["train"], SERVE_PATH)
     for phase, (launches, path) in per_phase.items():
         for name in path:
             check(launches[name] > 0, f"{name} never launched in phase {phase}")
@@ -4023,7 +4333,7 @@ def main() -> int:
         launches[f"flash_attention:{route}"] = flash_routes[route]
     errs["trsm_lower:row_solve"] = row_solve["max_abs_err"]
     line = kernels_line(rng, dev, launches, errs, strips, linalg["operands"],
-                        gateway["flush"], row_solve["operands"])
+                        gateway["flush"], row_solve["operands"], train_flash)
     emit({"phase": "run", "wall_s": time.perf_counter() - started,
           "profile_windows": PROFILE_WINDOWS})
     emit(line)

@@ -15,7 +15,9 @@ secure linalg family on one verified factorization (`LinalgSession`,
 `secure_slogdet` / `secure_solve` / `secure_inv`); mixed-size lists in
 one coalesced sweep (`outsource_determinant_mixed`) and the gateway that
 serves them (`SPDCGateway`, `AsyncSPDCGateway`,
-`python -m repro_torch.launch.serve_spdc`). Every entry point runs on the
+`python -m repro_torch.launch.serve_spdc`); and the model zoo's training
+(`lm_loss`, `build_train_step`, `run_training`, `CheckpointManager`,
+`python -m repro_torch.launch.train`). Every entry point runs on the
 CUDA device unless the caller passes ``device="cpu"``; on the CPU each kernel's plain PyTorch version
 (kernels/ref.py) computes the same function.
 """
@@ -50,7 +52,9 @@ from .linalg import (
 from .serve.spdc_gateway import AsyncSPDCGateway, SPDCGateway
 
 __all__ = [
+    "AdamWConfig",
     "AsyncSPDCGateway",
+    "CheckpointManager",
     "EdgeServer",
     "InlineTransport",
     "LinalgSession",
@@ -68,22 +72,32 @@ __all__ = [
     "ThreadPoolTransport",
     "TransportConfig",
     "WorkerDaemon",
+    "build_train_step",
+    "lm_loss",
     "outsource_determinant",
     "outsource_determinant_mixed",
     "outsource_inverse",
     "outsource_solve",
     "resolve_device",
     "resolve_dtype",
+    "run_training",
     "secure_inv",
     "secure_slogdet",
     "secure_solve",
 ]
 
 
-def __getattr__(name):
-    # the socket transport's names resolve lazily, as in repro_torch.api
-    if name in ("SocketTransport", "WorkerDaemon"):
-        from . import api
+#: names that resolve at first use, so importing the package loads
+#: neither the socket transport nor the training stack
+_LAZY = {"SocketTransport": "api", "WorkerDaemon": "api",
+         "AdamWConfig": "train", "CheckpointManager": "train",
+         "build_train_step": "train", "run_training": "train",
+         "lm_loss": "models"}
 
-        return getattr(api, name)
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -16,6 +16,12 @@ weights: token tables or stub-frontend adapters, attention, MLP, MoE and
 SSM layers, full and ring KV caches and SSM state caches. They import
 the LM stack when called, so the SPDC side of this
 module does not load it.
+
+Training goes the other way too: `lm_tree_from_port` turns the port's
+named tensors (its parameters, or their gradients) back into the
+reference's stacked tree as numpy, and `opt_state_from_numpy` carries the
+reference's AdamW state (moments in that tree layout, and the step) into
+the port's per-parameter dicts.
 """
 from __future__ import annotations
 
@@ -91,27 +97,34 @@ def _layer_trees(cfg, stack: dict) -> list[dict]:
     return layers
 
 
-def _copy_into(target: torch.Tensor, value, path: str) -> torch.Tensor:
+def _tensor(value) -> torch.Tensor:
+    """A CPU tensor of an array-like; ml_dtypes' bfloat16 keeps its bits."""
     value = np.array(value)
-    if value.dtype.name == "bfloat16":  # ml_dtypes' type: widen exactly
-        value = value.astype(np.float32)
-    value = torch.from_numpy(value)
+    if value.dtype.name == "bfloat16":
+        return torch.from_numpy(value.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(value)
+
+
+def _copy_into(target: torch.Tensor, value, path: str) -> torch.Tensor:
+    value = _tensor(value)
     if tuple(value.shape) != tuple(target.shape):
         raise ValueError(f"{path}: shape {tuple(value.shape)}, the port's "
                          f"model has {tuple(target.shape)}")
     return value.to(device=target.device, dtype=target.dtype)
 
 
-def lm_params_from_numpy(cfg, tree: dict, *, device=None) -> LM:
-    """The port's model with the reference's weights: `tree` is
-    `split_tree(init_lm(cfg, key))[0]` of the reference as numpy arrays.
-    Every leaf is checked against the shape of the port's own parameter;
-    values keep the port's dtype for them (cfg.param_dtype)."""
+def _skeleton(cfg) -> LM:
+    """The port's model on the meta device: every parameter's name and
+    shape, nothing allocated."""
     from .models.common import Initializer
     from .models.lm import LM
 
-    device = resolve_device(device)
-    model = LM(cfg, Initializer(0, cfg.param_dtype, "meta"))
+    return LM(cfg, Initializer(0, cfg.param_dtype, "meta"))
+
+
+def _flat_lm_tree(cfg, tree: dict, names) -> dict:
+    """The reference's LM tree as {port parameter name: leaf}, checked
+    to hold exactly `names`."""
     flat = {"lm_head": tree["lm_head"],
             "final_norm.gamma": tree["final_norm"]["gamma"]}
     if "embed" in tree:
@@ -124,11 +137,21 @@ def lm_params_from_numpy(cfg, tree: dict, *, device=None) -> LM:
         for part, leaves in layer.items():
             for leaf, value in leaves.items():
                 flat[f"stack.{i}.{part}.{leaf}"] = value
-    names = dict(model.named_parameters())
     if set(names) != set(flat):
         raise ValueError(f"parameter trees differ: only in the port "
                          f"{sorted(set(names) - set(flat))}, only in the tree "
                          f"{sorted(set(flat) - set(names))}")
+    return flat
+
+
+def lm_params_from_numpy(cfg, tree: dict, *, device=None) -> LM:
+    """The port's model with the reference's weights: `tree` is
+    `split_tree(init_lm(cfg, key))[0]` of the reference as numpy arrays.
+    Every leaf is checked against the shape of the port's own parameter;
+    values keep the port's dtype for them (cfg.param_dtype)."""
+    device = resolve_device(device)
+    model = _skeleton(cfg)
+    flat = _flat_lm_tree(cfg, tree, dict(model.named_parameters()))
     model.to_empty(device=device)
     with torch.no_grad():
         for name, param in model.named_parameters():
@@ -160,3 +183,78 @@ def caches_from_numpy(cfg, tree: dict, *, device=None) -> list[dict]:
         for leaf, target in cache.items():
             target.copy_(_copy_into(target, layer[leaf], f"layer {i} {leaf}"))
     return caches
+
+
+def lm_tree_from_port(cfg, tensors) -> dict:
+    """The reference's LM tree, as float32 or the tensors' own numpy
+    dtypes (bfloat16 widened exactly to float32), from the port's named
+    tensors: a model's parameters, their gradients, or a moment of the
+    optimizer state ({name: tensor}, or the model itself). Layer i goes
+    to pattern position i % P of period i // P, stacked over the periods,
+    or after the last full period to the remainder: the inverse of
+    lm_params_from_numpy."""
+    from torch import nn
+
+    from .models.blocks import split_layers
+
+    if isinstance(tensors, nn.Module):
+        tensors = dict(tensors.named_parameters())
+    names = {name for name, _ in _skeleton(cfg).named_parameters()}
+    if set(tensors) != names:
+        raise ValueError(f"names differ from the model's: missing "
+                         f"{sorted(names - set(tensors))}, unknown "
+                         f"{sorted(set(tensors) - names)}")
+
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    tree: dict = {"lm_head": host(tensors["lm_head"]),
+                  "final_norm": {"gamma": host(tensors["final_norm.gamma"])}}
+    if "final_norm.beta" in tensors:
+        tree["final_norm"]["beta"] = host(tensors["final_norm.beta"])
+    if "embed" in tensors:
+        tree["embed"] = host(tensors["embed"])
+    if "frontend.adapter" in tensors:
+        tree["frontend"] = {"adapter": host(tensors["frontend.adapter"])}
+    layers: list[dict] = [{} for _ in range(cfg.num_layers)]
+    for name, t in tensors.items():
+        if name.startswith("stack."):
+            _, i, part, leaf = name.split(".")
+            layers[int(i)].setdefault(part, {})[leaf] = host(t)
+    n_periods, rem = split_layers(cfg)
+    plen = len(cfg.pattern)
+
+    def stack(trees):
+        return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+                else np.stack([t[k] for t in trees]) for k in trees[0]}
+
+    tree["stack"] = {"periods": {
+        f"l{j}": stack(layers[j:n_periods * plen:plen]) for j in range(plen)}}
+    if rem:
+        tree["stack"]["remainder"] = {
+            f"l{r}": layers[n_periods * plen + r] for r in range(rem)}
+    return tree
+
+
+def opt_state_from_numpy(cfg, state: dict, model: LM) -> dict:
+    """The port's AdamW state from the reference's: `state` is
+    `init_opt_state`'s {"mu", "nu", "step"} (or a later one) as numpy,
+    mu and nu in the reference's LM tree. The moments keep their dtype
+    (bfloat16 bit for bit) and land on the model's device; the step is a
+    0-d int32 tensor."""
+    names = dict(model.named_parameters())
+    device = next(iter(names.values())).device
+    out = {}
+    for moment in ("mu", "nu"):
+        flat = _flat_lm_tree(cfg, state[moment], names)
+        out[moment] = {}
+        for name, param in names.items():
+            value = _tensor(flat[name])
+            if tuple(value.shape) != tuple(param.shape):
+                raise ValueError(f"{moment} {name}: shape {tuple(value.shape)}, "
+                                 f"the parameter's {tuple(param.shape)}")
+            out[moment][name] = value.to(device)
+    out["step"] = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                               device=device)
+    return out

@@ -25,6 +25,7 @@ import torch
 from . import ref
 from .ced import ced_cuda
 from .flash_attn import check_operands, flash_attention_cuda
+from .flash_grad import FlashAttention
 from .lu_panel import lu_panel_cuda
 from .routes import accumulator
 from .schur import schur_update_cuda
@@ -139,10 +140,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float | None = None) -> torch.Tensor:
     """Blockwise online-softmax attention (GQA-aware): q (B, Hq, Sq, D),
     k and v (B, Hkv, Sk, D) at any (batch, head, seq) strides; query rows
-    right-aligned to the keys; scale defaults to D^-½."""
+    right-aligned to the keys; scale defaults to D^-½.
+
+    On CUDA, where grad is enabled and an operand requires it, the
+    kernel runs under autograd (flash_grad.FlashAttention: the kernel
+    forward, the plain version's gradient); otherwise, as in serving
+    under no_grad, the kernel is called directly. Either way one launch
+    counts."""
     if _on_cuda(q, k, v):
-        out = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                   scale=scale)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            out = FlashAttention.apply(q, k, v, causal, window, scale)
+        else:
+            out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                       scale=scale)
         LAUNCHES["flash_attention"] += 1
         return out
     check_operands(q, k, v, window)

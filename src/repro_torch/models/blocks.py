@@ -7,13 +7,31 @@ the layers unstacked in an `nn.ModuleList`, in the order
 `cfg.layer_list()` gives (interop.lm_params_from_numpy unstacks the
 reference's periods into it).
 
+Rematerialisation follows the reference's: the checkpointed unit is one
+period of the pattern (len(cfg.pattern) layers), the remainder layers
+after the last full period are not checkpointed, and decode never is.
+Policies: "nothing" saves only each period's input
+(`torch.utils.checkpoint`, non-reentrant), "dots" also saves the outputs
+of the unbatched products (aten.mm/addmm: the projections and MLPs) and
+recomputes the batched ones, as the reference's
+`dots_with_no_batch_dims_saveable`, and "none" saves everything. The
+flash kernel's ctypes call is invisible to a policy, so under "dots" it
+is recomputed too.
+
 mixer ∈ {"attn_full", "attn_sliding", "attn_chunked", "ssm"}
 ffn   ∈ {"mlp", "moe", "none"}
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .attention import attention, init_attention
 from .common import Initializer, apply_norm, init_norm
@@ -82,16 +100,57 @@ def init_stack(ini: Initializer, cfg) -> nn.ModuleList:
                          for mixer, ffn in cfg.layer_list())
 
 
+REMAT_POLICIES = ("nothing", "dots", "none")
+#: the unbatched products, whose outputs the "dots" policy saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(body, policy: str):
+    """body(x) under the policy's checkpoint ("none": body itself)."""
+    if policy == "none":
+        return body
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda x: checkpoint(body, x, use_reentrant=False, **kw)
+
+
 def apply_stack(
     layers: nn.ModuleList,
     x: torch.Tensor,
     cfg,
     positions: torch.Tensor,
     caches: list | None = None,
+    *,
+    remat_policy: str = "nothing",
 ) -> tuple[torch.Tensor, list | None]:
     """Every layer in order; caches (decode) is the per-layer list of
-    serve.kvcache.init_caches, updated in place."""
-    for i, (layer, (mixer, ffn)) in enumerate(zip(layers, cfg.layer_list())):
-        x, _ = apply_layer(layer, x, cfg, mixer, ffn, positions,
-                           cache=None if caches is None else caches[i])
-    return x, caches
+    serve.kvcache.init_caches, updated in place. With grad enabled and
+    no caches, each full period runs under `remat_policy`'s checkpoint
+    (module docstring); under no_grad nothing is saved, so none is set
+    up."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat_policy!r}; "
+                         f"known: {REMAT_POLICIES}")
+    kinds = cfg.layer_list()
+    n_periods, _ = split_layers(cfg)
+    plen = len(cfg.pattern)
+
+    def run(x, first, last):
+        for i in range(first, last):
+            x, _ = apply_layer(layers[i], x, cfg, *kinds[i], positions,
+                               cache=None if caches is None else caches[i])
+        return x
+
+    if caches is not None or not torch.is_grad_enabled():
+        remat_policy = "none"
+    for p in range(n_periods):
+        body = functools.partial(run, first=p * plen, last=(p + 1) * plen)
+        x = _remat(body, remat_policy)(x)
+    return run(x, n_periods * plen, len(kinds)), caches

@@ -1183,3 +1183,106 @@ def test_ring_decode_on_card_matches_prefill_and_plain(cuda, kind):
     q = torch.from_numpy(_rand((b, 4, 1, 256), 33)).to(cuda, torch.float32)
     _flash_close(q, cache["k"][:, :keys].transpose(1, 2),
                  cache["v"][:, :keys].transpose(1, 2))
+
+
+# --- training: the flash kernel's forward under autograd -------------------
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,kw", [
+    (2, 8, 2, 300, 300, 64, {"causal": True}),
+    (1, 4, 1, 200, 200, 128, {"causal": True, "window": 40}),
+    (2, 4, 4, 130, 130, 80, {"causal": False}),
+    (1, 8, 2, 100, 100, 64, {"causal": True, "scale": 0.2}),
+], ids=["gqa", "window", "non-causal", "scale"])
+def test_flash_under_autograd_grads_equal_plain(cuda, dtype, b, hq, hkv, sq,
+                                                sk, d, kw):
+    """With grad enabled the wrapper runs the kernel under autograd: the
+    forward within tolerance of the plain version, one launch counted,
+    and dq, dk, dv bit-equal to autograd through the plain version at the
+    same inputs (the model's strided views)."""
+    q, k, v = (t.detach().requires_grad_()
+               for t in _qkv(cuda, b, hq, hkv, sq, sk, d, dtype, seed=40,
+                             layout="bshd"))
+    g = torch.from_numpy(_rand((b, sq, hq, d), 41)).to(cuda, dtype).transpose(1, 2)
+    ops.reset_launches()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.LAUNCHES["flash_attention"] == 1 and got.grad_fn is not None
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    _flash_within(got.detach(), want.detach(), v.detach())
+    for a, c in zip(torch.autograd.grad(got, (q, k, v), g),
+                    torch.autograd.grad(want, (q, k, v), g)):
+        assert torch.equal(a, c)
+
+
+def test_flash_without_grad_is_the_direct_call(cuda):
+    """Under no_grad, or with no operand requiring grad, the kernel is
+    called directly (serving's path): no graph, one launch."""
+    q, k, v = _qkv(cuda, 1, 4, 2, 64, 64, 64, torch.bfloat16)
+    for grad_on, leaf in ((False, True), (True, False)):
+        qq = q.detach().requires_grad_(leaf)
+        ops.reset_launches()
+        with torch.set_grad_enabled(grad_on):
+            out = ops.flash_attention(qq, k, v)
+        assert out.grad_fn is None and ops.LAUNCHES["flash_attention"] == 1
+
+
+def _smoke_train(cuda):
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.lm import init_lm, with_parameters
+    from repro_torch.train.data import SyntheticLM
+
+    cfg = smoke_config("tinyllama-1.1b")
+    cpu_model = init_lm(cfg, 0, device="cpu")
+    model = with_parameters(cpu_model, {n: p.to(cuda) for n, p
+                                        in cpu_model.named_parameters()})
+    batch = SyntheticLM(cfg, seed=0).batch(0, 4, 64)
+    return cfg, model, cpu_model, batch
+
+
+@pytest.mark.parametrize("remat,per_layer", [("nothing", 2), ("dots", 2),
+                                             ("none", 1)])
+def test_train_step_launches_per_step(cuda, remat, per_layer):
+    """A train step launches the flash kernel once a layer, and once more
+    a layer in the backward where a checkpoint recomputes the period."""
+    from dataclasses import replace
+
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import build_train_step
+
+    cfg, model, _, batch = _smoke_train(cuda)
+    cfg = replace(cfg, remat=remat)
+    opt_cfg = AdamWConfig()
+    step = build_train_step(cfg, opt_cfg)
+    opt = init_opt_state(model, opt_cfg)
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    for _ in range(2):
+        ops.reset_launches()
+        model, opt, _ = step(model, opt, batch)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == per_layer * cfg.num_layers
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One f32 train step of the smoke tinyllama on the card against the
+    plain path on the CPU from the same weights: the loss rtol 1e-5, each
+    gradient leaf within 1e-4 of its max|g| (none zero, wq/wk/wv
+    included), and the parameters after the step within 1e-5 (Adam moves
+    each by about ±lr₁ = 3e-6, so a rounding-noise gradient costs at most
+    6e-6)."""
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import build_train_step, loss_and_grads
+
+    cfg, model, cpu_model, batch = _smoke_train(cuda)
+    card_batch = {k: v.to(cuda) for k, v in batch.items()}
+    loss, grads = loss_and_grads(model, card_batch, cfg)
+    loss0, grads0 = loss_and_grads(cpu_model, batch, cfg)
+    assert abs(float(loss) - float(loss0)) <= 1e-5 * abs(float(loss0))
+    for name, g0 in grads0.items():
+        scale = float(g0.abs().max())
+        assert scale > 0 and float(grads[name].abs().max()) > 0, name
+        assert float((grads[name].cpu() - g0).abs().max()) <= 1e-4 * scale, name
+    opt_cfg = AdamWConfig()
+    step = build_train_step(cfg, opt_cfg)
+    new, _, m = step(model, init_opt_state(model, opt_cfg), card_batch)
+    new0, _, m0 = step(cpu_model, init_opt_state(cpu_model, opt_cfg), batch)
+    for (name, p), (_, p0) in zip(new.named_parameters(), new0.named_parameters()):
+        assert float((p.cpu() - p0).abs().max()) <= 1e-5, name
