@@ -92,15 +92,24 @@ Phases, each printed as one JSON line:
    batch 8 x 256, SDC on, a checkpoint every 20 steps) to 40 steps, then
    again to 50, which must resume from step 40, with no SDC rejection
    and the checkpoint writes' walls; the checkpoints are removed.
+15. mesh: the launcher in process with --mesh smoke (a process group of
+   one rank, mesh (1, 1), repro-100m, batch 8 x 256, MESH_STEPS steps),
+   then with --mesh none at the same seed: every parameter a DTensor,
+   the flash kernel launched through local_map, the losses equal within
+   MESH_RTOL; then the first step's gradient of every parameter both
+   ways (none zero), each within MESH_RTOL; the later grad norms and the
+   final checkpoint's leaves are read.
 
 Then, from a random stream of their own (so the phases above keep their
 inputs), the f32 and mixed-precision slice and recovery, before phase 12:
 
 - routes: the mixed routes (the reference's acc_dtype: f32 stored with
-  f64 arithmetic, bf16 with f32) of the panel, both triangular solves
-  and the Schur update, and the f32 routes of the panel and the solves,
-  against their plain versions at lu_blocked's shapes (MIXED_ULPS,
-  F32_RTOL);
+  f64 arithmetic, bf16 and f16 with f32 or f64) of the panel, both
+  triangular solves and the Schur update, the f32 routes and the narrow
+  bf16 and f16 routes (every operation in the half type, no acc_dtype)
+  of the panel and the solves, against their plain versions at
+  lu_blocked's shapes (MIXED_ULPS, F32_RTOL; the narrow routes bit for
+  bit);
 - f32 protocol: TF32 off and an f32 matmul within K·2^-24·max|A·B| of
   the f64 product; n = 4096 and a 16 × 1024 stack in float32, inline,
   verified with exact signs and |Δlog|det|| <= 1e-4 against the card's
@@ -108,7 +117,10 @@ inputs), the f32 and mixed-precision slice and recovery, before phase 12:
 - sequential routes: `lu_blocked(x32, 1024)` plain and with
   acc_dtype=float64 at n = 4096: launches, the device kernels' template
   names (f32 and mixed), warm wall, and the mixed factors nearer the f64
-  factorization than the plain ones;
+  factorization than the plain ones; then the same in bf16 and in f16,
+  narrow (no acc_dtype) and wide (acc_dtype=float64): launches, template
+  names, and the wide route's normwise residual and distance from the
+  f64 factors below the narrow route's;
 - recovery: n = 4096 f64, N = 4, standby 1: server 2's block tamper
   healed inline (factors bit-equal to the honest run's), through the
   thread pool and through worker processes (n = 1024, on phase 10's
@@ -225,10 +237,14 @@ The kernels line then has a row per route besides the default f64 rows:
 "trsm:trisolve_<leg>" (the linalg phase's four left solves, l, u, ut
 and lt, at its inverse round's chunk shape on its factors, launches from
 its op plan), "trsm_lower:row_solve" (the pipeline's block-row solve on
-the operands the pipeline phase gave it, launches from its single run), "<kernel>:f32" (the f32 routes the f32 paths run), "<kernel>:f32_f64"
-(the mixed routes mixed lu_blocked runs) and "<kernel>:bf16_f32" (no
-path runs them: launches null, with a note), each with the device
-kernels' template names the profiler reports, and "flash_attention:f32"
+the operands the pipeline phase gave it, launches from its single run), "<kernel>:f32" (the f32 routes the f32 paths run), "<kernel>:f32_f64",
+":bf16_f64" and ":f16_f64" (the mixed routes mixed and half lu_blocked
+run), "<kernel>:bf16" and ":f16" (the panel's and the solves' narrow
+routes, which half lu_blocked runs, with the half -> f32 Schur route of
+"schur_update:bf16_f32" and ":f16_f32"), and the panel's and the
+solves' "<kernel>:bf16_f32" and ":f16_f32" (no path runs them: launches
+null, with a note), each with the device kernels' template names the
+profiler reports, and "flash_attention:f32"
 (the f32 kernel at the prefill and decode shapes, launched by phase 13's
 f32 runs; the flash_attention row also carries phase 14's launches,
 `launches_train`, and its autograd case), then
@@ -396,12 +412,51 @@ TRAIN_BUDGET_S = 150.0
 MIXED_ROUTES = (
     ("f32_f64", torch.float32, torch.float64, "float, double"),
     ("bf16_f32", torch.bfloat16, torch.float32, "__nv_bfloat16, float"),
+    ("f16_f32", torch.float16, torch.float32, "__half, float"),
+    ("bf16_f64", torch.bfloat16, torch.float64, "__nv_bfloat16, double"),
+    ("f16_f64", torch.float16, torch.float64, "__half, double"),
 )
-#: the Schur update's device kernel on each route (f32 -> f64 on the f64
-#: tensor cores; bf16 -> f32 is the bf16 default route)
+#: the narrow routes of the panel and the solves (bf16 or f16 with no
+#: acc_dtype: every operation rounded to the half type, in the plain
+#: version's order), held to their plain versions bit for bit; their
+#: Schur update is the bf16/f16 -> f32 default route
+NARROW_ROUTES = (
+    ("bf16", torch.bfloat16, None, "__nv_bfloat16, __nv_bfloat16"),
+    ("f16", torch.float16, None, "__half, __half"),
+)
+#: the Schur update's device kernel on each route (f32 and half -> f64
+#: on the f64 tensor cores; bf16/f16 -> f32 is the half default route,
+#: which the narrow routes' lu_blocked runs)
 SCHUR_KERNEL = {"f32": "schur_kernel<float, float>",
                 "f32_f64": "schur_dmma_kernel<float>",
-                "bf16_f32": "schur_kernel<__nv_bfloat16, float>"}
+                "bf16_f32": "schur_kernel<__nv_bfloat16, float>",
+                "f16_f32": "schur_kernel<__half, float>",
+                "bf16_f64": "schur_dmma_kernel<__nv_bfloat16>",
+                "f16_f64": "schur_dmma_kernel<__half>",
+                "bf16": "schur_kernel<__nv_bfloat16, float>",
+                "f16": "schur_kernel<__half, float>"}
+#: lu_blocked's half routes at n = 4096: (storage, the narrow route's and
+#: the wide (acc_dtype=float64) route's names)
+HALF_SEQUENTIAL = ((torch.bfloat16, "bf16", "bf16_f64"),
+                   (torch.float16, "f16", "f16_f64"))
+#: the mesh phase: launcher steps and the bars of --mesh smoke against
+#: --mesh none (relative): its losses; the first step's loss; the first
+#: step's gradient of each parameter, at the same weights and batch (a
+#: leaf's distance over its norm). repro-100m computes in f32; under the
+#: (1, 1) mesh its products run as batched products (cuBLAS picks other
+#: algorithms, so f32 sums run in another order). On an H100 the gaps
+#: read 4.11e-6, 0 and 4.18e-6 (stack.7.mixer.wq), so the bars are 5x
+#: those. The later grad norms and the final checkpoint leaves drift
+#: apart (7.4e-3 and 3.7e-2 after 8 steps): AdamW's first updates are
+#: about lr * sign(g) for every weight, so a weight whose gradient lies
+#: within rounding of zero moves either way, and the next gradients
+#: follow. They are read, not gated; a gradient lost by the sharded
+#: path shows in the first step's gradients instead.
+MESH_STEPS = 8
+MESH_RTOL = {"losses": 2e-5, "first_loss": 1e-6, "first_gradients": 2e-5}
+MESH_SHAPE = (8, 256)  # batch, sequence
+MESH_LAUNCH = ["--arch", "repro-100m", "--batch", str(MESH_SHAPE[0]),
+               "--seq", str(MESH_SHAPE[1]), "--lr", "1e-3"]
 MIXED_ULPS = 4
 #: the f32 default routes of the panel and the triangular solves against
 #: their plain versions: f32 arithmetic in another order and FMA
@@ -2439,9 +2494,10 @@ def route_cases(rng, dev, dtype):
 
 
 def phase_routes(rng, dev) -> dict:
-    """The mixed routes (both pairs) and the f32 default routes of the
-    panel and the triangular solves against their plain versions at the
-    shapes lu_blocked gives them; returns max errors by kernels-line row
+    """The mixed routes (every pair), the f32 default routes and the
+    narrow half routes of the panel and the triangular solves against
+    their plain versions at the shapes lu_blocked gives them (the narrow
+    ones bit for bit); returns max errors by kernels-line row
     ("<kernel>:<route>")."""
     from repro_torch.kernels import ops, ref
 
@@ -2449,9 +2505,10 @@ def phase_routes(rng, dev) -> dict:
     routes = [(name, st, acc, MIXED_ULPS * torch.finfo(st).eps)
               for name, st, acc, _ in MIXED_ROUTES]
     routes.append(("f32", torch.float32, None, F32_RTOL))
+    routes += [(name, st, None, 0.0) for name, st, _, _ in NARROW_ROUTES]
     for route, st, acc, tol in routes:
         cases = route_cases(rng, dev, st)
-        if acc is None:  # phase 7 holds the f32 Schur route
+        if acc is None:  # phase 7 and the mixed routes hold these Schur routes
             del cases["schur_update"]
         line = {}
         for kernel, shaped in cases.items():
@@ -2539,7 +2596,8 @@ def phase_sequential_routes(rng, dev) -> dict:
     """lu_blocked(x32, 1024), plain f32 (the f32 Schur route) and mixed
     (acc_dtype=float64), at n = 4096: warm wall, launches by kernel, the
     device kernels' routes, and each one's distance from the f64
-    factorization. Returns {route: launches}."""
+    factorization; then bf16 and f16, narrow and with acc_dtype=float64.
+    Returns {route: launches}."""
     from repro_torch.core.lu import lu_blocked
     from repro_torch.kernels import ops
 
@@ -2577,10 +2635,54 @@ def phase_sequential_routes(rng, dev) -> dict:
           "mixed lu_blocked residual not below plain f32's")
     check(lines["f32_f64"]["distance_from_f64"] < lines["f32"]["distance_from_f64"],
           "mixed lu_blocked not nearer the f64 factors than plain f32")
+    # the half routes, narrow and wide, on the same matrix rounded to the
+    # half type; maxima cannot tell them apart (both are set by U's
+    # largest entries' rounding to the storage type), norms can
+    for half, narrow, wide in HALF_SEQUENTIAL:
+        xh = x.to(half)
+        xd = xh.double()
+        lh64, uh64 = lu_blocked(xd, SEQ_BLOCK)
+        for route, acc in ((narrow, None), (wide, torch.float64)):
+            (l, u), launches = run_counted(
+                ops, lambda: lu_blocked(xh, SEQ_BLOCK, acc_dtype=acc))
+            check(launches == want_counts,
+                  f"lu_blocked {route} launches {launches}")
+            check(l.dtype == u.dtype == half, f"lu_blocked {route} {l.dtype}")
+            kernels = route_kernels(lambda: lu_blocked(xh, SEQ_BLOCK,
+                                                       acc_dtype=acc))
+            targs = dict((n, t) for n, _, _, t in (*MIXED_ROUTES,
+                                                   *NARROW_ROUTES))[route]
+            check(SCHUR_KERNEL[route] in kernels
+                  and all(f"<{targs}" in k or k == SCHUR_KERNEL[route]
+                          for k in kernels),
+                  f"lu_blocked {route} ran {kernels}")
+            residual = float(torch.linalg.norm(l.double() @ u.double() - xd)
+                             / torch.linalg.norm(xd))
+            dist = max(float(torch.linalg.norm(f.double() - g)
+                             / torch.linalg.norm(g))
+                       for f, g in ((l, lh64), (u, uh64)))
+            finite = bool(torch.isfinite(l).all() and torch.isfinite(u).all())
+            check(finite, f"lu_blocked {route} factors not finite")
+            _, warm_s = wall(lambda: lu_blocked(xh, SEQ_BLOCK, acc_dtype=acc))
+            out[route] = launches
+            lines[route] = {"launches": launches, "kernels": kernels,
+                            "residual_normwise": residual,
+                            "distance_from_f64_normwise": dist,
+                            "warm_wall_s": warm_s}
+        check(lines[wide]["residual_normwise"] < lines[narrow]["residual_normwise"],
+              f"{wide} lu_blocked residual not below {narrow}'s")
+        check(lines[wide]["distance_from_f64_normwise"]
+              < lines[narrow]["distance_from_f64_normwise"],
+              f"{wide} lu_blocked not nearer the f64 factors than {narrow}")
     emit({"phase": "sequential_routes", "n": SINGLE_N, "block": SEQ_BLOCK,
           "residual": "max|L·U - X| / max|X| in f64",
           "distance_from_f64": "max over L, U of max|F - F64| / max|F64|, "
                                "F64 the f64 lu_blocked of the same matrix",
+          "residual_normwise": "||L·U - X||_F / ||X||_F in f64, X the "
+                               "matrix rounded to the half type",
+          "distance_from_f64_normwise": "max over L, U of ||F - F64||_F / "
+                                        "||F64||_F, F64 the f64 lu_blocked "
+                                        "of X",
           **lines})
     return out
 
@@ -3762,6 +3864,152 @@ def train_launcher() -> dict:
     return {"phase": "train_launcher", "argv": TRAIN_LAUNCH, "runs": runs}
 
 
+def first_gradients(mesh: str, dev) -> tuple[float, dict]:
+    """The loss and each parameter's gradient (whole, f64 on the host) of
+    the mesh phase's first step: MESH_LAUNCH's model from seed 0 and its
+    batch 0, built as `launch/train.py --mesh {mesh}` builds them (a
+    process group of one rank, the (1, 1) mesh, its rules and placed
+    parameters for "smoke"), through the train step's `loss_and_grads`."""
+    import contextlib
+
+    from repro_torch.distrib.sharding import (
+        full, make_rules, plain_replicated, use_rules)
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.lm import init_lm
+    from repro_torch.train.data import SyntheticLM
+    from repro_torch.train.steps import loss_and_grads
+
+    cfg = train.REPRO_100M
+    group = (train.process_group(dev) if mesh == "smoke"
+             else contextlib.nullcontext((0, 1, dev)))
+    with group as (_, world, dev):
+        device_mesh = None
+        if mesh == "smoke":
+            device_mesh = make_smoke_mesh(train.smoke_mesh_shape(world),
+                                          ("data", "model"), device_type=dev.type)
+        rules = make_rules(device_mesh, num_heads=cfg.num_heads,
+                           num_kv_heads=cfg.num_kv_heads)
+        with use_rules(rules), plain_replicated():
+            model = init_lm(cfg, 0, device=dev)
+            if device_mesh is not None:
+                model = train.place_params(model, rules)
+            batch = SyntheticLM(cfg, seed=0).batch(0, *MESH_SHAPE)
+            loss, grads = loss_and_grads(
+                model, {k: v.to(dev) for k, v in batch.items()}, cfg)
+            return float(full(loss)), {
+                name: full(g).to(torch.float64).cpu().numpy()
+                for name, g in grads.items()}
+
+
+def phase_mesh() -> dict:
+    """The launcher in process with --mesh smoke (one rank, mesh (1, 1))
+    and then --mesh none, MESH_LAUNCH at the same seed: the sharded run's
+    parameters are DTensors, its flash launches counted, its losses those
+    of the unsharded run within MESH_RTOL. Then the first step's gradient
+    of every parameter both ways (first_gradients), each within MESH_RTOL
+    of the unsharded one. The later grad norms and the final checkpoint
+    leaves are read, not gated (MESH_RTOL's note). Returns the sharded
+    run's launches."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    def logged(lines, name):
+        return json.loads(next(ln for ln in lines if ln.startswith(
+            f"[train] {name}:")).split(":", 1)[1])
+
+    def checkpoint(final: Path) -> dict:
+        leaves = json.loads((final / "manifest.json").read_text())["leaves"]
+        return {leaf["path"]: np.load(final / leaf["file"]).astype(np.float64)
+                for leaf in leaves}
+
+    def rel(got, want) -> float:
+        """A leaf's distance over its norm, as the CPU launcher test reads
+        it."""
+        return float(np.linalg.norm(got - want)
+                     / max(np.linalg.norm(want), 1e-30))
+
+    def top(diffs: dict) -> dict:
+        return dict(sorted(diffs.items(), key=lambda kv: -kv[1])[:4])
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    runs = {}
+    try:
+        for mesh in ("smoke", "none"):
+            out = io.StringIO()
+            ops.reset_launches()
+            with contextlib.redirect_stdout(out):
+                t0 = time.perf_counter()
+                code = train.main([*MESH_LAUNCH, "--steps", str(MESH_STEPS),
+                                   "--mesh", mesh, "--ckpt", f"{root}/{mesh}"])
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            lines = out.getvalue().splitlines()
+            check(code == 0, f"--mesh {mesh}: {lines}")
+            runs[mesh] = {"seconds": seconds, "lines": lines,
+                          "losses": logged(lines, "losses"),
+                          "grad_norms": logged(lines, "grad_norms"),
+                          "final": checkpoint(max(Path(root, mesh).glob("step_*"))),
+                          "launches": dict(ops.LAUNCHES)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not dist.is_initialized(), "the mesh run left its process group")
+    smoke, none = runs["smoke"], runs["none"]
+    total = smoke["lines"][0].rsplit("sharded_params=", 1)[1]
+    placed, count = (int(v) for v in total.split("/"))
+    check(sorted(smoke["final"]) == sorted(none["final"]) and none["final"],
+          "the two runs' final checkpoints hold other leaves")
+    final = {n: rel(smoke["final"][n], w) for n, w in none["final"].items()}
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    (loss_s, grads_s), (loss_n, grads_n) = (first_gradients(m, dev)
+                                            for m in ("smoke", "none"))
+    check(not dist.is_initialized(), "first_gradients left its process group")
+    check(sorted(grads_s) == sorted(grads_n) and grads_n,
+          "the two first steps' gradients name other parameters")
+    grads = {n: rel(grads_s[n], w) for n, w in grads_n.items()}
+    zero = sorted(n for n, w in grads_n.items() if not np.any(w))
+
+    def worst(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    gated = {"losses": worst(smoke["losses"], none["losses"]),
+             "first_loss": abs(loss_s - loss_n) / abs(loss_n),
+             "first_gradients": max(grads.values())}
+    emit({"phase": "mesh", "argv": MESH_LAUNCH, "steps": MESH_STEPS,
+          "mesh": [1, 1], "sharded_params": placed, "params": count,
+          "losses_smoke": smoke["losses"], "losses_none": none["losses"],
+          "max_rel_diff": gated, "tolerance": MESH_RTOL,
+          "first_gradients": {"leaves": len(grads), "zero_leaves": zero,
+                              "worst": top(grads)},
+          "read": {"grad_norms_smoke": smoke["grad_norms"],
+                   "grad_norms_none": none["grad_norms"],
+                   "grad_norms": worst(smoke["grad_norms"], none["grad_norms"]),
+                   "leaves_final": max(final.values()),
+                   "worst_final": top(final)},
+          "seconds": {m: r["seconds"] for m, r in runs.items()},
+          "flash_launches": {m: r["launches"]["flash_attention"]
+                             for m, r in runs.items()}})
+    check("mesh={'data': 1, 'model': 1}" in smoke["lines"][0],
+          f"--mesh smoke's mesh: {smoke['lines'][0]}")
+    check(placed == count > 0, f"--mesh smoke placed {placed} of {count}")
+    check(smoke["launches"]["flash_attention"] > 0, "no flash launch under the mesh")
+    check(len(smoke["losses"]) == len(none["losses"]) == MESH_STEPS,
+          f"{len(smoke['losses'])} and {len(none['losses'])} steps logged")
+    check(not zero, f"parameters with no gradient: {zero}")
+    for what, diff in gated.items():
+        check(diff <= MESH_RTOL[what], f"--mesh smoke {what} off by {diff}")
+    return smoke["launches"]
+
+
 def phase_train(rng, dev, seed: int) -> tuple[dict, dict]:
     """Training on the card (module docstring): B6 under autograd, card
     against CPU, tinyllama-1.1b at full size, the launcher; within
@@ -4132,11 +4380,14 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
     tile_ops = float((np.arange(INNER) + 2 * np.arange(INNER) ** 2).sum())
     routes = [(name, st, acc, targs) for name, st, acc, targs in MIXED_ROUTES]
     routes.append(("f32", torch.float32, None, "float, float"))
+    routes += list(NARROW_ROUTES)
     for route, st, acc, targs in routes:
         size = torch.finfo(st).bits // 8
         arith = acc or st
         cases = route_cases(rng, dev, st)
-        f32_lib = acc is None
+        # a library call computes the same function on the f32 default
+        # routes alone (no library LU or solve takes a half type)
+        f32_lib = acc is None and st == torch.float32
 
         def names_of(kernel_fn, want=f"<{targs}"):
             found = route_kernels(kernel_fn)
@@ -4187,6 +4438,8 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
                 strip_case={"shape": [INNER, INNER, w], **strip_case},
                 kernels=names_of(call(tri, rhs)), storage=str(st),
                 arithmetic=str(arith))
+        if (route, st, acc, targs) in NARROW_ROUTES:
+            continue  # their Schur route is the half -> f32 row's
         (cs, as_, bs), (ic, ia, ib) = cases["schur_update"].values()
         upd = lambda c, a, bb: lambda: ops.schur_update(c, a, bb, acc_dtype=acc)
         plain_upd = lambda c, a, bb: lambda: ref.schur_update_ref(c, a, bb, acc)
@@ -4281,8 +4534,8 @@ def main() -> int:
     per_phase["f32_single"] = (f32_single, MAIN_PATH)
     per_phase["f32_batch"] = (f32_batch, MAIN_PATH)
     seq_routes = phase_sequential_routes(rng_routes, dev)
-    per_phase["sequential_f32"] = (seq_routes["f32"], SEQUENTIAL_PATH)
-    per_phase["sequential_f32_f64"] = (seq_routes["f32_f64"], SEQUENTIAL_PATH)
+    for route, launches in seq_routes.items():
+        per_phase[f"sequential_{route}"] = (launches, SEQUENTIAL_PATH)
     per_phase["recovery"] = (phase_recovery(rng_routes, dev, mp_recovery),
                              MAIN_PATH)
     per_phase["pipeline"], row_solve = phase_pipeline(rng_pipeline, dev)
@@ -4308,6 +4561,7 @@ def main() -> int:
     errs.update(models_vs_plain(rng, dev))
     train_flash, per_phase["train"] = phase_train(rng_train, dev, args.seed)
     per_phase["train"] = (per_phase["train"], SERVE_PATH)
+    per_phase["mesh"] = (phase_mesh(), SERVE_PATH)
     for phase, (launches, path) in per_phase.items():
         for name in path:
             check(launches[name] > 0, f"{name} never launched in phase {phase}")
@@ -4316,14 +4570,23 @@ def main() -> int:
     launches["schur_update"] = per_phase["sequential"][0]["schur_update"]
     launches["flash_attention"] = per_phase["serve"][0]["flash_attention"]
     # each route's row: its launches on the path that runs it (the f32
-    # protocol's single run, plain f32 and mixed lu_blocked); no path
-    # runs the bf16 -> f32 routes, so their rows carry launches null
+    # protocol's single run, plain f32, mixed and half lu_blocked); no
+    # path runs the panel's and the solves' bf16/f16 -> f32 routes, so
+    # their rows carry launches null; the narrow half lu_blocked runs
+    # the half -> f32 Schur route
     for name in ("ced", "lu_panel", "trsm_lower", "trsm_upper_right"):
         launches[f"{name}:f32"] = f32_single[name]
     for name in SEQUENTIAL_PATH:
-        launches[f"{name}:f32_f64"] = seq_routes["f32_f64"][name]
-        launches[f"{name}:bf16_f32"] = None
+        for route in ("f32_f64", "bf16_f64", "f16_f64"):
+            launches[f"{name}:{route}"] = seq_routes[route][name]
+        for route in ("bf16_f32", "f16_f32"):
+            launches[f"{name}:{route}"] = None
+    for name in SERVER_PATH:
+        for route, _, _, _ in NARROW_ROUTES:
+            launches[f"{name}:{route}"] = seq_routes[route][name]
     launches["schur_update:f32"] = seq_routes["f32"]["schur_update"]
+    launches["schur_update:bf16_f32"] = seq_routes["bf16"]["schur_update"]
+    launches["schur_update:f16_f32"] = seq_routes["f16"]["schur_update"]
     check(f32_flash_launches > 0, "flash_attention never launched in f32")
     launches["flash_attention:f32"] = f32_flash_launches
     for leg in TRISOLVE_LEGS:

@@ -265,9 +265,9 @@ class SPDCClient:
         if self.dtype not in _PROTOCOL_DTYPES:
             raise ValueError(
                 f"dtype {self.dtype} is not a verified protocol dtype "
-                "(float64 or float32): the servers' panel and triangular-"
-                "solve kernels compute half precision only as mixed "
-                "routes (ROADMAP B7)")
+                "(float64 or float32): the reference's protocol verifies "
+                "no half-precision run either (lu_blocked takes bfloat16 "
+                "and float16, with or without acc_dtype)")
         t0 = time.perf_counter()
         plan = resolve_delays(
             normalize_plan(faults),

@@ -157,8 +157,11 @@ def lu_blocked(
 
     acc_dtype: the mixed variant (DESIGN.md §6.4) — every panel, strip
     and update computes in the wider acc_dtype and stores at a's dtype:
-    float32 with torch.float64, or bfloat16/float16 with torch.float32
-    (kernels.routes.ROUTES; any other pair raises TypeError). A diagonal tile
+    float32 with torch.float64, or bfloat16/float16 with torch.float32 or
+    torch.float64 (kernels.routes.ROUTES; any other pair raises
+    TypeError). Without it a bfloat16/float16 matrix takes the kernels'
+    default routes, as the reference's kernel route does: panels and
+    strips in the half type, the updates summed in float32. A diagonal tile
     of 64 or more rows is factored blocked, so its entries are rounded
     to a's dtype between its 32-wide inner steps, where the reference's
     kernel route factors the whole tile in one wide launch (ROADMAP §C).

@@ -195,7 +195,7 @@ def lm_tree_from_port(cfg, tensors) -> dict:
     lm_params_from_numpy."""
     from torch import nn
 
-    from .models.blocks import split_layers
+    from .models.lm import reference_tree
 
     if isinstance(tensors, nn.Module):
         tensors = dict(tensors.named_parameters())
@@ -209,32 +209,8 @@ def lm_tree_from_port(cfg, tensors) -> dict:
         t = t.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    tree: dict = {"lm_head": host(tensors["lm_head"]),
-                  "final_norm": {"gamma": host(tensors["final_norm.gamma"])}}
-    if "final_norm.beta" in tensors:
-        tree["final_norm"]["beta"] = host(tensors["final_norm.beta"])
-    if "embed" in tensors:
-        tree["embed"] = host(tensors["embed"])
-    if "frontend.adapter" in tensors:
-        tree["frontend"] = {"adapter": host(tensors["frontend.adapter"])}
-    layers: list[dict] = [{} for _ in range(cfg.num_layers)]
-    for name, t in tensors.items():
-        if name.startswith("stack."):
-            _, i, part, leaf = name.split(".")
-            layers[int(i)].setdefault(part, {})[leaf] = host(t)
-    n_periods, rem = split_layers(cfg)
-    plen = len(cfg.pattern)
-
-    def stack(trees):
-        return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
-                else np.stack([t[k] for t in trees]) for k in trees[0]}
-
-    tree["stack"] = {"periods": {
-        f"l{j}": stack(layers[j:n_periods * plen:plen]) for j in range(plen)}}
-    if rem:
-        tree["stack"]["remainder"] = {
-            f"l{r}": layers[n_periods * plen + r] for r in range(rem)}
-    return tree
+    return reference_tree(cfg, {n: host(t) for n, t in tensors.items()},
+                          np.stack)
 
 
 def opt_state_from_numpy(cfg, state: dict, model: LM) -> dict:

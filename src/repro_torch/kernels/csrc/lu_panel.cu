@@ -38,8 +38,14 @@
 // type TS and an arithmetic type TA. The tile is widened as it loads,
 // eliminated in registers or shared memory at TA and rounded to TS once,
 // as it is stored: float tiles with double arithmetic, bfloat16 and half
-// tiles with float arithmetic. The block kernel's tile is held at TA, so
-// its widest tile is set by TA's size (170 for double arithmetic).
+// tiles with float or double arithmetic. The block kernel's tile is held
+// at TA, so its widest tile is set by TA's size (170 for double
+// arithmetic).
+// Narrow variant (bfloat16 or half tiles with no acc_dtype, as the
+// reference's kernel computes them): TA = TS, and every division and
+// every product and difference of the update is rounded to the half type
+// (precision.cuh: quot, sub_prod), in the plain version's order, so a
+// tile's bits are the plain version's.
 #include <cuda_runtime.h>
 
 #include "precision.cuh"
@@ -75,7 +81,7 @@ lu_warp_kernel(const TS* __restrict__ a, long long sb, long long sr,
 #pragma unroll
     for (int r = 0; r < WARP_ROWS; ++r) {
       x[r] = (r < b && lane < b) ? widen<TS, TA>(a[r * sr + lane * sc])
-                                 : TA(r == lane);
+                                 : constant<TA>(r == lane ? 1.f : 0.f);
     }
 #pragma unroll
     for (int r = 0; r < WARP_ROWS; ++r) s[r * WARP_LD + lane] = x[r];
@@ -86,7 +92,7 @@ lu_warp_kernel(const TS* __restrict__ a, long long sb, long long sr,
 #pragma unroll
     for (int j = 0; j < WARP_ROWS; ++j) {
       x[j] = (j < b && lane < b) ? widen<TS, TA>(a[lane * sr + j * sc])
-                                 : TA(j == lane);
+                                 : constant<TA>(j == lane ? 1.f : 0.f);
     }
   }
   // Step k: lane k's row is final; every lane divides its column k by the
@@ -99,12 +105,12 @@ lu_warp_kernel(const TS* __restrict__ a, long long sb, long long sr,
   for (int k = 0; k < WARP_ROWS - 1; ++k) {
     const TA pivot = __shfl_sync(FULL, x[k], k);
     const bool below = lane > k;
-    const TA mult = x[k] / pivot;
+    const TA mult = quot(x[k], pivot);
     x[k] = below ? mult : x[k];
 #pragma unroll
     for (int j = k + 1; j < WARP_ROWS; ++j) {
       const TA u = __shfl_sync(FULL, x[j], k);
-      if (below) x[j] -= x[k] * u;
+      if (below) x[j] = sub_prod(x[j], x[k], u);
     }
   }
 #pragma unroll
@@ -134,14 +140,14 @@ __global__ void lu_panel_kernel(const TS* __restrict__ a, long long sb,
   for (int k = 0; k < b - 1; ++k) {
     const TA pivot = s[k * b + k];
     for (int i = k + 1 + threadIdx.x; i < b; i += blockDim.x) {
-      s[i * b + k] = s[i * b + k] / pivot;
+      s[i * b + k] = quot(s[i * b + k], pivot);
     }
     __syncthreads();
     const int w = b - k - 1;
     for (int idx = threadIdx.x; idx < w * w; idx += blockDim.x) {
       const int i = k + 1 + idx / w;
       const int j = k + 1 + idx % w;
-      s[i * b + j] -= s[i * b + k] * s[k * b + j];
+      s[i * b + j] = sub_prod(s[i * b + j], s[i * b + k], s[k * b + j]);
     }
     __syncthreads();
   }
@@ -200,6 +206,10 @@ LU_PANEL_ENTRIES(f32, float, float)
 LU_PANEL_ENTRIES(f32_f64, float, double)
 LU_PANEL_ENTRIES(bf16_f32, __nv_bfloat16, float)
 LU_PANEL_ENTRIES(f16_f32, __half, float)
+LU_PANEL_ENTRIES(bf16, __nv_bfloat16, __nv_bfloat16)
+LU_PANEL_ENTRIES(f16, __half, __half)
+LU_PANEL_ENTRIES(bf16_f64, __nv_bfloat16, double)
+LU_PANEL_ENTRIES(f16_f64, __half, double)
 
 const char* spdc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -61,6 +61,14 @@
 // before it subtracts it (gemm.py:33); the port sums all of K wide,
 // accumulating "in a wider dtype" as DESIGN.md §6.4 states the variant's
 // intent (ROADMAP §C).
+// Mixed bfloat16 / half -> f64: the same DMMA kernel,
+// schur_dmma_kernel<__nv_bfloat16> and <__half>, its ring holding 2-byte
+// tiles (16-byte copies of eight elements where the operand pairs, a
+// plain load and store an element otherwise, cp.async having no 2-byte
+// copy), each fragment widened to f64 as it is read, every product summed
+// over all of K in f64 and rounded to the storage type once, by
+// __double2bfloat16 / __double2half (one rounding, not two through
+// float).
 #include <cuda_runtime.h>
 
 #include "precision.cuh"
@@ -192,14 +200,17 @@ constexpr int DK = 32;             // depth of one pipeline stage
 constexpr int STAGES = 3;          // K slices in flight
 constexpr int DTHREADS = 256;      // 8 warps: 4 (rows) x 2 (columns)
 
-// The ring's layout for operands stored as TS (double, or float on the
-// mixed route): row strides in elements chosen so the fragment reads
-// below hit distinct banks (doubles: the 16 lanes of a half warp; floats:
-// all 32 lanes, rows g apart by 4 banks in A and columns t apart by 8 in
-// B); VEC elements make one 16-byte copy.
+// The ring's layout for operands stored as TS (double, or float, bfloat16
+// or half on the mixed routes): row strides in elements chosen so the
+// fragment reads below hit distinct banks (doubles: the 16 lanes of a
+// half warp; floats: all 32 lanes, rows g apart by 4 banks in A and
+// columns t apart by 8 in B; 2-byte types: rows g apart by 20 banks in A
+// and columns t apart by 4 in B, lanes 2 t and 2 t + 1 sharing a word)
+// and a whole number of 16-byte vectors, so every row of a stage starts
+// 16-byte aligned; VEC elements make one 16-byte copy.
 template <typename TS>
 struct Ring {
-  static constexpr int A_LD = DK + 4;
+  static constexpr int A_LD = DK + (sizeof(TS) == 2 ? 8 : 4);
   static constexpr int B_LD = DN + (sizeof(TS) == 8 ? 4 : 8);
   static constexpr int STAGE = DM * A_LD + DK * B_LD;
   static constexpr int VEC = 16 / static_cast<int>(sizeof(TS));
@@ -247,6 +258,20 @@ __device__ __forceinline__ void cp_async16(void* s, const void* g,
                "l"(g), "r"(bytes));
 }
 
+// One element of BYTES, zero-filled where pred fails: cp.async for 4 and
+// 8 bytes; a 2-byte element, below cp.async's smallest copy, by a plain
+// load and store (its stage is read only after the barrier that follows
+// the wait on this slice, so the ring's order holds).
+template <int BYTES>
+__device__ __forceinline__ void copy_elem(void* s, const void* g, bool pred) {
+  if constexpr (BYTES == 2) {
+    *static_cast<unsigned short*>(s) =
+        pred ? *static_cast<const unsigned short*>(g) : 0;
+  } else {
+    cp_async_elem<BYTES>(s, g, pred);
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -281,6 +306,7 @@ __device__ __forceinline__ void load_slice(
   constexpr int A_LD = Ring<TS>::A_LD, B_LD = Ring<TS>::B_LD;
   constexpr int VEC = Ring<TS>::VEC, SIZE = static_cast<int>(sizeof(TS));
   const int tid = threadIdx.x;
+  static_assert(SIZE == 2 || SIZE == 4 || SIZE == 8, "element size");
   if (a_pairs) {
 #pragma unroll
     for (int j = 0; j < DM * DK / VEC / DTHREADS; ++j) {
@@ -298,8 +324,8 @@ __device__ __forceinline__ void load_slice(
       const int r = along_k ? e / DK : e % DM;
       const int q = along_k ? e % DK : e / DM;
       const bool ok = m0 + r < m && k0 + q < k;
-      cp_async_elem<SIZE>(sa + r * A_LD + q,
-                          ok ? a + (m0 + r) * ar + (k0 + q) * ac : a, ok);
+      copy_elem<SIZE>(sa + r * A_LD + q,
+                      ok ? a + (m0 + r) * ar + (k0 + q) * ac : a, ok);
     }
   }
   if (b_pairs) {
@@ -319,8 +345,8 @@ __device__ __forceinline__ void load_slice(
       const int q = along_n ? e / DN : e % DK;
       const int c = along_n ? e % DN : e / DK;
       const bool ok = k0 + q < k && n0 + c < n;
-      cp_async_elem<SIZE>(sb + q * B_LD + c,
-                          ok ? b + (k0 + q) * br + (n0 + c) * bc : b, ok);
+      copy_elem<SIZE>(sb + q * B_LD + c,
+                      ok ? b + (k0 + q) * br + (n0 + c) * bc : b, ok);
     }
   }
 }
@@ -471,6 +497,8 @@ SCHUR_ENTRY(schur_f32, float, (launch<float, float>))
 SCHUR_ENTRY(schur_f32_f64, float, launch_dmma<float>)
 SCHUR_ENTRY(schur_bf16, __nv_bfloat16, (launch<__nv_bfloat16, float>))
 SCHUR_ENTRY(schur_f16, __half, (launch<__half, float>))
+SCHUR_ENTRY(schur_bf16_f64, __nv_bfloat16, launch_dmma<__nv_bfloat16>)
+SCHUR_ENTRY(schur_f16_f64, __half, launch_dmma<__half>)
 
 const char* spdc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -60,6 +60,14 @@
 // ones on the FMA pipes. The default routes pass X itself as W (TS = TA),
 // so their launches are unchanged. Every column still sees the same
 // operations whatever m, so the split property above holds for both.
+// bfloat16 and half storage take float or double arithmetic this way.
+// Narrow variant (bfloat16 or half with no acc_dtype, as the reference's
+// kernel computes them): TA = TS, every operation rounded to the half
+// type (precision.cuh: quot, sub_prod), and the update subtracts its
+// terms one at a time, k ascending, from the trailing rows' values
+// instead of subtracting their sum: each element then sees the plain
+// version's forward substitution, operation for operation, so the
+// result is the plain version's bits.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -100,7 +108,7 @@ __device__ __forceinline__ void stage(TA* s, const TG* __restrict__ g,
     v[j] = (r < nr && c < nc)
                ? widen<TG, TA>(
                      g[(r0 + r) * sr + static_cast<long long>(c0 + c) * sc])
-               : TA(0);
+               : constant<TA>(0.f);
   }
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
@@ -136,15 +144,17 @@ leaf_kernel(const TS* __restrict__ t, long long tb, long long tr,
   if (col >= m) return;
   const long long cs = static_cast<long long>(col);
   const int i0 = lane, i1 = lane + 32;
-  TA a0 = i0 < nr ? widen<TSRC, TA>(src[(r0 + i0) * sr + cs * sc]) : TA(0);
-  TA a1 = i1 < nr ? widen<TSRC, TA>(src[(r0 + i1) * sr + cs * sc]) : TA(0);
+  TA a0 = i0 < nr ? widen<TSRC, TA>(src[(r0 + i0) * sr + cs * sc])
+                   : constant<TA>(0.f);
+  TA a1 = i1 < nr ? widen<TSRC, TA>(src[(r0 + i1) * sr + cs * sc])
+                   : constant<TA>(0.f);
   for (int k = 0; k < nr; ++k) {
     TA xk = __shfl_sync(FULL, k < 32 ? a0 : a1, k & 31);
-    if (!UNIT) xk = xk / ts[k * LEAF_LD + k];
+    if (!UNIT) xk = quot(xk, ts[k * LEAF_LD + k]);
     if (i0 == k) a0 = xk;
     if (i1 == k) a1 = xk;
-    if (i0 > k && i0 < nr) a0 -= ts[i0 * LEAF_LD + k] * xk;
-    if (i1 > k && i1 < nr) a1 -= ts[i1 * LEAF_LD + k] * xk;
+    if (i0 > k && i0 < nr) a0 = sub_prod(a0, ts[i0 * LEAF_LD + k], xk);
+    if (i1 > k && i1 < nr) a1 = sub_prod(a1, ts[i1 * LEAF_LD + k], xk);
   }
   if (i0 < nr) {
     w[(r0 + i0) * wr + cs * wc] = a0;
@@ -219,6 +229,33 @@ __device__ __forceinline__ void tile_product(const float* as,
   }
 }
 
+// The narrow routes' product: acc enters holding src and loses each
+// term in turn, k ascending, every product and difference rounded to the
+// half type, as the plain version's forward substitution updates a row
+// (the f32 and f64 routes sum the terms first, then subtract the sum).
+template <typename H>
+__device__ __forceinline__ void tile_product(const H* as, const H* bs, int k,
+                                             H (&acc)[4][2][2]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wy = warp >> 2, wx = warp & 3;
+  for (int kk = 0; kk < k; ++kk) {
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      const H a = as[(32 * wy + 8 * mi + g) * TILE_LD + kk];
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          acc[mi][ni][e] = sub_prod(
+              acc[mi][ni][e], a,
+              bs[kk * TILE_LD + 16 * wx + 8 * ni + 2 * tq + e]);
+        }
+      }
+    }
+  }
+}
+
 // w[rows r1 + 64 y ..., cols 64 x ...] = src - T[those rows, r0 : r0 + k]
 // w[r0 : r0 + k, those cols], for the trailing rows [r1, n).
 template <typename TS, typename TA, typename TSRC>
@@ -259,16 +296,22 @@ update_kernel(const TS* __restrict__ t, long long tb, long long tr,
             (r < nr && c < nc)
                 ? widen<TSRC, TA>(src[(row0 + r) * sr +
                                       static_cast<long long>(col0 + c) * sc])
-                : TA(0);
+                : constant<TA>(0.f);
       }
     }
   }
   __syncthreads();
+  constexpr bool HALF = is_half_type<TA>::value;
   TA acc[4][2][2];
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
-    for (int ni = 0; ni < 2; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = TA(0);
+    for (int ni = 0; ni < 2; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        acc[mi][ni][e] = HALF ? cv[mi][ni][e] : constant<TA>(0.f);
+      }
+    }
   }
   tile_product(as, bs, k, acc);
 #pragma unroll
@@ -282,7 +325,11 @@ update_kernel(const TS* __restrict__ t, long long tb, long long tr,
       for (int e = 0; e < 2; ++e) {
         const int c = 16 * wx + 8 * ni + 2 * tq + e;
         if (c >= nc) continue;
-        w[gr * wr + (col0 + c) * wc] = cv[mi][ni][e] - acc[mi][ni][e];
+        if constexpr (HALF) {
+          w[gr * wr + (col0 + c) * wc] = acc[mi][ni][e];
+        } else {
+          w[gr * wr + (col0 + c) * wc] = cv[mi][ni][e] - acc[mi][ni][e];
+        }
       }
     }
   }
@@ -376,6 +423,10 @@ TRSM_ENTRY(f32, float, float)
 TRSM_ENTRY(f32_f64, float, double)
 TRSM_ENTRY(bf16_f32, __nv_bfloat16, float)
 TRSM_ENTRY(f16_f32, __half, float)
+TRSM_ENTRY(bf16, __nv_bfloat16, __nv_bfloat16)
+TRSM_ENTRY(f16, __half, __half)
+TRSM_ENTRY(bf16_f64, __nv_bfloat16, double)
+TRSM_ENTRY(f16_f64, __half, double)
 
 const char* spdc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

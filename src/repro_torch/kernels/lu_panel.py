@@ -5,7 +5,9 @@ Doolittle of one (b, b) tile or a (B, b, b) stack, compact output. Two
 kernels, chosen by `route`: one warp a tile up to WARP_MAX wide, one
 thread block a tile up to `max_tile`. `acc_dtype` selects the mixed
 variant (the reference's acc_dtype): float32 tiles eliminated in float64,
-bfloat16 and float16 tiles in float32, stored at their own type.
+bfloat16 and float16 tiles in float32 or float64, stored at their own
+type. Without it a bfloat16 or float16 tile is eliminated in its own
+type, every operation rounded to it.
 """
 from __future__ import annotations
 

@@ -13,10 +13,12 @@ leg in `TRSM_LEFT_LEGS` (the four solves of a trisolve chunk).
 `acc_dtype` (lu_panel, trsm_lower, trsm_upper_right, schur_update) selects
 the reference's mixed variant, on both devices: narrow storage, wide
 arithmetic, one rounding on store. None, or the storage dtype itself,
-is the default route. The pairs ported are those of routes.ROUTES:
-float32 storage with float64 arithmetic and bfloat16/float16 storage
-with float32 arithmetic (for schur_update the latter is its default
-route); any other pair raises TypeError.
+is the default route: for bfloat16 and float16 the panel and the solves
+then compute in the half type itself, the Schur update in float32. The
+pairs are those of routes.ROUTES: float32 storage with float64
+arithmetic and bfloat16/float16 storage with float32 or float64
+arithmetic (for schur_update bf16/f16 -> f32 is its default route); any
+other pair raises TypeError.
 """
 from __future__ import annotations
 
@@ -126,7 +128,8 @@ def schur_update(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, *,
                  acc_dtype=None) -> torch.Tensor:
     """C − A·B into a fresh tensor; (…, M, K)·(…, K, N), batch-aware.
     float64/float32 accumulate in their own type, bfloat16/float16 in
-    float32, float32 in float64 with acc_dtype=torch.float64."""
+    float32, and float32, bfloat16 and float16 in float64 with
+    acc_dtype=torch.float64."""
     acc = accumulator("schur_update", c.dtype, acc_dtype)
     if _on_cuda(c, a, b):
         out = schur_update_cuda(c, a, b, acc)

@@ -7,7 +7,10 @@ holds each kernel against its plain version on the card.
 
 The panel, triangular-solve and Schur versions take `acc_dtype`, the
 mixed variant of the reference's kernels: with a wider acc_dtype they
-compute in it and cast to the storage dtype once, at the end.
+compute in it and round to the storage dtype once, at the end
+(`narrow`). Without one, bfloat16 and float16 panels and solves compute
+in the half type, each operation rounded to it, as PyTorch's elementwise
+operators do.
 """
 from __future__ import annotations
 
@@ -30,6 +33,24 @@ def ced_ref(m: torch.Tensor, v: torch.Tensor, k: int, mode: str = "ewd",
     return x.contiguous()
 
 
+def narrow(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x rounded to `dtype` once, to nearest even, as the kernels'
+    __double2bfloat16 / __double2half store a float64 result. torch's own
+    float64 -> bfloat16/float16 cast goes through float32 and so rounds
+    twice: 1 + 2^-8 + 2^-30 becomes 1.0, not 1 + 2^-7. Here the float32
+    step rounds to odd (toward zero, the last bit set where inexact), which
+    keeps the second rounding exact. Every other cast is torch's own."""
+    if x.dtype != torch.float64 or dtype not in (torch.bfloat16, torch.float16):
+        return x.to(dtype)
+    f = x.to(torch.float32)
+    back = f.to(torch.float64)
+    inexact = (back != x) & torch.isfinite(x)
+    bits = f.view(torch.int32)
+    bits = torch.where(inexact & (back.abs() > x.abs()), bits - 1, bits)
+    bits = torch.where(inexact, bits | 1, bits)
+    return bits.view(torch.float32).to(dtype)
+
+
 def _wide(t: torch.Tensor, acc_dtype) -> torch.Tensor:
     """A copy of t in the arithmetic dtype (acc_dtype, else t's own)."""
     return t.to(acc_dtype or t.dtype, copy=True)
@@ -44,7 +65,7 @@ def lu_panel_ref(a: torch.Tensor, acc_dtype=None) -> torch.Tensor:
     for k in range(b - 1):
         x[..., k + 1:, k] = x[..., k + 1:, k] / x[..., k, k, None]
         x[..., k + 1:, k + 1:] -= x[..., k + 1:, k, None] * x[..., k, None, k + 1:]
-    return x.to(a.dtype)
+    return narrow(x, a.dtype)
 
 
 def trsm_lower_ref(l: torch.Tensor, b: torch.Tensor,
@@ -68,7 +89,7 @@ def trsm_upper_right_ref(u: torch.Tensor, b: torch.Tensor,
     for k in range(n):
         z[..., :, k] = z[..., :, k] / u[..., k, k, None]
         z[..., :, k + 1:] -= z[..., :, k, None] * u[..., k, None, k + 1:]
-    return z.to(b.dtype)
+    return narrow(z, b.dtype)
 
 
 def _left_ref(t: torch.Tensor, b: torch.Tensor, *, upper: bool,
@@ -90,7 +111,7 @@ def _left_ref(t: torch.Tensor, b: torch.Tensor, *, upper: bool,
             x[..., k, :] = x[..., k, :] / tt[..., k, k, None]
         rest = slice(None, k) if upper != transpose_t else slice(k + 1, None)
         x[..., rest, :] -= tt[..., rest, k, None] * x[..., k, None, :]
-    return x.to(b.dtype)
+    return narrow(x, b.dtype)
 
 
 def trsm_left_ref(t: torch.Tensor, b: torch.Tensor, *, upper: bool,
@@ -113,7 +134,7 @@ def schur_update_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         acc_dtype = torch.float32
     if acc_dtype is None or acc_dtype == c.dtype:
         return c - a @ b
-    return (c.to(acc_dtype) - a.to(acc_dtype) @ b.to(acc_dtype)).to(c.dtype)
+    return narrow(c.to(acc_dtype) - a.to(acc_dtype) @ b.to(acc_dtype), c.dtype)
 
 
 #: the masked-score sentinel of the reference's kernel (flash_attn.py:23)

@@ -4,10 +4,13 @@ refuse an `acc_dtype` and by the wrappers to pick a CUDA entry point.
 
 A default route computes in its kernel's default arithmetic type: the
 storage type itself, except that the Schur update sums bfloat16 and
-float16 in float32. A mixed route (the reference's acc_dtype) stores
-narrow and computes wide. The ported mixed pairs are float32 storage
-with float64 arithmetic and bfloat16/float16 storage with float32
-arithmetic; the other pairs wait in ROADMAP B7.
+float16 in float32. So the panel and the solves have narrow default
+routes for bfloat16 and float16, every operation rounded to the half
+type, as the reference's kernels compute without an acc_dtype. A mixed
+route (the reference's acc_dtype) stores narrow and computes wide:
+float32 storage with float64 arithmetic, and bfloat16/float16 storage
+with float32 or float64 arithmetic, for all four kernels. An acc_dtype
+narrower than the storage type is no route.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ _F64, _F32, _BF16, _F16 = torch.float64, torch.float32, torch.bfloat16, torch.fl
 _SOLVE = {
     (_F64, _F64): "f64", (_F32, _F32): "f32", (_F32, _F64): "f32_f64",
     (_BF16, _F32): "bf16_f32", (_F16, _F32): "f16_f32",
+    (_BF16, _BF16): "bf16", (_F16, _F16): "f16",
+    (_BF16, _F64): "bf16_f64", (_F16, _F64): "f16_f64",
 }
 #: kernel -> {(storage, arithmetic): suffix of its CUDA entry points}
 ROUTES = {
@@ -25,6 +30,7 @@ ROUTES = {
     "schur_update": {
         (_F64, _F64): "f64", (_F32, _F32): "f32", (_F32, _F64): "f32_f64",
         (_BF16, _F32): "bf16", (_F16, _F32): "f16",
+        (_BF16, _F64): "bf16_f64", (_F16, _F64): "f16_f64",
     },
 }
 #: the default arithmetic of a storage type where it is not the type itself
@@ -45,7 +51,7 @@ def accumulator(kernel: str, dtype: torch.dtype, acc_dtype) -> torch.dtype | Non
     if (dtype, acc_dtype) not in ROUTES[kernel]:
         raise TypeError(
             f"{kernel}: {dtype} storage with {acc_dtype} arithmetic is not "
-            "ported (ROADMAP B7)")
+            "a route (an acc_dtype at least as wide as the storage type)")
     return acc_dtype
 
 

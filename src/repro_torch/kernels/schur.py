@@ -4,9 +4,10 @@ Port of src/repro/kernels/gemm.py:schur_update: C − A·B for (M, K)·(K, N)
 operands or a (B, M, K)·(B, K, N) stack, at any strides, into a fresh
 output. float64 runs on the tensor cores (DMMA) and accumulates in
 float64; float32 accumulates in its own type, bfloat16 and float16 in
-float32, on the FMA pipes. `acc_dtype=torch.float64` on float32 operands
-selects the mixed variant (the reference's acc_dtype): the DMMA kernel
-on float32 tiles, summed in float64 and rounded to float32 once.
+float32, on the FMA pipes. `acc_dtype=torch.float64` on float32,
+bfloat16 or float16 operands selects the mixed variant (the reference's
+acc_dtype): the DMMA kernel on tiles of the storage type, widened as
+they are read, summed in float64 and rounded to the storage type once.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ _MAX_GRID_YZ = 65535
 def rows_per_block(dtype: torch.dtype,
                    acc_dtype: torch.dtype | None = None) -> int:
     """Rows of OUT one block computes: csrc/schur.cu's DM for the DMMA
-    kernel (float64, and the mixed float32 → float64 route), BM for the
+    kernel (float64, and the mixed routes to float64), BM for the
     FMA kernel of the other types."""
     return 128 if torch.float64 in (dtype, acc_dtype) else 64
 

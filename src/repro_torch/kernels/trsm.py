@@ -13,7 +13,9 @@ the stream: a 64-row leaf solve per leaf and a trailing update between
 consecutive leaves. `acc_dtype` (trsm_lower_cuda, trsm_upper_right_cuda)
 selects the mixed variant (the reference's acc_dtype, routes.ROUTES):
 the solve runs in the wider type, its intermediate rows kept in a
-workspace of that type, and the result is stored at B's type.
+workspace of that type, and the result is stored at B's type. Without
+it, bfloat16 and float16 solve in their own type, every operation
+rounded to it.
 """
 from __future__ import annotations
 

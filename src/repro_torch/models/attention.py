@@ -26,6 +26,18 @@ way the keys are a prefix of the cache, which the decode route reads as
 it reads a full layer's. No query row is ever fully masked on these
 paths (each sees itself), so the flash kernel's mean-of-V rows
 (ROADMAP §C) cannot arise.
+
+Under sharding rules (distrib/sharding.py; `launch/train.py --mesh
+smoke`, the dry run) q, k, v and the output are constrained at the
+reference's sites, and the kernel runs through DTensor's `local_map` on
+each rank's own shard (`_sharded`): with the heads sharded, on the
+rank's heads, all keys local (K/V repeated to the query heads first
+where their heads do not divide over the model axis, as the reference
+repeats them); in the sequence-parallel fallback, on the rank's block of
+query rows against the keys up to its block's end (gathered over the
+model axis inside), which the kernel's right-aligned rows then place at
+their true positions. Decode under a
+mesh is not ported (NotImplementedError).
 """
 from __future__ import annotations
 
@@ -33,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distrib.sharding import constrain, current_rules, matmul
 from ..kernels import ops
 from ..serve.kvcache import merge_cache_updates
 from .common import Initializer, apply_mrope, apply_rope
@@ -45,10 +58,10 @@ class Attention(nn.Module):
         super().__init__()
         d, h, hk, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         std_o = 0.02 / (2 * cfg.num_layers) ** 0.5
-        self.wq = ini.normal((d, h, dh))
-        self.wk = ini.normal((d, hk, dh))
-        self.wv = ini.normal((d, hk, dh))
-        self.wo = ini.normal((h, dh, d), std=std_o)
+        self.wq = ini.normal((d, h, dh), ("fsdp", "heads", None))
+        self.wk = ini.normal((d, hk, dh), ("fsdp", "kv_heads", None))
+        self.wv = ini.normal((d, hk, dh), ("fsdp", "kv_heads", None))
+        self.wo = ini.normal((h, dh, d), ("heads", None, "fsdp"), std=std_o)
 
 
 def init_attention(ini: Initializer, cfg) -> Attention:
@@ -71,10 +84,14 @@ def _mask(qpos, kpos, *, causal: bool, window: int | None, chunk: int | None):
     return m
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, S, d) · (d, H, D) → (B, S, H, D) as one matrix product."""
+def _project(x: torch.Tensor, w: torch.Tensor, heads: str) -> torch.Tensor:
+    """(B, S, d) · (d, H, D) → (B, S, H, D) as one matrix product. Under
+    sharding rules the weight is first gathered over its fsdp axes and
+    kept split by `heads` ("heads" or "kv_heads") alone, so the product's
+    H·D columns split evenly into heads."""
     d, h, dh = w.shape
-    return (x @ w.reshape(d, h * dh)).view(*x.shape[:-1], h, dh)
+    w = constrain(w, None, heads, None)
+    return matmul(x, w.reshape(d, h * dh)).view(*x.shape[:-1], h, dh)
 
 
 def _local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kind: str,
@@ -99,6 +116,71 @@ def _local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, kind: str,
     h, d = out.shape[1], out.shape[3]
     out = out.reshape(b, nc, h, window, d).transpose(1, 2)
     return out.reshape(b, h, nc * window, d)[:, :, :s]
+
+
+def _prefill(q, k, v, cfg, *, kind: str, window, scale: float) -> torch.Tensor:
+    """Prefill attention of (B, S, H, D) projections → (B, H, S, D) on
+    one device: a local layer (`window` given where the reference's rule
+    1 < window < S holds for the whole sequence) as `_local`, else the
+    kernel's causal (or full) route."""
+    if window:
+        return _local(q, k, v, kind=kind, window=window, scale=scale)
+    return ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=cfg.causal,
+                               scale=scale)
+
+
+def _sharded(q, k, v, cfg, rules, *, kind: str, window, scale: float
+             ) -> torch.Tensor:
+    """`_prefill` on DTensor projections, each rank's shard through the
+    kernel (module docstring): q (B, S, H, D) placed by ("batch", "qseq",
+    "heads"), k and v by ("batch", "qseq", "kv_heads"); the output
+    (B, H, S, D) by ("batch", "heads", "qseq"). Every input enters the
+    local function at its own placements, so each rank's gradients are
+    its shard's; the sequence-parallel fallback gathers the keys inside,
+    by a differentiable all-gather over the model axis."""
+    from torch.distributed.tensor.experimental import local_map
+
+    g = cfg.num_heads // cfg.num_kv_heads
+    if not rules.shard_kv and rules.model_size > 1:
+        k = constrain(k.repeat_interleave(g, dim=2), "batch", "qseq", "heads",
+                      None)
+        v = constrain(v.repeat_interleave(g, dim=2), "batch", "qseq", "heads",
+                      None)
+    kv_heads = "kv_heads" if rules.shard_kv else "heads"
+    seq_split = not rules.shard_heads and rules.model_size > 1
+    mesh, axis = rules.mesh, rules.model_axis
+    if seq_split and kind == "chunked":
+        # a chunked layer folds whole chunks: every rank runs all of them
+        q, k, v = (constrain(t, "batch", None, "heads", None)
+                   for t in (q, k, v))
+        seq_split = False
+    q_seq = "qseq" if seq_split else None
+
+    def local(ql, kl, vl):
+        if seq_split:
+            from torch.distributed._functional_collectives import (
+                all_gather_tensor_autograd)
+
+            group = mesh.get_group(axis)
+            kl = all_gather_tensor_autograd(kl.contiguous(), 1, group)
+            vl = all_gather_tensor_autograd(vl.contiguous(), 1, group)
+            if cfg.causal:
+                # this rank's query block ends at key (r + 1)·S/M
+                end = (mesh.get_local_rank(axis) + 1) * ql.shape[1]
+                kl, vl = kl[:, :end], vl[:, :end]
+        return _prefill(ql, kl, vl, cfg, kind=kind, window=window,
+                        scale=scale)
+
+    q_pl = rules.placements("batch", q_seq, "heads", None)
+    kv_pl = rules.placements("batch", q_seq, kv_heads, None)
+    out = local_map(
+        local, out_placements=(rules.placements("batch", "heads", q_seq,
+                                                None),),
+        in_placements=(q_pl, kv_pl, kv_pl), device_mesh=mesh,
+        redistribute_inputs=True,
+    )(q, k, v)
+    return constrain(out, "batch", "heads", "qseq", None)
 
 
 def _decode_keys(kind: str, step: int, length: int, window: int | None) -> int:
@@ -141,9 +223,11 @@ def attention(
     h, dh = cfg.num_heads, cfg.head_dim
     scale = dh**-0.5
 
-    q = _project(x, p.wq)
-    k = _project(x, p.wk)
-    v = _project(x, p.wv)
+    q = constrain(_project(x, p.wq, "heads"), "batch", "qseq", "heads", None)
+    k = constrain(_project(x, p.wk, "kv_heads"), "batch", "qseq", "kv_heads",
+                  None)
+    v = constrain(_project(x, p.wv, "kv_heads"), "batch", "qseq", "kv_heads",
+                  None)
     if cfg.rope_type == "mrope":
         q = apply_mrope(q, positions, cfg.rope_theta)
         k = apply_mrope(k, positions, cfg.rope_theta)
@@ -156,14 +240,20 @@ def attention(
         pos1d = positions if positions.ndim == 2 else positions[..., 0]
 
     window = cfg.window if kind != "full" else None
-    if cache is None:
-        if window and 1 < window < s:
-            out = _local(q, k, v, kind=kind, window=window, scale=scale)
-        else:
-            out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                      v.transpose(1, 2), causal=cfg.causal,
-                                      scale=scale)
+    local = window if window and 1 < window < s else None
+    rules = current_rules()
+    sharded = rules is not None and rules.mesh is not None
+    if cache is None and sharded:
+        out = _sharded(q, k, v, cfg, rules, kind=kind, window=local,
+                       scale=scale)
+    elif cache is None:
+        out = _prefill(q, k, v, cfg, kind=kind, window=local, scale=scale)
     else:
+        if sharded:
+            raise NotImplementedError(
+                "decode under a mesh is not ported: the caches' sequence "
+                "axis shards over the model axis, which needs a split-key "
+                "softmax across ranks")
         if s != 1:
             raise ValueError(f"decode takes one token per row, got {s}")
         step = merge_cache_updates(cache, k, v, pos1d[0, :1],
@@ -173,6 +263,7 @@ def attention(
             q.transpose(1, 2), cache["k"][:, :keys].transpose(1, 2),
             cache["v"][:, :keys].transpose(1, 2), causal=cfg.causal,
             scale=scale)
-    out = out.transpose(1, 2).reshape(b, s, h * dh)
-    y = out @ p.wo.reshape(h * dh, -1)
-    return y, cache
+    out = constrain(out.transpose(1, 2), "batch", "qseq", "heads", None)
+    wo = constrain(p.wo, "heads", None, None)
+    y = matmul(out.reshape(b, s, h * dh), wo.reshape(h * dh, -1))
+    return constrain(y, "batch", "seq", None), cache

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from ..distrib.sharding import with_rules
 from .attention import attention, init_attention
 from .common import Initializer, apply_norm, init_norm
 from .mlp import apply_mlp, init_mlp
@@ -94,6 +95,28 @@ def split_layers(cfg) -> tuple[int, int]:
     return cfg.num_layers // plen, cfg.num_layers % plen
 
 
+def reference_layers(cfg, layers: list, stack) -> dict:
+    """The reference's stacked layer tree from one tree per layer, in
+    layer order: pattern position j of every full period combined by
+    `stack` (a list of leaves → one leaf) under "periods" / f"l{j}", the
+    layers after the last full period as they are under "remainder" /
+    f"l{r}". Trees are nested dicts."""
+    n_periods, rem = split_layers(cfg)
+    plen = len(cfg.pattern)
+
+    def combine(trees):
+        if isinstance(trees[0], dict):
+            return {k: combine([t[k] for t in trees]) for k in trees[0]}
+        return stack(trees)
+
+    out = {"periods": {f"l{j}": combine(layers[j:n_periods * plen:plen])
+                       for j in range(plen) if n_periods}}
+    if rem:
+        out["remainder"] = {f"l{r}": layers[n_periods * plen + r]
+                            for r in range(rem)}
+    return out
+
+
 def init_stack(ini: Initializer, cfg) -> nn.ModuleList:
     """One Layer per entry of cfg.layer_list(), in order."""
     return nn.ModuleList(init_layer(ini, cfg, mixer, ffn)
@@ -118,7 +141,9 @@ def _remat(body, policy: str):
     if policy == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
-    return lambda x: checkpoint(body, x, use_reentrant=False, **kw)
+    # the recomputation runs in the backward, which may be on the
+    # autograd engine's own thread: bound to the sharding rules of now
+    return lambda x: checkpoint(with_rules(body), x, use_reentrant=False, **kw)
 
 
 def apply_stack(

@@ -1,8 +1,11 @@
 """Shared model machinery: the parameter factory, norms, RoPE and M-RoPE.
 
-Port of src/repro/models/common.py. Parameters live in `nn.Module`s, so
-the reference's spec-carrying `Px` leaves and `split_tree` have no
-counterpart here (on one device every logical sharding spec is a no-op).
+Port of src/repro/models/common.py. Parameters live in `nn.Module`s;
+each one carries the reference's logical PartitionSpec names as its
+`spec` attribute from birth (the reference's `Px(value, spec)` leaf), so
+the init code is the sharding map. `param_specs(model)` gives them in
+the reference's tree layout (its `split_tree(...)[1]`), and
+`launch/train.py --mesh smoke` places each parameter by its spec.
 """
 from __future__ import annotations
 
@@ -30,24 +33,29 @@ class Initializer:
             self.generator = torch.Generator(device=self.device)
             self.generator.manual_seed(int(seed))
 
-    def _param(self, value: torch.Tensor) -> nn.Parameter:
-        return nn.Parameter(value, requires_grad=False)
+    def _param(self, value: torch.Tensor, spec) -> nn.Parameter:
+        if len(spec) != value.ndim:
+            raise ValueError(f"spec {spec} for a {value.ndim}-d parameter")
+        p = nn.Parameter(value, requires_grad=False)
+        p.spec = tuple(spec)
+        return p
 
-    def normal(self, shape, *, std: float = 0.02, dtype=None) -> nn.Parameter:
+    def normal(self, shape, spec, *, std: float = 0.02, dtype=None) -> nn.Parameter:
         d = dtype or self.dtype
         if self.generator is None:
-            return self._param(torch.empty(shape, dtype=d, device=self.device))
+            return self._param(torch.empty(shape, dtype=d, device=self.device),
+                               spec)
         v = torch.randn(shape, generator=self.generator, device=self.device,
                         dtype=F32)
-        return self._param((v * std).to(d))
+        return self._param((v * std).to(d), spec)
 
-    def zeros(self, shape, *, dtype=None) -> nn.Parameter:
+    def zeros(self, shape, spec, *, dtype=None) -> nn.Parameter:
         return self._param(torch.zeros(shape, dtype=dtype or self.dtype,
-                                       device=self.device))
+                                       device=self.device), spec)
 
-    def ones(self, shape, *, dtype=None) -> nn.Parameter:
+    def ones(self, shape, spec, *, dtype=None) -> nn.Parameter:
         return self._param(torch.ones(shape, dtype=dtype or self.dtype,
-                                      device=self.device))
+                                      device=self.device), spec)
 
 
 # ---------------------------------------------------------------------------
@@ -78,10 +86,10 @@ class Norm(nn.Module):
     def __init__(self, ini: Initializer, d: int, kind: str = "rmsnorm"):
         super().__init__()
         if kind == "rmsnorm":
-            self.gamma = ini.zeros((d,))
+            self.gamma = ini.zeros((d,), (None,))
         else:
-            self.gamma = ini.ones((d,))
-            self.beta = ini.zeros((d,))
+            self.gamma = ini.ones((d,), (None,))
+            self.beta = ini.zeros((d,), (None,))
 
 
 def init_norm(ini: Initializer, d: int, kind: str = "rmsnorm") -> Norm:
@@ -141,8 +149,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4,
         raise ValueError(f"M-RoPE sections {sections} do not split {d // 2} slots")
     freqs = rope_freqs(d, theta, device=x.device)  # (d/2,)
     # which position stream each freq slot reads
-    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                     torch.tensor(sections, device=x.device))
+    sec_id = torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                          device=x.device)
     pos_per_slot = positions.to(F32)[..., sec_id]  # (B, S, d/2)
     return _rotate(x, pos_per_slot * freqs)
 

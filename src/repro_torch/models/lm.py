@@ -21,6 +21,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distrib.sharding import (
+    constrain, current_rules, is_sharded, matmul, with_rules)
 from .blocks import apply_stack, init_stack
 from .common import Initializer, apply_norm, init_norm, positions_for
 
@@ -38,7 +40,7 @@ class Frontend(nn.Module):
 
     def __init__(self, ini: Initializer, d: int):
         super().__init__()
-        self.adapter = ini.normal((d, d))
+        self.adapter = ini.normal((d, d), ("fsdp", None))
 
 
 class LM(nn.Module):
@@ -50,12 +52,12 @@ class LM(nn.Module):
         vp = padded_vocab(cfg)
         self.cfg = cfg
         if cfg.frontend is None:
-            self.embed = ini.normal((vp, cfg.d_model))
+            self.embed = ini.normal((vp, cfg.d_model), ("model", "fsdp"))
         else:
             self.frontend = Frontend(ini, cfg.d_model)
         self.stack = init_stack(ini, cfg)
         self.final_norm = init_norm(ini, cfg.d_model, cfg.norm_type)
-        self.lm_head = ini.normal((cfg.d_model, vp))
+        self.lm_head = ini.normal((cfg.d_model, vp), ("fsdp", "model"))
 
 
 def init_lm(cfg, seed: int = 0, *, device=None) -> LM:
@@ -79,17 +81,129 @@ def with_parameters(model: LM, tensors: dict, *,
                          f"{sorted(set(tensors) - set(names))}")
     for name in names:
         owner, _, leaf = name.rpartition(".")
-        setattr(new.get_submodule(owner), leaf,
-                nn.Parameter(tensors[name].detach(), requires_grad=requires_grad))
+        module = new.get_submodule(owner)
+        param = nn.Parameter(tensors[name].detach(), requires_grad=requires_grad)
+        param.spec = getattr(module, leaf).spec
+        setattr(module, leaf, param)
     return new
+
+
+def reference_tree(cfg, named: dict, stack) -> dict:
+    """The reference's LM tree (`split_tree(init_lm(...))` layout) of one
+    leaf per port parameter name: named maps every name of
+    `model.named_parameters()` to its leaf, and `stack` combines the
+    leaves of one pattern position over the periods."""
+    from .blocks import reference_layers
+
+    tree: dict = {"lm_head": named["lm_head"],
+                  "final_norm": {"gamma": named["final_norm.gamma"]}}
+    if "final_norm.beta" in named:
+        tree["final_norm"]["beta"] = named["final_norm.beta"]
+    if "embed" in named:
+        tree["embed"] = named["embed"]
+    if "frontend.adapter" in named:
+        tree["frontend"] = {"adapter": named["frontend.adapter"]}
+    layers: list[dict] = [{} for _ in range(cfg.num_layers)]
+    for name, leaf in named.items():
+        if name.startswith("stack."):
+            _, i, part, key = name.split(".")
+            layers[int(i)].setdefault(part, {})[key] = leaf
+    tree["stack"] = reference_layers(cfg, layers, stack)
+    return tree
+
+
+def _stacked_spec(specs: list) -> tuple:
+    """A pattern position's spec stacked over the periods: a leading
+    replicated axis, as the reference's init_stack stacks its Px leaves."""
+    if any(s != specs[0] for s in specs):
+        raise ValueError(f"periods disagree on a spec: {specs}")
+    return (None, *specs[0])
+
+
+def param_specs(model: LM) -> dict:
+    """Every parameter's logical spec, by the reference's tree path: the
+    reference's `split_tree(init_lm(cfg, key))[1]` for the same config."""
+    return reference_tree(model.cfg, {n: p.spec for n, p in
+                                      model.named_parameters()},
+                          _stacked_spec)
+
+
+def _partial_over_model(names: tuple) -> tuple:
+    """The placements of `names` under the active rules with the model
+    axis Partial (a sum pending over it)."""
+    from torch.distributed.tensor import Partial
+
+    rules = current_rules()
+    out = list(rules.placements(*names))
+    if rules.model_axis is not None:
+        out[rules.mesh.mesh_dim_names.index(rules.model_axis)] = Partial()
+    return tuple(out)
+
+
+def _vocab_rows(ids: torch.Tensor, rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(ids as indices into this rank's `rows` vocabulary rows, clamped
+    into range, and whether each id is one of them)."""
+    rules = current_rules()
+    if rules.model_axis is None:
+        return ids, torch.ones_like(ids, dtype=torch.bool)
+    local = ids - rules.mesh.get_local_rank(rules.model_axis) * rows
+    return local.clamp(0, rows - 1), (local >= 0) & (local < rows)
+
+
+def _vocab_parallel_gold(logits: torch.Tensor, lab: torch.Tensor
+                         ) -> torch.Tensor:
+    """logits[..., lab] for logits (B, C, Vp) sharded by ("batch", None,
+    "model"): each rank reads the labels in its vocabulary slice (zeros
+    for the rest), the sum over the model axis left pending."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def pick(part, ids):
+        idx, mine = _vocab_rows(ids.clamp(min=0).long(), part.shape[-1])
+        return part.gather(-1, idx[..., None])[..., 0] * mine
+
+    rules = current_rules()
+    return local_map(pick, out_placements=(_partial_over_model(("batch", None)),),
+                     in_placements=(rules.placements("batch", None, "model"),
+                                    rules.placements("batch", None)),
+                     device_mesh=rules.mesh, redistribute_inputs=True,
+                     )(logits, lab)
+
+
+def _vocab_parallel_lookup(table: torch.Tensor, tokens: torch.Tensor
+                           ) -> torch.Tensor:
+    """table[tokens] for a table sharded by ("model", "fsdp") under the
+    active rules: every rank looks the whole batch's tokens up in its own
+    block of the table (its vocabulary rows, zeros for the rest; its fsdp
+    columns), so the result is sharded over the fsdp axes on d, and the
+    sum over the model axis is left pending (Partial) for the constraint
+    that follows. The table enters at its own placements, which keeps
+    each rank's gradient its block's."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def lookup(rows, ids):
+        idx, mine = _vocab_rows(ids, rows.shape[0])
+        return rows[idx] * mine[..., None]
+
+    rules = current_rules()
+    return local_map(lookup,
+                     out_placements=(_partial_over_model((None, None, "fsdp")),),
+                     in_placements=(rules.placements("model", "fsdp"),
+                                    rules.placements(None, None)),
+                     device_mesh=rules.mesh, redistribute_inputs=True,
+                     )(table, tokens)
 
 
 def embed_inputs(params: LM, batch: dict, cfg) -> torch.Tensor:
     """batch["tokens"] (B, S) through the table, or with a stub frontend
     batch["embeds"] (B, S, d) through the adapter."""
     if cfg.frontend is None:
-        return params.embed[batch["tokens"]].to(cfg.dtype)
-    return (batch["embeds"].to(cfg.dtype) @ params.frontend.adapter).to(cfg.dtype)
+        if is_sharded(params.embed):
+            x = _vocab_parallel_lookup(params.embed, batch["tokens"])
+        else:
+            x = params.embed[batch["tokens"]]
+    else:
+        x = matmul(batch["embeds"].to(cfg.dtype), params.frontend.adapter)
+    return constrain(x.to(cfg.dtype), "batch", "seq", None)
 
 
 def forward_hidden(
@@ -121,11 +235,14 @@ def _chunk_loss(h: torch.Tensor, lab: torch.Tensor, head: torch.Tensor,
     −inf, so a masked row's (lse − gold)·0 stays 0. torch.gather raises
     on −1 where the reference's take_along_axis wraps, so the index is
     clamped to 0; the mask drops the row either way."""
-    logits = (h @ head).to(F32)
+    logits = constrain(matmul(h, head).to(F32), "batch", None, "model")
     pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab
     logits = logits.masked_fill(pad, -1e30)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, lab.clamp(min=0)[..., None].long())[..., 0]
+    if is_sharded(logits):
+        gold = _vocab_parallel_gold(logits, lab)
+    else:
+        gold = logits.gather(-1, lab.clamp(min=0)[..., None].long())[..., 0]
     mask = (lab >= 0).to(F32)
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
@@ -146,7 +263,8 @@ def _chunk_ce(hidden: torch.Tensor, labels: torch.Tensor, head: torch.Tensor,
         args = (hidden[:, c:c + chunk], labels[:, c:c + chunk], head,
                 cfg.vocab_size)
         if torch.is_grad_enabled():
-            loss, n = checkpoint(_chunk_loss, *args, use_reentrant=False)
+            loss, n = checkpoint(with_rules(_chunk_loss), *args,
+                                 use_reentrant=False)
         else:
             loss, n = _chunk_loss(*args)
         tot, cnt = tot + loss, cnt + n
@@ -172,4 +290,4 @@ def lm_logits_last(params: LM, hidden: torch.Tensor, cfg) -> torch.Tensor:
     logits = (hidden[:, -1] @ params.lm_head).to(F32)
     vp = params.lm_head.shape[1]
     pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
-    return logits.masked_fill(pad, -1e30)
+    return constrain(logits.masked_fill(pad, -1e30), "batch", "model")

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distrib.sharding import constrain, matmul
 from .common import Initializer
 
 
@@ -31,9 +32,9 @@ class MLP(nn.Module):
         d, f = cfg.d_model, d_ff or cfg.d_ff
         std_o = 0.02 / (2 * cfg.num_layers) ** 0.5
         if cfg.mlp_type in GATED:
-            self.w_gate = ini.normal((d, f))
-        self.w_up = ini.normal((d, f))
-        self.w_down = ini.normal((f, d), std=std_o)
+            self.w_gate = ini.normal((d, f), ("fsdp", "model"))
+        self.w_up = ini.normal((d, f), ("fsdp", "model"))
+        self.w_down = ini.normal((f, d), ("model", "fsdp"), std=std_o)
 
 
 def init_mlp(ini: Initializer, cfg, d_ff: int | None = None) -> MLP:
@@ -42,7 +43,8 @@ def init_mlp(ini: Initializer, cfg, d_ff: int | None = None) -> MLP:
 
 def apply_mlp(p: MLP, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.mlp_type in GATED:
-        h = GATED[cfg.mlp_type](x @ p.w_gate) * (x @ p.w_up)
+        h = GATED[cfg.mlp_type](matmul(x, p.w_gate)) * matmul(x, p.w_up)
     else:
-        h = PLAIN[cfg.mlp_type](x @ p.w_up)
-    return h @ p.w_down
+        h = PLAIN[cfg.mlp_type](matmul(x, p.w_up))
+    h = constrain(h, "batch", None, "model")
+    return constrain(matmul(h, p.w_down), "batch", "seq", None)

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distrib.sharding import constrain, current_rules, matmul, sum_grads
 from .common import Initializer, rms_norm
 
 F32 = torch.float32
@@ -39,19 +40,19 @@ class SSM(nn.Module):
         if h * p != di:
             raise ValueError(f"ssm_heads {h} x ssm_head_dim {p} != d_inner {di}")
         std_o = 0.02 / (2 * cfg.num_layers) ** 0.5
-        self.w_z = ini.normal((d, di))
-        self.w_x = ini.normal((d, di))
-        self.w_B = ini.normal((d, n))
-        self.w_C = ini.normal((d, n))
-        self.w_dt = ini.normal((d, h))
-        self.conv_x = ini.normal((CONV_WIDTH, di), std=0.2)
-        self.conv_B = ini.normal((CONV_WIDTH, n), std=0.2)
-        self.conv_C = ini.normal((CONV_WIDTH, n), std=0.2)
-        self.A_log = ini.zeros((h,), dtype=F32)
-        self.D = ini.ones((h,), dtype=F32)
-        self.dt_bias = ini.zeros((h,), dtype=F32)
-        self.norm_gamma = ini.zeros((di,))
-        self.w_out = ini.normal((di, d), std=std_o)
+        self.w_z = ini.normal((d, di), ("fsdp", "model"))
+        self.w_x = ini.normal((d, di), ("fsdp", "model"))
+        self.w_B = ini.normal((d, n), ("fsdp", None))
+        self.w_C = ini.normal((d, n), ("fsdp", None))
+        self.w_dt = ini.normal((d, h), ("fsdp", "model"))
+        self.conv_x = ini.normal((CONV_WIDTH, di), (None, "model"), std=0.2)
+        self.conv_B = ini.normal((CONV_WIDTH, n), (None, None), std=0.2)
+        self.conv_C = ini.normal((CONV_WIDTH, n), (None, None), std=0.2)
+        self.A_log = ini.zeros((h,), ("model",), dtype=F32)
+        self.D = ini.ones((h,), ("model",), dtype=F32)
+        self.dt_bias = ini.zeros((h,), ("model",), dtype=F32)
+        self.norm_gamma = ini.zeros((di,), ("model",))
+        self.w_out = ini.normal((di, d), ("model", "fsdp"), std=std_o)
 
 
 def init_ssm(ini: Initializer, cfg) -> SSM:
@@ -68,6 +69,33 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for i in range(k):
         out = out + w[i].to(F32) * xp[:, i:i + s].to(F32)
     return out.to(x.dtype)
+
+
+def _ssd(xd, la, Bc, Cc, chunk: int) -> torch.Tensor:
+    """_ssd_chunked's y. Under sharding rules each rank scans its batch
+    rows' heads over the whole sequence (`local_map`): xd and la split by
+    ("batch", None, "model"), B and C gathered whole over the model axis,
+    their gradients summed over it (each rank uses them for its heads)."""
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return _ssd_chunked(xd, la, Bc, Cc, chunk)[0]
+    from torch.distributed.tensor.experimental import local_map
+
+    group = (rules.mesh.get_group(rules.model_axis)
+             if rules.model_axis else None)
+
+    def local(x, a, bl, cl):
+        if group is not None:
+            bl, cl = sum_grads(bl, group), sum_grads(cl, group)
+        return _ssd_chunked(x, a, bl, cl, chunk)[0]
+
+    heads = rules.placements("batch", None, "model", None)
+    shared = rules.placements("batch", None, None)
+    return local_map(local, out_placements=(heads,),
+                     in_placements=(heads, rules.placements("batch", None, "model"),
+                                    shared, shared),
+                     device_mesh=rules.mesh, redistribute_inputs=True,
+                     )(xd, la, Bc, Cc)
 
 
 def _ssd_chunked(xd: torch.Tensor, la: torch.Tensor, Bc: torch.Tensor,
@@ -126,11 +154,13 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg, *, cache: dict | None = None
     h, pd, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     di = h * pd
 
-    z = x @ p.w_z
-    xs = x @ p.w_x
-    Bc = x @ p.w_B
-    Cc = x @ p.w_C
-    dt = (x @ p.w_dt).to(F32)
+    z = matmul(x, p.w_z)
+    xs = matmul(x, p.w_x)
+    Bc = matmul(x, p.w_B)
+    Cc = matmul(x, p.w_C)
+    dt = matmul(x, p.w_dt).to(F32)
+    xs = constrain(xs, "batch", None, "model")
+    z = constrain(z, "batch", None, "model")
 
     conv_in = torch.cat([xs, Bc, Cc], dim=-1)
     conv_w = torch.cat([p.conv_x, p.conv_B, p.conv_C], dim=-1)
@@ -153,7 +183,7 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg, *, cache: dict | None = None
     la = dt * a  # log decay
 
     if cache is None:
-        y, _ = _ssd_chunked(xd, la, Bc, Cc, cfg.ssm_chunk)
+        y = _ssd(xd, la, Bc, Cc, cfg.ssm_chunk)
     else:
         alpha = torch.exp(la[:, 0])  # (B, H)
         state = cache["state"] * alpha[:, :, None, None] + torch.einsum(
@@ -164,7 +194,8 @@ def apply_ssm(p: SSM, x: torch.Tensor, cfg, *, cache: dict | None = None
     y = y + p.D.to(F32)[None, None, :, None] * xh.to(F32)
     y = y.reshape(b, s, di).to(x.dtype)
     y = rms_norm(y * F.silu(z.to(F32)).to(x.dtype), p.norm_gamma)
-    return y @ p.w_out, cache
+    y = constrain(y, "batch", None, "model")
+    return constrain(matmul(y, p.w_out), "batch", "seq", None), cache
 
 
 def init_ssm_cache(cfg, batch: int, dtype=F32, *, device) -> dict:

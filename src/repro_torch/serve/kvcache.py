@@ -84,6 +84,27 @@ def merge_cache_updates(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     return step
 
 
+#: each cache leaf's logical spec, unstacked (the reference's
+#: cache_logical_specs by leaf name)
+CACHE_SPECS = {"k": ("batch", "model", None, None),
+               "v": ("batch", "model", None, None), "pos": ("model",),
+               "step": (), "state": ("batch", "model", None, None),
+               "conv": ("batch", None, None)}
+
+
+def cache_logical_specs(cfg, caches: list[dict]) -> dict:
+    """Logical spec names per cache leaf in the reference's tree layout
+    (its init_caches tree: "periods" stacked, leading axis replicated,
+    then "remainder"), from the port's per-layer cache list: equal to the
+    reference's cache_logical_specs(cfg, init_caches(...)) for the same
+    config."""
+    from ..models.blocks import reference_layers
+
+    layers = [{name: CACHE_SPECS.get(name, (None,) * leaf.ndim)
+               for name, leaf in cache.items()} for cache in caches]
+    return reference_layers(cfg, layers, lambda specs: (None, *specs[0]))
+
+
 def cache_bytes(cfg, batch: int, max_seq: int) -> int:
     """Bytes of the decode caches of every layer, from their shapes alone
     (no allocation), SSM state caches included — the reference's count."""

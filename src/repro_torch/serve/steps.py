@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..distrib.sharding import plain_replicated
 from ..models.lm import forward_hidden, lm_logits_last
 from .kvcache import init_caches
 
@@ -21,8 +22,9 @@ def build_prefill_step(cfg):
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        hidden, _ = forward_hidden(params, batch, cfg)
-        return lm_logits_last(params, hidden, cfg)
+        with plain_replicated():
+            hidden, _ = forward_hidden(params, batch, cfg)
+            return lm_logits_last(params, hidden, cfg)
 
     return prefill_step
 
@@ -39,9 +41,10 @@ def build_decode_step(cfg):
         positions = pos[:, None]
         if cfg.rope_type == "mrope":
             positions = positions[..., None].expand(-1, -1, 3)
-        hidden, caches = forward_hidden(params, inputs, cfg,
-                                        positions=positions, caches=caches)
-        return lm_logits_last(params, hidden, cfg), caches
+        with plain_replicated():
+            hidden, caches = forward_hidden(params, inputs, cfg,
+                                            positions=positions, caches=caches)
+            return lm_logits_last(params, hidden, cfg), caches
 
     return decode_step
 

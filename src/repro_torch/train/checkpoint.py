@@ -20,6 +20,11 @@ step):
                 `restore_sharded` places onto any mesh)
   * gc        — the newest `keep_last` steps are kept
 
+A sharded leaf (a DTensor) is gathered whole before it is written, so a
+sharded run and an unsharded one write the same files; only rank 0 of a
+process group writes them, and a restore places each leaf back as its
+template leaf is placed.
+
 A tree is nested dicts whose leaves are tensors (or arrays), or a model
 (`models.lm.LM`), whose leaves are its named parameters. A leaf's path
 joins the dict keys (sorted, as the reference's tree flattening orders
@@ -44,6 +49,8 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch import nn
+
+from ..distrib.sharding import full, is_sharded
 
 BF16 = "bfloat16"
 
@@ -71,10 +78,18 @@ def _unflatten(template, leaves: dict, prefix: str = ""):
     return leaves[prefix.rstrip("/")]
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoint files: rank 0 of a process
+    group, or any process outside one."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """(the array written, the manifest's dtype name)."""
     if isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach().cpu()
+        leaf = full(leaf.detach()).cpu()
         if leaf.dtype == torch.bfloat16:
             return leaf.view(torch.int16).numpy().view(np.uint16), BF16
         leaf = leaf.numpy()
@@ -98,6 +113,8 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree, *, blocking: bool = False) -> None:
         host = [(path, *_to_host(leaf)) for path, leaf in _flatten(tree)]
+        if not _writes():
+            return
         self.wait()
         if blocking:
             self._write(step, host)
@@ -178,5 +195,11 @@ class CheckpointManager:
             if tuple(value.shape) != tuple(like.shape):
                 raise ValueError(f"{path}: stored {tuple(value.shape)}, "
                                  f"template {tuple(like.shape)}")
-            leaves[path] = value.to(device=device or like.device, dtype=like.dtype)
+            value = value.to(device=device or like.device, dtype=like.dtype)
+            if is_sharded(like):
+                from torch.distributed.tensor import distribute_tensor
+
+                value = distribute_tensor(value, like.device_mesh,
+                                          like.placements)
+            leaves[path] = value
         return _unflatten(template, leaves), step

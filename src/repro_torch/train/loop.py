@@ -56,6 +56,7 @@ class LoopReport:
     sdc_rejects: int = 0
     straggler_events: list = field(default_factory=list)
     losses: list = field(default_factory=list)
+    grad_norms: list = field(default_factory=list)  # where steps report one
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -131,6 +132,8 @@ def run_training(
                     if on_straggler is not None:
                         on_straggler(step, dt, med)
             report.losses.append(loss)
+            if "grad_norm" in metrics:
+                report.grad_norms.append(float(metrics["grad_norm"]))
             report.steps_run += 1
             step += 1
             if step % loop_cfg.checkpoint_every == 0:

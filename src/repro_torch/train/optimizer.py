@@ -64,7 +64,8 @@ def init_opt_state(params, cfg: AdamWConfig) -> dict:
     device = next(iter(params.values())).device if params else None
 
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
+        # zeros_like keeps a sharded parameter's placements
+        return {n: torch.zeros_like(p, dtype=cfg.state_dtype)
                 for n, p in params.items()}
 
     return {"mu": zeros(), "nu": zeros(),

@@ -12,6 +12,13 @@ as it was. On CUDA every attention layer's forward is the flash kernel
 
 The reference's step key is a seed or a `torch.Generator` here; only the
 SDC probe draws from it.
+
+Under sharding rules (distrib/sharding.py's `use_rules`, around the
+step's calls) the parameters and the optimizer state are DTensors placed
+by their specs, each microbatch is sharded over the batch axes, the step
+runs under DTensor's `implicit_replication` (a plain tensor made inside
+the model, a position range or a mask, counts as replicated), and the
+metrics come back whole, as plain tensors.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 from torch.profiler import record_function
 
 from ..core.sdc import freivalds_residual
+from ..distrib.sharding import distribute, full, plain_replicated
 from ..models.lm import forward_hidden, lm_loss, with_parameters
 from .optimizer import AdamWConfig, adamw_update
 
@@ -39,10 +47,18 @@ def _microbatches(batch: dict, a: int) -> list[dict]:
             for i in range(a)]
 
 
+def _sharded(batch: dict) -> dict:
+    """The batch's leaves sharded over the batch axes under the active
+    rules (each rank holds the same full batch); as they are otherwise."""
+    return {k: distribute(v, "batch", *([None] * (v.ndim - 1)))
+            for k, v in batch.items()}
+
+
 def loss_and_grads(model, batch: dict, cfg, *,
                    ce_chunk: int = 512) -> tuple[torch.Tensor, dict]:
     """(lm_loss under cfg.remat, its gradient by parameter name) of one
     batch; the model's parameters are left frozen and unchanged."""
+    batch = _sharded(batch)
     work = with_parameters(model, dict(model.named_parameters()),
                            requires_grad=True)
     names, leaves = zip(*work.named_parameters())
@@ -77,6 +93,11 @@ def build_train_step(cfg, opt_cfg: AdamWConfig, *, sdc_check: bool = False,
         return loss_sum / a, {n: x / a for n, x in acc.items()}
 
     def train_step(model, opt_state, batch, key=0):
+        with plain_replicated():
+            new_model, new_opt, metrics = _step(model, opt_state, batch, key)
+        return new_model, new_opt, {k: full(v) for k, v in metrics.items()}
+
+    def _step(model, opt_state, batch, key):
         loss, grads = compute_grads(model, batch)
         metrics = {"loss": loss}
         if sdc_check:

@@ -21,7 +21,9 @@ error in a large share of the outputs fails even where each is small
 (both sides accumulate in f32; chip_smoke.py's bf16 prefill read max|err|
 0.0039, one ulp of an output in [0.5, 1)). The mixed acc_dtype routes
 within 4 storage ulps of max|plain|: both round once to the storage type
-from wide values that differ in summation order only.
+from wide values that differ in summation order only. The narrow
+bfloat16/float16 routes of the panel and the solves bit for bit: both
+round every operation to the half type, in the same order.
 """
 import numpy as np
 import pytest
@@ -689,8 +691,13 @@ def test_panel_and_schur_launch_once_per_call(cuda, case):
 #: version round once to the storage type from wide values that differ in
 #: summation order only: within 4 storage ulps of max|plain|
 MIXED = [(torch.float32, torch.float64), (torch.bfloat16, torch.float32),
-         (torch.float16, torch.float32)]
-MIXED_IDS = ["f32-f64", "bf16-f32", "f16-f32"]
+         (torch.float16, torch.float32), (torch.bfloat16, torch.float64),
+         (torch.float16, torch.float64)]
+MIXED_IDS = ["f32-f64", "bf16-f32", "f16-f32", "bf16-f64", "f16-f64"]
+#: the Schur update's mixed routes (bf16/f16 -> f32 is its default route)
+SCHUR_MIXED = [MIXED[0], *MIXED[3:]]
+SCHUR_MIXED_IDS = [MIXED_IDS[0], *MIXED_IDS[3:]]
+HALVES = [torch.bfloat16, torch.float16]
 
 
 def _close_ulps(got, want, dtype, ulps=4):
@@ -732,7 +739,7 @@ def test_trsm_mixed_columns_bit_equal_across_splits(cuda):
     assert torch.equal(whole, halves)
 
 
-@pytest.mark.parametrize("st,acc", MIXED[:1], ids=MIXED_IDS[:1])
+@pytest.mark.parametrize("st,acc", SCHUR_MIXED, ids=SCHUR_MIXED_IDS)
 @pytest.mark.parametrize("m,k,n,batch", [(1024, 1024, 1024, None),
                                          (992, 32, 992, None),
                                          (130, 37, 70, 3)])
@@ -760,6 +767,65 @@ def test_schur_mixed_column_major_and_odd_offsets(cuda, which):
     got = ops.schur_update(c, a, b, acc_dtype=torch.float64)
     _close_ulps(got, ref.schur_update_ref(c, a, b, torch.float64),
                 torch.float32)
+
+
+@pytest.mark.parametrize("dtype", HALVES)
+@pytest.mark.parametrize("which", ["a", "b", "all"])
+def test_schur_half_to_f64_element_path(cuda, dtype, which):
+    """bf16/f16 -> f64 stages 2-byte tiles eight elements a copy where
+    rows allow; transposed views and odd offsets take the element path,
+    a plain load and store (cp.async has no 2-byte copy)."""
+    big = torch.from_numpy(_rand((3, 301, 301), 14)).to(cuda, dtype)
+    c, a, b = big[0, 1:201, 3:131], big[1, 5:205, 7:71], big[2, 2:66, 1:129]
+    if which in ("a", "all"):
+        a = big[1, 5:69, 7:207].t()
+    if which in ("b", "all"):
+        b = big[2, 2:130, 1:65].t()
+    got = ops.schur_update(c, a, b, acc_dtype=torch.float64)
+    _close_ulps(got, ref.schur_update_ref(c, a, b, torch.float64), dtype)
+
+
+@pytest.mark.parametrize("dtype", HALVES)
+@pytest.mark.parametrize("shape", [(32, 32), (16, 32, 32), (48, 48),
+                                   (100, 100)])
+def test_lu_panel_narrow_bit_equal_to_plain(cuda, dtype, shape):
+    a = torch.from_numpy(_dominant(shape, 3)).to(cuda, dtype)
+    got = ops.lu_panel(a)
+    assert got.dtype == dtype
+    assert torch.equal(got, ref.lu_panel_ref(a))
+
+
+@pytest.mark.parametrize("dtype", HALVES)
+@pytest.mark.parametrize("n,m,batch", [(1024, 1024, None), (32, 992, None),
+                                        (100, 70, 3)])
+def test_trsm_narrow_bit_equal_to_plain(cuda, dtype, n, m, batch):
+    lead = () if batch is None else (batch,)
+    l, u = (torch.from_numpy(t).to(cuda, dtype) for t in _triangles(lead, n, 5))
+    b = torch.from_numpy(_rand((*lead, n, m), 6)).to(cuda, dtype)
+    b2 = torch.from_numpy(_rand((*lead, m, n), 7)).to(cuda, dtype)
+    assert torch.equal(ops.trsm_lower(l, b), ref.trsm_lower_ref(l, b))
+    assert torch.equal(ops.trsm_upper_right(u, b2),
+                       ref.trsm_upper_right_ref(u, b2))
+
+
+@pytest.mark.parametrize("dtype", HALVES)
+@pytest.mark.parametrize("acc", [None, torch.float64], ids=["narrow", "f64"])
+def test_lu_blocked_half_on_card_matches_cpu(cuda, dtype, acc):
+    """bf16/f16 lu_blocked on the card against the CPU's plain path,
+    within 8 storage ulps of max|factor|: the panels and strips agree bit
+    for bit (narrow) or within 4 ulps (f64), and the updates' sums differ
+    in order, by at most one rounding of a stored value each, which the
+    later steps carry along."""
+    from repro_torch.core.lu import lu_blocked
+
+    x = torch.from_numpy(_dominant((256, 256), 10)).to(dtype)
+    ops.reset_launches()
+    got = lu_blocked(x.to(cuda), 64, acc_dtype=acc)
+    assert ops.LAUNCHES["lu_panel"] == 8
+    assert ops.LAUNCHES["schur_update"] == 9 + 4 + 1 + 4
+    want = lu_blocked(x, 64, acc_dtype=acc)
+    for g, w in zip(got, want):
+        _close_ulps(g.cpu(), w, dtype, ulps=8)
 
 
 def test_mixed_panel_block_route_holds_wide_tiles(cuda):
@@ -1286,3 +1352,50 @@ def test_train_step_on_card_matches_cpu(cuda):
     new0, _, m0 = step(cpu_model, init_opt_state(cpu_model, opt_cfg), batch)
     for (name, p), (_, p0) in zip(new.named_parameters(), new0.named_parameters()):
         assert float((p.cpu() - p0).abs().max()) <= 1e-5, name
+
+
+def test_mesh_train_step_on_card_matches_unsharded(cuda):
+    """A (1, 1) mesh on the card (an NCCL group of one rank): the
+    parameters and moments are DTensors, the flash kernel runs through
+    local_map as often as unsharded (twice a layer under remat
+    "nothing"), and two steps' losses and parameters equal the
+    unsharded step's within 1e-5 (another op sequence, the same sums)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distrib.sharding import full, make_rules, use_rules
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.train import place_params
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.steps import build_train_step
+
+    cfg, model, _, batch = _smoke_train(cuda)
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    opt_cfg = AdamWConfig()
+    step = build_train_step(cfg, opt_cfg)
+    plain, opt, losses = model, init_opt_state(model, opt_cfg), []
+    for _ in range(2):
+        plain, opt, m = step(plain, opt, batch)
+        losses.append(float(m["loss"]))
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_smoke_mesh((1, 1), device_type="cuda")
+        rules = make_rules(mesh, num_heads=cfg.num_heads,
+                           num_kv_heads=cfg.num_kv_heads)
+        with use_rules(rules):
+            _, sharded, _, _ = _smoke_train(cuda)
+            sharded = place_params(sharded, rules)
+            opt = init_opt_state(sharded, opt_cfg)
+            assert all(isinstance(p, DTensor) for p in sharded.parameters())
+            for i in range(2):
+                ops.reset_launches()
+                sharded, opt, m = step(sharded, opt, batch)
+                torch.cuda.synchronize()
+                assert ops.LAUNCHES["flash_attention"] == 2 * cfg.num_layers
+                assert abs(float(m["loss"]) - losses[i]) <= 1e-5 * losses[i]
+            for (name, p), (_, q) in zip(sharded.named_parameters(),
+                                         plain.named_parameters()):
+                assert float((full(p) - q).abs().max()) <= 1e-5, name
+    finally:
+        dist.destroy_process_group()

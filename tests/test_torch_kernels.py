@@ -467,26 +467,29 @@ def test_schur_mixed_f32_sums_all_of_k_wide():
 @pytest.mark.parametrize("kernel", ["lu_panel", "trsm_lower",
                                     "trsm_upper_right", "schur_update"])
 def test_acc_dtype_pairs_default_and_refused(kernel):
-    """None or the storage type is the default route; the ported pairs
-    are f32 → f64 and bf16/f16 → f32 (for schur_update the latter is its
-    default); any other pair raises TypeError naming its ROADMAP item."""
+    """None or the storage type is the default route; the mixed pairs
+    are f32 → f64 and bf16/f16 → f32 or f64 (for schur_update bf16/f16 →
+    f32 is its default); an acc_dtype narrower than the storage type
+    raises TypeError."""
     f16, bf16, f32, f64 = torch.float16, torch.bfloat16, torch.float32, torch.float64
-    for dtype in (f32, f64):
+    for dtype in (f32, f64, bf16, f16):
         assert ops.accumulator(kernel, dtype, None) is None
         assert ops.accumulator(kernel, dtype, dtype) is None
     assert ops.accumulator(kernel, f32, f64) == f64
     half = None if kernel == "schur_update" else f32
     assert ops.accumulator(kernel, bf16, f32) is half
     assert ops.accumulator(kernel, f16, f32) is half
-    for dtype, acc in ((bf16, f64), (f16, f64), (f64, f32), (f32, f16)):
-        with pytest.raises(TypeError, match="B7"):
+    assert ops.accumulator(kernel, bf16, f64) == f64
+    assert ops.accumulator(kernel, f16, f64) == f64
+    for dtype, acc in ((f64, f32), (f32, f16), (f64, bf16), (bf16, f16)):
+        with pytest.raises(TypeError, match="not a route"):
             ops.accumulator(kernel, dtype, acc)
-    x = torch.eye(8, dtype=f16)
-    call = {"lu_panel": lambda: ops.lu_panel(x, acc_dtype=f64),
-            "trsm_lower": lambda: ops.trsm_lower(x, x, acc_dtype=f64),
-            "trsm_upper_right": lambda: ops.trsm_upper_right(x, x, acc_dtype=f64),
-            "schur_update": lambda: ops.schur_update(x, x, x, acc_dtype=f64)}
-    with pytest.raises(TypeError, match="B7"):
+    x = torch.eye(8, dtype=f32)
+    call = {"lu_panel": lambda: ops.lu_panel(x, acc_dtype=f16),
+            "trsm_lower": lambda: ops.trsm_lower(x, x, acc_dtype=f16),
+            "trsm_upper_right": lambda: ops.trsm_upper_right(x, x, acc_dtype=f16),
+            "schur_update": lambda: ops.schur_update(x, x, x, acc_dtype=f16)}
+    with pytest.raises(TypeError, match="not a route"):
         call[kernel]()
 
 
@@ -521,12 +524,17 @@ def test_mixed_panel_route_keys_off_the_accumulator():
     assert lu_panel.route(200, torch.float32) == "block"
     with pytest.raises(ValueError, match="blocked"):
         lu_panel.route(200, torch.float64)
-    for suffix in ("f32_f64", "bf16_f32", "f16_f32"):
+    for suffix in ("f32_f64", "bf16_f32", "f16_f32", "bf16_f64", "f16_f64",
+                   "bf16", "f16"):
         assert suffix in routes.ROUTES["lu_panel"].values()
+    # the narrow default routes of the panel; trsm_left has none
+    assert routes.suffix("lu_panel", torch.float16, None) == "f16"
+    assert lu_panel.route(340, torch.bfloat16) == "block"
     with pytest.raises(TypeError, match="no CUDA route"):
-        routes.suffix("lu_panel", torch.float16, None)
+        routes.suffix("trsm_left", torch.float16, None)
     # the mixed Schur route runs the f64 DMMA kernel's 128-row blocks
     from repro_torch.kernels import schur
 
     assert schur.rows_per_block(torch.float32, torch.float64) == 128
+    assert schur.rows_per_block(torch.bfloat16, torch.float64) == 128
     assert schur.rows_per_block(torch.float32) == 64

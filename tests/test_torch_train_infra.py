@@ -359,9 +359,13 @@ def test_launcher_trains_and_resumes_on_cpu(tmp_path, capsys):
 
 
 def test_launcher_refuses_mesh_and_cpu_fallback(tmp_path):
-    with pytest.raises(NotImplementedError, match="A14.6"):
-        launch_train.main(["--device", "cpu", "--mesh", "smoke",
+    """A mesh the launcher does not know is refused, and so is the CPU
+    where no --device asks for it, with or without --mesh smoke (whose
+    runs tests/test_torch_sharding.py holds)."""
+    with pytest.raises(SystemExit):
+        launch_train.main(["--device", "cpu", "--mesh", "production",
                            "--ckpt", str(tmp_path)])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            launch_train.main(["--ckpt", str(tmp_path)])
+        for mesh in ("none", "smoke"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                launch_train.main(["--mesh", mesh, "--ckpt", str(tmp_path)])
