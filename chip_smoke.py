@@ -19,9 +19,9 @@ Phases, each printed as one JSON line:
 5. n = 4094, which the border pads to 4096;
 6. tampered runs: q3 must reject the tampered matrix and only it;
 7. the Schur kernel against its plain version: 1024³, strided blocks of a
-   4096² matrix and a (16, 256, 256, 256) stack, in f64, f32 and bf16:
-   f64 and f32 within tol · (max|C| + K·max|A|·max|B|), tol 1e-12 / 1e-4,
-   bf16 within 2e-2 · max|plain|;
+   4096² matrix and a (16, 256, 256, 256) stack, in f64, f32, bf16 and
+   f16: f64 and f32 within tol · (max|C| + K·max|A|·max|B|), tol 1e-12 /
+   1e-4, bf16 and f16 within 2e-2 · max|plain|;
 8. sequential: `lu_blocked(x, 1024)` on a 4096² f64 matrix against
    `lu_nserver(x, 4)` (rtol 1e-10) and `torch.linalg.slogdet`, with its
    launch counts (the Schur kernel on the trailing updates and on the
@@ -116,11 +116,14 @@ inputs), the f32 and mixed-precision slice and recovery, before phase 12:
   f64 slogdet;
 - sequential routes: `lu_blocked(x32, 1024)` plain and with
   acc_dtype=float64 at n = 4096: launches, the device kernels' template
-  names (f32 and mixed), warm wall, and the mixed factors nearer the f64
-  factorization than the plain ones; then the same in bf16 and in f16,
-  narrow (no acc_dtype) and wide (acc_dtype=float64): launches, template
-  names, and the wide route's normwise residual and distance from the
-  f64 factors below the narrow route's;
+  names (f32 and mixed; the Schur update's from its wrapper's table
+  `schur.KERNELS`), the Schur kernels' device ms per call, warm wall, and
+  the mixed factors nearer the f64 factorization than the plain ones;
+  then the same in bf16 and in f16, narrow (no acc_dtype), with
+  acc_dtype=float32 and wide (acc_dtype=float64): launches, template
+  names, Schur device ms, and the wide route's normwise residual and
+  distance from the f64 factors below the narrow route's (the float32
+  route's are read, not gated);
 - recovery: n = 4096 f64, N = 4, standby 1: server 2's block tamper
   healed inline (factors bit-equal to the honest run's), through the
   thread pool and through worker processes (n = 1024, on phase 10's
@@ -238,13 +241,12 @@ The kernels line then has a row per route besides the default f64 rows:
 and lt, at its inverse round's chunk shape on its factors, launches from
 its op plan), "trsm_lower:row_solve" (the pipeline's block-row solve on
 the operands the pipeline phase gave it, launches from its single run), "<kernel>:f32" (the f32 routes the f32 paths run), "<kernel>:f32_f64",
-":bf16_f64" and ":f16_f64" (the mixed routes mixed and half lu_blocked
-run), "<kernel>:bf16" and ":f16" (the panel's and the solves' narrow
-routes, which half lu_blocked runs, with the half -> f32 Schur route of
-"schur_update:bf16_f32" and ":f16_f32"), and the panel's and the
-solves' "<kernel>:bf16_f32" and ":f16_f32" (no path runs them: launches
-null, with a note), each with the device kernels' template names the
-profiler reports, and "flash_attention:f32"
+:bf16_f32", ":f16_f32", ":bf16_f64" and ":f16_f64" (the mixed routes
+mixed and half lu_blocked run; bf16/f16 -> f32 is the Schur update's
+default half route, launches from lu_blocked with acc_dtype=float32),
+"<kernel>:bf16" and ":f16" (the panel's and the solves' narrow routes,
+which half lu_blocked runs), each with the device kernels' template
+names the profiler reports, and "flash_attention:f32"
 (the f32 kernel at the prefill and decode shapes, launched by phase 13's
 f32 runs; the flash_attention row also carries phase 14's launches,
 `launches_train`, and its autograd case), then
@@ -304,9 +306,10 @@ RTOL = 1e-12
 SEQ_BLOCK = 1024
 #: Schur kernel tolerance by dtype: f64 and f32 on the scale
 #: max|C| + K·max|A|·max|B| of the K products both sides sum in different
-#: orders; bf16 on max|plain|, because both sides sum in f32 and differ by
-#: the stored output's rounding
-SCHUR_TOL = {torch.float64: 1e-12, torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: orders; bf16 and f16 on max|plain|, because both sides sum in f32 and
+#: differ by the stored output's rounding
+SCHUR_TOL = {torch.float64: 1e-12, torch.float32: 1e-4, torch.bfloat16: 2e-2,
+             torch.float16: 2e-2}
 #: the kernels each path launches in this process
 CLIENT_PATH = ("ced",)
 SERVER_PATH = ("lu_panel", "trsm_lower", "trsm_upper_right")
@@ -424,21 +427,24 @@ NARROW_ROUTES = (
     ("bf16", torch.bfloat16, None, "__nv_bfloat16, __nv_bfloat16"),
     ("f16", torch.float16, None, "__half, __half"),
 )
-#: the Schur update's device kernel on each route (f32 and half -> f64
-#: on the f64 tensor cores; bf16/f16 -> f32 is the half default route,
-#: which the narrow routes' lu_blocked runs)
-SCHUR_KERNEL = {"f32": "schur_kernel<float, float>",
-                "f32_f64": "schur_dmma_kernel<float>",
-                "bf16_f32": "schur_kernel<__nv_bfloat16, float>",
-                "f16_f32": "schur_kernel<__half, float>",
-                "bf16_f64": "schur_dmma_kernel<__nv_bfloat16>",
-                "f16_f64": "schur_dmma_kernel<__half>",
-                "bf16": "schur_kernel<__nv_bfloat16, float>",
-                "f16": "schur_kernel<__half, float>"}
-#: lu_blocked's half routes at n = 4096: (storage, the narrow route's and
-#: the wide (acc_dtype=float64) route's names)
-HALF_SEQUENTIAL = ((torch.bfloat16, "bf16", "bf16_f64"),
-                   (torch.float16, "f16", "f16_f64"))
+#: the storage and arithmetic (None: the default route) of each route name
+ROUTE_TYPES = {name: (st, acc) for name, st, acc, _ in (
+    *MIXED_ROUTES, *NARROW_ROUTES, ("f32", torch.float32, None, None))}
+
+
+def schur_kernel(route: str) -> str:
+    """The Schur update's device kernel on a route, from the wrapper's
+    table (bf16/f16 -> f32 is the half types' default route, which the
+    narrow routes' lu_blocked runs too)."""
+    from repro_torch.kernels import schur
+
+    return schur.device_kernel(*ROUTE_TYPES[route])
+
+
+#: lu_blocked's half routes at n = 4096: (storage, the narrow route's, the
+#: f32-arithmetic route's and the f64-arithmetic route's names)
+HALF_SEQUENTIAL = ((torch.bfloat16, "bf16", "bf16_f32", "bf16_f64"),
+                   (torch.float16, "f16", "f16_f32", "f16_f64"))
 #: the mesh phase: launcher steps and the bars of --mesh smoke against
 #: --mesh none (relative): its losses; the first step's loss; the first
 #: step's gradient of each parameter, at the same weights and batch (a
@@ -591,18 +597,27 @@ def template_name(name: str) -> str:
     return name.split("(", 1)[0].strip()
 
 
-#: the device kernels of the panel, the triangular solves and the Schur
-#: update, whose template arguments name their route
+#: the device kernels of the panel and the triangular solves, whose
+#: template arguments name their route, as the Schur update's do (those
+#: come from its wrapper's table, schur.KERNELS)
 ROUTED_KERNELS = ("lu_warp_kernel", "lu_panel_kernel", "leaf_kernel",
-                  "update_kernel", "schur_kernel", "schur_dmma_kernel")
+                  "update_kernel")
 
 
-def route_kernels(fn) -> list:
+def route_profile(fn) -> tuple[list, float]:
     """The routed kernels (by template name) that one call of fn put on
-    the card, from the profiler's device events."""
+    the card, from the profiler's device events, and the device ms of its
+    Schur kernels."""
+    from repro_torch.kernels import schur
+
+    schur_names = {k.split("<")[0] for k in schur.KERNELS.values()}
     events, _, _ = device_events(fn, 1)
-    return sorted({template_name(e.name) for e in events
-                   if template_name(e.name).split("<")[0] in ROUTED_KERNELS})
+    names = {template_name(e.name) for e in events}
+    schur_us = sum(e.time_range.elapsed_us() for e in events
+                   if template_name(e.name).split("<")[0] in schur_names)
+    routed = sorted(n for n in names
+                    if n.split("<")[0] in (*ROUTED_KERNELS, *schur_names))
+    return routed, schur_us / 1e3
 
 
 def device_events(fn, reps: int):
@@ -1079,7 +1094,7 @@ def phase_schur(rng, dev) -> dict:
             want = ref.schur_update_ref(c, a, bm)
             torch.cuda.synchronize()
             abs_err = float((got.double() - want.double()).abs().max())
-            if dtype == torch.bfloat16:
+            if dtype in (torch.bfloat16, torch.float16):
                 scale = float(want.double().abs().max())
                 rule = f"{tol} * max|plain|"
             else:
@@ -2595,9 +2610,10 @@ def phase_f32_protocol(rng, dev) -> tuple[dict, dict]:
 def phase_sequential_routes(rng, dev) -> dict:
     """lu_blocked(x32, 1024), plain f32 (the f32 Schur route) and mixed
     (acc_dtype=float64), at n = 4096: warm wall, launches by kernel, the
-    device kernels' routes, and each one's distance from the f64
-    factorization; then bf16 and f16, narrow and with acc_dtype=float64.
-    Returns {route: launches}."""
+    device kernels' routes, the Schur kernels' device ms per call, and
+    each one's distance from the f64 factorization; then bf16 and f16,
+    narrow, with acc_dtype=float32 and with acc_dtype=float64. Returns
+    {route: launches}."""
     from repro_torch.core.lu import lu_blocked
     from repro_torch.kernels import ops
 
@@ -2611,64 +2627,60 @@ def phase_sequential_routes(rng, dev) -> dict:
                    "schur_update": sum(k * k for k in range(nb))
                    + nb * (panels - 1), "trsm_left": 0,
                    "flash_attention": 0}
-    out, lines = {}, {}
-    for route, acc, targs in (("f32", None, "float, float"),
-                              ("f32_f64", torch.float64, "float, double")):
+    targs_of = {n: t for n, _, _, t in (*MIXED_ROUTES, *NARROW_ROUTES)}
+
+    def run_route(route, xr, acc):
+        """lu_blocked on one route: (factors, its line's launches, device
+        kernels and Schur ms, warm wall), launches and kernels checked."""
+        targs = targs_of.get(route, "float, float")
         (l, u), launches = run_counted(
-            ops, lambda: lu_blocked(x32, SEQ_BLOCK, acc_dtype=acc))
+            ops, lambda: lu_blocked(xr, SEQ_BLOCK, acc_dtype=acc))
         check(launches == want_counts, f"lu_blocked {route} launches {launches}")
-        kernels = route_kernels(lambda: lu_blocked(x32, SEQ_BLOCK, acc_dtype=acc))
-        check(SCHUR_KERNEL[route] in kernels
-              and all(f"<{targs}" in k or k == SCHUR_KERNEL[route]
+        check(l.dtype == u.dtype == xr.dtype, f"lu_blocked {route} {l.dtype}")
+        kernels, schur_ms = route_profile(
+            lambda: lu_blocked(xr, SEQ_BLOCK, acc_dtype=acc))
+        check(schur_kernel(route) in kernels
+              and all(f"<{targs}" in k or k == schur_kernel(route)
                       for k in kernels),
               f"lu_blocked {route} ran {kernels}")
-        residual = float((l.double() @ u.double() - x32.double()).abs().max()
-                         / x32.double().abs().max())
-        dist = max(float((f.double() - g).abs().max() / g.abs().max())
-                   for f, g in ((l, l64), (u, u64)))
-        _, warm_s = wall(lambda: lu_blocked(x32, SEQ_BLOCK, acc_dtype=acc))
-        out[route] = launches
-        lines[route] = {"launches": launches, "kernels": kernels,
-                        "residual": residual, "distance_from_f64": dist,
-                        "warm_wall_s": warm_s}
+        _, warm_s = wall(lambda: lu_blocked(xr, SEQ_BLOCK, acc_dtype=acc))
+        return (l, u), {"launches": launches, "kernels": kernels,
+                        "schur_device_ms": schur_ms, "warm_wall_s": warm_s}
+
+    out, lines = {}, {}
+    for route, acc in (("f32", None), ("f32_f64", torch.float64)):
+        (l, u), lines[route] = run_route(route, x32, acc)
+        out[route] = lines[route]["launches"]
+        lines[route]["residual"] = float(
+            (l.double() @ u.double() - x32.double()).abs().max()
+            / x32.double().abs().max())
+        lines[route]["distance_from_f64"] = max(
+            float((f.double() - g).abs().max() / g.abs().max())
+            for f, g in ((l, l64), (u, u64)))
     check(lines["f32_f64"]["residual"] < lines["f32"]["residual"],
           "mixed lu_blocked residual not below plain f32's")
     check(lines["f32_f64"]["distance_from_f64"] < lines["f32"]["distance_from_f64"],
           "mixed lu_blocked not nearer the f64 factors than plain f32")
-    # the half routes, narrow and wide, on the same matrix rounded to the
-    # half type; maxima cannot tell them apart (both are set by U's
-    # largest entries' rounding to the storage type), norms can
-    for half, narrow, wide in HALF_SEQUENTIAL:
+    # the half routes, narrow, f32 and wide, on the same matrix rounded to
+    # the half type; maxima cannot tell them apart (both are set by U's
+    # largest entries' rounding to the storage type), norms can. The f32
+    # route's residual and distance are read, not gated
+    for half, narrow, mid, wide in HALF_SEQUENTIAL:
         xh = x.to(half)
         xd = xh.double()
         lh64, uh64 = lu_blocked(xd, SEQ_BLOCK)
-        for route, acc in ((narrow, None), (wide, torch.float64)):
-            (l, u), launches = run_counted(
-                ops, lambda: lu_blocked(xh, SEQ_BLOCK, acc_dtype=acc))
-            check(launches == want_counts,
-                  f"lu_blocked {route} launches {launches}")
-            check(l.dtype == u.dtype == half, f"lu_blocked {route} {l.dtype}")
-            kernels = route_kernels(lambda: lu_blocked(xh, SEQ_BLOCK,
-                                                       acc_dtype=acc))
-            targs = dict((n, t) for n, _, _, t in (*MIXED_ROUTES,
-                                                   *NARROW_ROUTES))[route]
-            check(SCHUR_KERNEL[route] in kernels
-                  and all(f"<{targs}" in k or k == SCHUR_KERNEL[route]
-                          for k in kernels),
-                  f"lu_blocked {route} ran {kernels}")
-            residual = float(torch.linalg.norm(l.double() @ u.double() - xd)
-                             / torch.linalg.norm(xd))
-            dist = max(float(torch.linalg.norm(f.double() - g)
-                             / torch.linalg.norm(g))
-                       for f, g in ((l, lh64), (u, uh64)))
-            finite = bool(torch.isfinite(l).all() and torch.isfinite(u).all())
-            check(finite, f"lu_blocked {route} factors not finite")
-            _, warm_s = wall(lambda: lu_blocked(xh, SEQ_BLOCK, acc_dtype=acc))
-            out[route] = launches
-            lines[route] = {"launches": launches, "kernels": kernels,
-                            "residual_normwise": residual,
-                            "distance_from_f64_normwise": dist,
-                            "warm_wall_s": warm_s}
+        for route, acc in ((narrow, None), (mid, torch.float32),
+                           (wide, torch.float64)):
+            (l, u), line = run_route(route, xh, acc)
+            check(bool(torch.isfinite(l).all() and torch.isfinite(u).all()),
+                  f"lu_blocked {route} factors not finite")
+            line["residual_normwise"] = float(
+                torch.linalg.norm(l.double() @ u.double() - xd)
+                / torch.linalg.norm(xd))
+            line["distance_from_f64_normwise"] = max(
+                float(torch.linalg.norm(f.double() - g) / torch.linalg.norm(g))
+                for f, g in ((l, lh64), (u, uh64)))
+            out[route], lines[route] = line["launches"], line
         check(lines[wide]["residual_normwise"] < lines[narrow]["residual_normwise"],
               f"{wide} lu_blocked residual not below {narrow}'s")
         check(lines[wide]["distance_from_f64_normwise"]
@@ -2683,6 +2695,8 @@ def phase_sequential_routes(rng, dev) -> dict:
           "distance_from_f64_normwise": "max over L, U of ||F - F64||_F / "
                                         "||F64||_F, F64 the f64 lu_blocked "
                                         "of X",
+          "schur_device_ms": "the Schur kernels' summed device ms in one "
+                             "profiled call",
           **lines})
     return out
 
@@ -4390,7 +4404,7 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         f32_lib = acc is None and st == torch.float32
 
         def names_of(kernel_fn, want=f"<{targs}"):
-            found = route_kernels(kernel_fn)
+            found, _ = route_profile(kernel_fn)
             check(bool(found) and all(want in k for k in found),
                   f"route {route} ran {found}")
             return found
@@ -4461,16 +4475,13 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
             lib_upd(cs, as_, bs), 20, 20, 4 * b * b * size, 2 * b * b * b,
             arith, expect_launches=1, peak=schur_peak,
             inner_case={"shape": [w, INNER, w], **inner_case},
-            kernels=names_of(upd(cs, as_, bs), SCHUR_KERNEL[route]),
+            kernels=names_of(upd(cs, as_, bs), schur_kernel(route)),
             storage=str(st), arithmetic=str(arith))
     for e in entries:
         e.update(route="cuda", launches=launches[e["name"]],
                  max_abs_err=errs[e["name"]])
         if e["name"] in MAIN_PATH:
             e["launches_gateway_flush"] = gateway_flush[e["name"]]
-        if e["launches"] is None:
-            e["launches_note"] = ("no path of the port runs this route, so "
-                                  "the run has no launch count for it")
     # the rows (their own timings or a case's) that needed a second window
     PROFILE_WINDOWS["retried_rows"] = [
         e["name"] for e in entries
@@ -4570,23 +4581,17 @@ def main() -> int:
     launches["schur_update"] = per_phase["sequential"][0]["schur_update"]
     launches["flash_attention"] = per_phase["serve"][0]["flash_attention"]
     # each route's row: its launches on the path that runs it (the f32
-    # protocol's single run, plain f32, mixed and half lu_blocked); no
-    # path runs the panel's and the solves' bf16/f16 -> f32 routes, so
-    # their rows carry launches null; the narrow half lu_blocked runs
-    # the half -> f32 Schur route
+    # protocol's single run, plain f32, mixed and half lu_blocked, the
+    # half ones with acc_dtype=float32 for the bf16/f16 -> f32 rows)
     for name in ("ced", "lu_panel", "trsm_lower", "trsm_upper_right"):
         launches[f"{name}:f32"] = f32_single[name]
     for name in SEQUENTIAL_PATH:
-        for route in ("f32_f64", "bf16_f64", "f16_f64"):
+        for route in ("f32_f64", "bf16_f32", "f16_f32", "bf16_f64", "f16_f64"):
             launches[f"{name}:{route}"] = seq_routes[route][name]
-        for route in ("bf16_f32", "f16_f32"):
-            launches[f"{name}:{route}"] = None
     for name in SERVER_PATH:
         for route, _, _, _ in NARROW_ROUTES:
             launches[f"{name}:{route}"] = seq_routes[route][name]
     launches["schur_update:f32"] = seq_routes["f32"]["schur_update"]
-    launches["schur_update:bf16_f32"] = seq_routes["bf16"]["schur_update"]
-    launches["schur_update:f16_f32"] = seq_routes["f16"]["schur_update"]
     check(f32_flash_launches > 0, "flash_attention never launched in f32")
     launches["flash_attention:f32"] = f32_flash_launches
     for leg in TRISOLVE_LEGS:

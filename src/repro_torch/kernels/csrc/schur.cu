@@ -44,12 +44,56 @@
 // What still holds it at about half its bound is that feed: each block
 // reads 48 KB of A and B from L2 per slice (PERF.md); TMA copies
 // or clusters sharing tiles are the next step.
-// f32, bf16 and f16 (schur_kernel) take the FMA kernel of the first
-// port, a route by type: plain f32 lu_blocked calls the f32 route.
-// A block of 16 x 16 threads owns a 64 x 64 tile of OUT and walks K in
-// steps of 16 through shared memory, each thread a 4 x 4 register tile of
-// FMA sums (f32 accumulates in f32, bf16 and f16 are widened to f32 and
-// rounded once on store), subtracted from C at the end.
+// bf16 and f16 (schur_wgmma_kernel<__nv_bfloat16>, <__half>), the
+// default routes of the 2-byte types (plain bf16/f16 lu_blocked, and with
+// acc_dtype=float32), and f32 below, replace the same Pallas kernel
+// (gemm.py:24, wrapper :46) on their routes: OUT = C - A B summed in f32,
+// rounded once to the storage type. Bound at 1024^3 by bytes, barely:
+// 8.4 MB, 2.5 us at 3.35 TB/s, against 2.17 us for 2.15 GFLOP at the 989
+// TFLOP/s of the bf16/f16 tensor cores; at the inner 992 x 32 x 992 by
+// bytes, 1.2 us.
+//  * the tensor cores through wgmma: a block of two warpgroups owns a
+//    128 x 64 tile of OUT, each warpgroup 64 rows, summed by
+//    wgmma.mma_async m64n64k16 .f32 with the accumulators in registers
+//    (one wave of 128 blocks at 1024^2, as for DMMA);
+//  * a 5-stage ring of 64-deep K slices in dynamic shared memory (A 128 x
+//    64, B 64 x 64, 24 KB a stage), each tile a run of 128-byte rows under
+//    the 128-byte swizzle that wgmma's descriptors read: A K-major, B as
+//    stored (N-major, wgmma's transpose bit for B). Three slices load
+//    while one multiplies and the previous one's wgmma group may still
+//    run; one barrier a slice;
+//  * an operand with a unit inner stride, a 16-byte aligned start and row
+//    and batch strides of whole 16-byte vectors (every block of
+//    lu_blocked and lu_panel_blocked) is loaded by TMA: the host encodes
+//    a 3-D CUtensorMap per operand and call (cuTensorMapEncodeTiled,
+//    reached through cudaGetDriverEntryPointByVersion, so the library
+//    needs no -lcuda), passed as a __grid_constant__ parameter; thread 0
+//    issues both copies of a slice against the stage's mbarrier and its
+//    expected bytes, and TMA zero-fills past the edges. Any other operand
+//    (transposed, strided, at an odd offset) is copied by all threads
+//    into the same swizzled layout, a plain 2-byte load and store an
+//    element, so the product and its bits do not depend on the route;
+//  * C is loaded into registers in the accumulators' layout before the
+//    first slice lands; OUT = round(C - acc) once (__float2bfloat16 /
+//    __float2half, to nearest even), staged through shared memory and
+//    stored 16 bytes a thread. No warp specialisation: the threads that
+//    wait for a slice also issue the next one's copies, one loop for both
+//    copy routes.
+// What holds it at about a fifth of its bound (PERF.md) is the L2 feed,
+// not the pipeline (4 to 6 stages time alike): 48 MB of A and B tiles a
+// 1024^3 call; TMA multicast across a 2-block cluster would read a third
+// less. The inner updates are latency-bound, level across the types.
+// f32 (schur_fma_kernel<float>), plain f32 lu_blocked's route: no TF32 in
+// any form, so the FMA pipes, 2.15 GFLOP at 67 TFLOP/s, 32 us at 1024^3;
+// 2.4 us of bytes at the inner shape. A block of 256 threads owns a
+// 128 x 64 tile of OUT (one wave), each thread 8 x 4 of it: 32 FMAs for
+// three 16-byte shared reads (two of A, held row-major so that A's rows
+// stage 16 bytes a copy, and one of B). A 3-stage cp.async ring of
+// 32-deep slices, one barrier a slice: 16-byte cp.async.cg copies where a
+// row is unit-strided and aligned, 4-byte cp.async.ca copies otherwise;
+// row strides of 4 mod 32 banks keep both the copies and the fragment
+// reads free of bank conflicts. C is preloaded into registers, each sum
+// runs over k ascending in f32 and is subtracted from C at the end.
 // Mixed f32 -> f64 (the reference's acc_dtype=float64): the DMMA kernel
 // with f32 operands, schur_dmma_kernel<float>. cp.async copies bytes and
 // cannot widen, so the ring holds f32 tiles (16-byte copies of four
@@ -69,129 +113,14 @@
 // over all of K in f64 and rounded to the storage type once, by
 // __double2bfloat16 / __double2half (one rounding, not two through
 // float).
+#include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "precision.cuh"
 
 namespace {
-
-constexpr int BM = 64;   // rows of OUT per block
-constexpr int BN = 64;   // columns of OUT per block
-constexpr int BK = 16;   // depth of one shared-memory step
-constexpr int TD = 16;   // threads per block side
-constexpr int RT = BM / TD;  // register tile side (4)
-constexpr int NT = TD * TD;  // threads per block
-
-// Block (x, y, z) computes OUT[z][64 y : 64 y + 64, 64 x : 64 x + 64].
-template <typename T, typename Acc>
-__global__ void __launch_bounds__(NT)
-schur_kernel(const T* __restrict__ c, long long cb, long long cr,
-             long long cc, const T* __restrict__ a, long long ab,
-             long long ar, long long ac, const T* __restrict__ b,
-             long long bb, long long br, long long bc, T* __restrict__ out,
-             long long ob, long long orr, long long oc, int m, int n,
-             int k) {
-  __shared__ Acc as[BK][BM + 1];  // A tile, stored k-major
-  __shared__ Acc bs[BK][BN + 1];
-  c += blockIdx.z * cb;
-  a += blockIdx.z * ab;
-  b += blockIdx.z * bb;
-  out += blockIdx.z * ob;
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * TD + tx;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  Acc acc[RT][RT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-#pragma unroll
-    for (int j = 0; j < RT; ++j) acc[i][j] = Acc(0);
-  }
-
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    // A tile: BM x BK; consecutive threads along k when A's rows are
-    // contiguous, along m otherwise
-#pragma unroll
-    for (int e = tid; e < BM * BK; e += NT) {
-      int r, q;
-      if (ac == 1) {
-        r = e / BK;
-        q = e % BK;
-      } else {
-        r = e % BM;
-        q = e / BM;
-      }
-      const int gr = m0 + r;
-      const int gq = k0 + q;
-      as[q][r] = (gr < m && gq < k)
-                     ? widen<T, Acc>(a[gr * ar + gq * ac])
-                     : Acc(0);
-    }
-    // B tile: BK x BN; consecutive threads along n when B's rows are
-    // contiguous, along k otherwise
-#pragma unroll
-    for (int e = tid; e < BK * BN; e += NT) {
-      int q, s;
-      if (bc == 1) {
-        q = e / BN;
-        s = e % BN;
-      } else {
-        q = e % BK;
-        s = e / BK;
-      }
-      const int gq = k0 + q;
-      const int gs = n0 + s;
-      bs[q][s] = (gq < k && gs < n)
-                     ? widen<T, Acc>(b[gq * br + gs * bc])
-                     : Acc(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < BK; ++q) {
-      Acc av[RT], bv[RT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) av[i] = as[q][ty + i * TD];
-#pragma unroll
-      for (int j = 0; j < RT; ++j) bv[j] = bs[q][tx + j * TD];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-#pragma unroll
-        for (int j = 0; j < RT; ++j) acc[i][j] = fma(av[i], bv[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int gr = m0 + ty + i * TD;
-    if (gr >= m) continue;
-#pragma unroll
-    for (int j = 0; j < RT; ++j) {
-      const int gs = n0 + tx + j * TD;
-      if (gs < n) {
-        const Acc cv = widen<T, Acc>(c[gr * cr + gs * cc]);
-        out[gr * orr + gs * oc] = narrow<T, Acc>(cv - acc[i][j]);
-      }
-    }
-  }
-}
-
-template <typename T, typename Acc>
-int launch(const T* c, long long cb, long long cr, long long cc, const T* a,
-           long long ab, long long ar, long long ac, const T* b,
-           long long bb, long long br, long long bc, T* out, long long ob,
-           long long orr, long long oc, int batch, int m, int n, int k,
-           cudaStream_t stream) {
-  const dim3 block(TD, TD);
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
-  schur_kernel<T, Acc><<<grid, block, 0, stream>>>(
-      c, cb, cr, cc, a, ab, ar, ac, b, bb, br, bc, out, ob, orr, oc, m, n,
-      k);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------- f64 DMMA
 constexpr int DM = 128;            // rows of OUT per block
@@ -475,6 +404,679 @@ int launch_dmma(const TS* c, long long cb, long long cr, long long cc,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------- f32 on FMA
+constexpr int FM = 128;        // rows of OUT per block
+constexpr int FN = 64;         // columns of OUT per block
+constexpr int FK = 32;         // depth of one pipeline stage
+constexpr int FSTAGES = 3;     // K slices in flight
+constexpr int FTHREADS = 256;  // 16 x 16, each thread 8 rows x 4 columns
+// A slice as A[r][q], 36 floats a row, and B as B[q][s], 68 a row: whole
+// 16-byte vectors, and 4 mod 32 banks apart, so that neither the copies'
+// writes nor the fragment reads below collide on a bank
+constexpr int FA_LD = FK + 4;
+constexpr int FB_LD = FN + 4;
+constexpr int F_STAGE = FM * FA_LD + FK * FB_LD;  // floats
+constexpr size_t F_SMEM = FSTAGES * F_STAGE * sizeof(float);
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
+// Issue the copies of an O x I block of an f32 operand into
+// tile[o * LD + i]: element (o, i) at p[(o0 + o) * os + (i0 + i) * is],
+// zeros where o0 + o >= on or i0 + i >= in. `vec` (unit stride along i, a
+// row stride of whole 16-byte vectors, a 16-byte aligned start): four
+// elements a 16-byte copy. Otherwise one element a 4-byte copy, legal at
+// any offset: consecutive threads along i where its stride is 1, else a
+// warp takes 8 consecutive o by 4 i, so that a unit stride along o (a
+// transposed operand) reads 32-byte runs, and with LD = 4 mod 32 the
+// warp's 32 writes land on 32 banks.
+template <int O, int I, int LD>
+__device__ __forceinline__ void stage_f32(float* tile, const float* p,
+                                          long long os, long long is,
+                                          bool vec, int o0, int on, int i0,
+                                          int in) {
+  static_assert(LD % 32 == 4 && O % 8 == 0 && I % 4 == 0, "f32 tile shape");
+  const int tid = threadIdx.x;
+  if (vec) {
+#pragma unroll
+    for (int j = 0; j < O * I / 4 / FTHREADS; ++j) {
+      const int e = tid + j * FTHREADS;
+      const int o = e / (I / 4), i = 4 * (e % (I / 4));
+      const bool ok = o0 + o < on && i0 + i < in;
+      cp_async16(tile + o * LD + i, ok ? p + (o0 + o) * os + i0 + i : p,
+                 ok ? min(4, in - i0 - i) * 4 : 0);
+    }
+  } else if (is == 1) {
+#pragma unroll
+    for (int j = 0; j < O * I / FTHREADS; ++j) {
+      const int e = tid + j * FTHREADS;
+      const int o = e / I, i = e % I;
+      const bool ok = o0 + o < on && i0 + i < in;
+      cp_async_elem<4>(tile + o * LD + i, ok ? p + (o0 + o) * os + i0 + i : p,
+                       ok);
+    }
+  } else {
+    const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+    for (int j = 0; j < O * I / FTHREADS; ++j) {
+      const int blk = warp + FTHREADS / 32 * j;
+      const int o = 8 * (blk % (O / 8)) + (lane & 7);
+      const int i = 4 * (blk / (O / 8)) + (lane >> 3);
+      const bool ok = o0 + o < on && i0 + i < in;
+      cp_async_elem<4>(tile + o * LD + i,
+                       ok ? p + (o0 + o) * os + (i0 + i) * is : p, ok);
+    }
+  }
+}
+
+// Row i (of 8) of a thread's tile: 4 ty + i for i < 4, 64 + 4 ty + i - 4
+// after, so that the two float4 reads of a k group stay 16 banks apart.
+__device__ __forceinline__ int f_row(int i) { return i < 4 ? i : 60 + i; }
+
+// The thread's 8 x 4 tile gains one K slice in shared memory, k ascending:
+// per four k, eight float4s of A (its rows, four k each) and four of B
+// (a k each, its four columns).
+__device__ __forceinline__ void fma_slice(const float* sa, const float* sb,
+                                          float (&acc)[8][4]) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* arow = sa + 4 * ty * FA_LD;
+  const float* bcol = sb + 4 * tx;
+#pragma unroll
+  for (int kk = 0; kk < FK; kk += 4) {
+    float av[8][4], bv[4][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(arow + f_row(i) * FA_LD + kk);
+      av[i][0] = v.x;
+      av[i][1] = v.y;
+      av[i][2] = v.z;
+      av[i][3] = v.w;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(bcol + (kk + u) * FB_LD);
+      bv[u][0] = v.x;
+      bv[u][1] = v.y;
+      bv[u][2] = v.z;
+      bv[u][3] = v.w;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(av[i][u], bv[u][j], acc[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// Four neighbours (gr, gc .. gc + 3) of a row, zeros outside m x n: one
+// 16-byte load where unit-strided, aligned and whole.
+__device__ __forceinline__ void load_row4(const float* p, long long rs,
+                                          long long cs, int gr, int gc,
+                                          int m, int n, float (&v)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = 0.0f;
+  if (gr >= m) return;
+  const float* q = p + gr * rs + gc * cs;
+  if (cs == 1 && gc + 4 <= n && aligned16(q)) {
+    const float4 w = *reinterpret_cast<const float4*>(q);
+    v[0] = w.x;
+    v[1] = w.y;
+    v[2] = w.z;
+    v[3] = w.w;
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (gc + e < n) v[e] = q[e * cs];
+  }
+}
+
+__device__ __forceinline__ void store_row4(float* p, long long rs,
+                                           long long cs, int gr, int gc,
+                                           int m, int n, const float (&v)[4]) {
+  if (gr >= m) return;
+  float* q = p + gr * rs + gc * cs;
+  if (cs == 1 && gc + 4 <= n && aligned16(q)) {
+    *reinterpret_cast<float4*>(q) = make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (gc + e < n) q[e * cs] = v[e];
+  }
+}
+
+// Block (x, y, z) computes OUT[z][128 y : 128 y + 128, 64 x : 64 x + 64]
+// in f32 on the FMA pipes; thread (ty, tx) = (tid / 16, tid % 16) owns
+// rows 4 ty .. 4 ty + 3 and 64 + 4 ty .. 64 + 4 ty + 3, columns 4 tx ..
+// 4 tx + 3. A template of the one type f32, so that the profiler names
+// its route as it names the others'.
+template <typename T>
+__global__ void __launch_bounds__(FTHREADS, 1)
+schur_fma_kernel(const T* __restrict__ c, long long cb, long long cr,
+                 long long cc, const T* __restrict__ a, long long ab,
+                 long long ar, long long ac, const T* __restrict__ b,
+                 long long bb, long long br, long long bc,
+                 T* __restrict__ out, long long ob, long long orr,
+                 long long oc, int m, int n, int k) {
+  static_assert(std::is_same<T, float>::value, "the FMA kernel is f32's");
+  extern __shared__ __align__(16) unsigned char f_smem[];
+  float* ring = reinterpret_cast<float*>(f_smem);
+  c += blockIdx.z * cb;
+  a += blockIdx.z * ab;
+  b += blockIdx.z * bb;
+  out += blockIdx.z * ob;
+  const bool a_vec = ac == 1 && ar % 4 == 0 && aligned16(a);
+  const bool b_vec = bc == 1 && br % 4 == 0 && aligned16(b);
+  const int m0 = blockIdx.y * FM;
+  const int n0 = blockIdx.x * FN;
+  const int slices = (k + FK - 1) / FK;
+  const auto load = [&](int s) {
+    float* sa = ring + (s % FSTAGES) * F_STAGE;
+    stage_f32<FM, FK, FA_LD>(sa, a, ar, ac, a_vec, m0, m, s * FK, k);
+    stage_f32<FK, FN, FB_LD>(sa + FM * FA_LD, b, br, bc, b_vec, s * FK, k,
+                             n0, n);
+  };
+#pragma unroll
+  for (int s = 0; s < FSTAGES - 1; ++s) {
+    if (s < slices) load(s);
+    cp_async_commit();
+  }
+  // this thread's elements of C, fetched while the product runs
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int row0 = m0 + 4 * ty, col0 = n0 + 4 * tx;
+  float cv[8][4], acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    load_row4(c, cr, cc, row0 + f_row(i), col0, m, n, cv[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  }
+  for (int kt = 0; kt < slices; ++kt) {
+    cp_async_wait<FSTAGES - 2>();  // this thread's copies of slice kt landed
+    __syncthreads();  // everyone's have, and slice kt - 1 is read
+    if (kt + FSTAGES - 1 < slices) load(kt + FSTAGES - 1);
+    cp_async_commit();
+    const float* sa = ring + (kt % FSTAGES) * F_STAGE;
+    fma_slice(sa, sa + FM * FA_LD, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = cv[i][j] - acc[i][j];
+    store_row4(out, orr, oc, row0 + f_row(i), col0, m, n, v);
+  }
+}
+
+template <typename T>
+int launch_fma(const T* c, long long cb, long long cr, long long cc,
+               const T* a, long long ab, long long ar, long long ac,
+               const T* b, long long bb, long long br, long long bc, T* out,
+               long long ob, long long orr, long long oc, int batch, int m,
+               int n, int k, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      schur_fma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(F_SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + FN - 1) / FN, (m + FM - 1) / FM, batch);
+  schur_fma_kernel<T><<<grid, FTHREADS, F_SMEM, stream>>>(
+      c, cb, cr, cc, a, ab, ar, ac, b, bb, br, bc, out, ob, orr, oc, m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------- bf16 and f16 on wgmma
+constexpr int WM = 128;               // rows of OUT per block, 64 a warpgroup
+constexpr int WN = 64;                // columns of OUT per block
+constexpr int WK = 64;                // depth of a stage: 128 bytes of a row
+constexpr int WSTAGES = 5;            // stages of the ring
+constexpr int WAHEAD = WSTAGES - 2;   // slices loading ahead of the product
+constexpr int WTHREADS = 256;         // two warpgroups
+constexpr int W_A_BYTES = WM * WK * 2;
+constexpr int W_B_BYTES = WK * WN * 2;
+constexpr int W_STAGE = W_A_BYTES + W_B_BYTES;  // 24 KB
+constexpr int SWIZZLE_ATOM = 1024;    // 8 rows of 128 bytes
+// the ring, slack to align it to the swizzle's 1024 bytes, an mbarrier a stage
+constexpr size_t W_SMEM = WSTAGES * W_STAGE + SWIZZLE_ATOM + WSTAGES * 8;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of element (r, q) in a tile of 64-element (128-byte) rows
+// under the 128-byte swizzle: 16-byte chunk q / 8 of row r sits at chunk
+// (q / 8) ^ (r % 8). TMA's CU_TENSOR_MAP_SWIZZLE_128B writes this layout,
+// and a wgmma descriptor of the 128-byte swizzle reads it, in a tile
+// whose start is SWIZZLE_ATOM-aligned.
+__device__ __forceinline__ int swizzled(int r, int q) {
+  return r * 128 + ((((q >> 3) ^ r) & 7) << 4) + (q & 7) * 2;
+}
+
+// A wgmma shared-memory matrix descriptor for the 128-byte swizzle (layout
+// type 1 in bits 62-63): start address, leading and stride byte offsets,
+// each in 16-byte units. Both tiles pass 1024 for both offsets: the stride
+// from one 8-row (K-major A) or 8-k (N-major B) group to the next; the
+// other offset is not read at these shapes (A's K step of 32 bytes lies
+// inside one swizzled row, B's 64 columns are one swizzle row wide).
+__device__ __forceinline__ unsigned long long wgmma_desc(unsigned addr) {
+  constexpr unsigned long long offsets =
+      (static_cast<unsigned long long>(SWIZZLE_ATOM >> 4) << 16) |
+      (static_cast<unsigned long long>(SWIZZLE_ATOM >> 4) << 32);
+  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) | offsets |
+         (1ull << 62);
+}
+
+#define WGMMA_D                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define WGMMA_D_OPERANDS(d)                                                  \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// d += A B for the warpgroup's 64 x 16 of A (K-major) and 16 x 64 of B
+// (N-major: transpose bit 1), both from shared memory. d[4 j + 2 h + e]
+// is row 16 w + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e, for warp w
+// of the warpgroup.
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                unsigned long long da,
+                                                unsigned long long db) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D
+        ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : WGMMA_D_OPERANDS(d)
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " WGMMA_D
+        ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : WGMMA_D_OPERANDS(d)
+        : "l"(da), "l"(db), "r"(1));
+  }
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins the accumulators: the compiler may neither read one before the
+// wgmma that writes it has been waited for nor move one between
+// registers while a wgmma group is in flight.
+__device__ __forceinline__ void wgmma_fence_operands(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// Wait for the phase of parity `parity` to complete. A slice lands in
+// microseconds; one that has not after 2^26 polls (seconds) never will,
+// and the block traps, so the launch fails instead of hanging the card.
+// ptxas reports a warpgroup wait injected before the trap (C7517): it is
+// on the trap's path alone, the main loop keeps one wgmma group in flight.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  for (unsigned polls = 0; !done; ++polls) {
+    if (polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+// A box of a 3-D tensor map at (c0 innermost, c1, c2) into shared memory,
+// completing on the mbarrier `bar` with its bytes.
+__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map,
+                                         unsigned bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ T from_bits(unsigned short u);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_bits(unsigned short u) {
+  return __ushort_as_bfloat16(u);
+}
+template <>
+__device__ __forceinline__ __half from_bits(unsigned short u) {
+  return __ushort_as_half(u);
+}
+__device__ __forceinline__ unsigned short to_bits(__nv_bfloat16 v) {
+  return __bfloat16_as_ushort(v);
+}
+__device__ __forceinline__ unsigned short to_bits(__half v) {
+  return __half_as_ushort(v);
+}
+
+// Copy rows [r0, r0 + R) by columns [q0, q0 + 64) of a 2-byte operand,
+// element (r, q) at p[r * rs + q * qs], into a swizzled tile, zeros where
+// r >= rows or q >= cols: a plain load and store an element (cp.async has
+// no 2-byte copy), consecutive threads along the unit-stride axis.
+template <int R>
+__device__ __forceinline__ void copy_tile(unsigned char* tile,
+                                          const unsigned short* p,
+                                          long long rs, long long qs, int r0,
+                                          int rows, int q0, int cols) {
+  const bool along_q = qs == 1 || rs != 1;
+#pragma unroll 8
+  for (int j = 0; j < R * WK / WTHREADS; ++j) {
+    const int e = threadIdx.x + j * WTHREADS;
+    const int r = along_q ? e / WK : e % R;
+    const int q = along_q ? e % WK : e / R;
+    const bool ok = r0 + r < rows && q0 + q < cols;
+    *reinterpret_cast<unsigned short*>(tile + swizzled(r, q)) =
+        ok ? p[(r0 + r) * rs + (q0 + q) * qs] : 0;
+  }
+}
+
+// What a block needs to load a K slice into its ring.
+struct WgmmaFeed {
+  const CUtensorMap* a_map;
+  const CUtensorMap* b_map;
+  int tma;  // bit 0: A by TMA, bit 1: B by TMA
+  unsigned tx_bytes;
+  const unsigned short* a;
+  long long ar, ac;
+  const unsigned short* b;
+  long long br, bc;
+  int m0, n0, z, m, n, k;
+};
+
+// Issue slice s into stage s % WSTAGES: TMA copies from thread 0 against
+// the stage's mbarrier, the other operand copied by every thread (then
+// fenced for wgmma, which reads shared memory through the async proxy).
+__device__ __forceinline__ void wgmma_load(const WgmmaFeed& f, int s,
+                                           unsigned char* ring,
+                                           unsigned ring_addr,
+                                           unsigned bars) {
+  const int st = s % WSTAGES, k0 = s * WK;
+  unsigned char* sa = ring + st * W_STAGE;
+  const unsigned sa_addr = ring_addr + st * W_STAGE;
+  if (f.tx_bytes != 0 && threadIdx.x == 0) {
+    const unsigned bar = bars + 8 * st;
+    mbar_expect_tx(bar, f.tx_bytes);
+    if (f.tma & 1) tma_load(sa_addr, f.a_map, bar, k0, f.m0, f.z);
+    if (f.tma & 2) tma_load(sa_addr + W_A_BYTES, f.b_map, bar, f.n0, k0, f.z);
+  }
+  if (!(f.tma & 1)) copy_tile<WM>(sa, f.a, f.ar, f.ac, f.m0, f.m, k0, f.k);
+  if (!(f.tma & 2)) {
+    copy_tile<WK>(sa + W_A_BYTES, f.b, f.br, f.bc, k0, f.k, f.n0, f.n);
+  }
+  if (f.tma != 3) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The pair (gr, gc), (gr, gc + 1) of a 2-byte operand widened to f32,
+// zeros outside m x n: one 4-byte load where unit-strided and aligned.
+template <typename T>
+__device__ __forceinline__ void load_pair(const T* p, long long rs,
+                                          long long cs, int gr, int gc,
+                                          int m, int n, float& x, float& y) {
+  x = y = 0.0f;
+  if (gr >= m || gc >= n) return;
+  const T* q = p + gr * rs + gc * cs;
+  if (cs == 1 && gc + 2 <= n &&
+      (reinterpret_cast<unsigned long long>(q) & 3) == 0) {
+    const unsigned w = *reinterpret_cast<const unsigned*>(q);
+    x = widen<T, float>(from_bits<T>(w & 0xffff));
+    y = widen<T, float>(from_bits<T>(w >> 16));
+    return;
+  }
+  x = widen<T, float>(q[0]);
+  if (gc + 1 < n) y = widen<T, float>(q[cs]);
+}
+
+// Block (x, y, z) computes OUT[z][128 y : 128 y + 128, 64 x : 64 x + 64]
+// from 2-byte operands T, summed in f32 by wgmma; warpgroup g owns rows
+// 64 g .. 64 g + 63. `tma`: bit 0 where a_map holds A, bit 1 where b_map
+// holds B (maps over the whole batch, the block's matrix by coordinate).
+template <typename T>
+__global__ void __launch_bounds__(WTHREADS, 1)
+schur_wgmma_kernel(__grid_constant__ const CUtensorMap a_map,
+                   __grid_constant__ const CUtensorMap b_map, int tma,
+                   const T* __restrict__ c, long long cb, long long cr,
+                   long long cc, const T* __restrict__ a, long long ab,
+                   long long ar, long long ac, const T* __restrict__ b,
+                   long long bb, long long br, long long bc,
+                   T* __restrict__ out, long long ob, long long orr,
+                   long long oc, int m, int n, int k) {
+  extern __shared__ __align__(16) unsigned char w_smem[];
+  const unsigned raw = smem_addr(w_smem);
+  unsigned char* ring =
+      w_smem + (SWIZZLE_ATOM - raw % SWIZZLE_ATOM) % SWIZZLE_ATOM;
+  const unsigned ring_addr = smem_addr(ring);
+  const unsigned bars = ring_addr + WSTAGES * W_STAGE;
+  const int z = blockIdx.z;
+  c += z * cb;
+  out += z * ob;
+  const WgmmaFeed feed{
+      &a_map, &b_map, tma,
+      static_cast<unsigned>((tma & 1 ? W_A_BYTES : 0) +
+                            (tma & 2 ? W_B_BYTES : 0)),
+      reinterpret_cast<const unsigned short*>(a + z * ab), ar, ac,
+      reinterpret_cast<const unsigned short*>(b + z * bb), br, bc,
+      static_cast<int>(blockIdx.y) * WM, static_cast<int>(blockIdx.x) * WN,
+      z, m, n, k};
+  const int slices = (k + WK - 1) / WK;
+  if (threadIdx.x == 0 && feed.tx_bytes != 0) {
+    for (int s = 0; s < WSTAGES; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int s = 0; s < WAHEAD && s < slices; ++s) {
+    wgmma_load(feed, s, ring, ring_addr, bars);
+  }
+  // this thread's elements of C in the accumulators' layout, fetched
+  // while the first slices land
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int rloc = 64 * wg + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int cloc = 2 * (lane & 3);
+  float cv[32], acc[32];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * j + 2 * h;
+      load_pair(c, cr, cc, feed.m0 + rloc + 8 * h, feed.n0 + 8 * j + cloc, m,
+                n, cv[i], cv[i + 1]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  for (int kt = 0; kt < slices; ++kt) {
+    const int st = kt % WSTAGES;
+    if (feed.tx_bytes != 0) mbar_wait(bars + 8 * st, (kt / WSTAGES) & 1);
+    __syncthreads();  // every copy of slice kt is in; slice kt - 2 is read
+    const unsigned a_tile = ring_addr + st * W_STAGE + wg * (64 * 128);
+    const unsigned b_tile = ring_addr + st * W_STAGE + W_A_BYTES;
+    wgmma_fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WK / 16; ++kk) {
+      wgmma_m64n64k16<T>(acc, wgmma_desc(a_tile + 32 * kk),
+                         wgmma_desc(b_tile + 16 * 128 * kk));
+    }
+    wgmma_commit();
+    wgmma_fence_operands(acc);
+    // into the stage of slice kt - 2, whose product the last wait ended
+    if (kt + WAHEAD < slices) {
+      wgmma_load(feed, kt + WAHEAD, ring, ring_addr, bars);
+    }
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  wgmma_fence_operands(acc);
+  // OUT = round(C - acc), through the ring's first 16 KB (swizzled, so
+  // that the pair writes and the 16-byte reads are free of bank
+  // conflicts), stored 16 bytes a thread
+  __syncthreads();  // both warpgroups' products are done with the ring
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * j + 2 * h;
+      const unsigned lo = to_bits(narrow<T, float>(cv[i] - acc[i]));
+      const unsigned hi = to_bits(narrow<T, float>(cv[i + 1] - acc[i + 1]));
+      const int at = swizzled(rloc + 8 * h, 8 * j + cloc);
+      *reinterpret_cast<unsigned*>(ring + at) = lo | hi << 16;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < WM * WN / 8 / WTHREADS; ++j) {
+    const int e = threadIdx.x + j * WTHREADS;
+    const int r = e >> 3, q = 8 * (e & 7);
+    const int gr = feed.m0 + r, gc = feed.n0 + q;
+    if (gr >= m || gc >= n) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(ring + swizzled(r, q));
+    T* dst = out + gr * orr + gc * oc;
+    if (oc == 1 && gc + 8 <= n && aligned16(dst)) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      const unsigned short* h = reinterpret_cast<const unsigned short*>(&v);
+      for (int e2 = 0; e2 < 8 && gc + e2 < n; ++e2) {
+        dst[e2 * oc] = from_bits<T>(h[e2]);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the driver the runtime loaded; null where the
+// driver has none.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A TMA map of a 2-byte operand for the wgmma ring: `batch` matrices at
+// bs elements, `rows` rows at rs, `cols` elements a row at unit stride
+// us; a box of box_rows x 64, 128-byte swizzle, zeros past the edges.
+// False where the operand does not qualify (a unit inner stride, a
+// 16-byte aligned start, row and batch strides of whole 16-byte vectors
+// under 2^40 bytes) or the driver refuses the map.
+template <typename T>
+bool tile_map(EncodeTiled encode, CUtensorMap* map, const T* p, long long bs,
+              long long rs, long long us, int batch, int rows, int cols,
+              int box_rows) {
+  const long long row_bytes = rs * static_cast<long long>(sizeof(T));
+  const long long batch_bytes =
+      batch > 1 ? bs * static_cast<long long>(sizeof(T)) : row_bytes * rows;
+  const auto fits = [](long long v) {
+    return v > 0 && v % 16 == 0 && v < (1ll << 40);
+  };
+  if (us != 1 || (reinterpret_cast<unsigned long long>(p) & 15) != 0 ||
+      !fits(row_bytes) || !fits(batch_bytes) || rows <= 0 || cols <= 0) {
+    return false;
+  }
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_bytes),
+                                 static_cast<cuuint64_t>(batch_bytes)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(WK),
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapDataType type = std::is_same<T, __nv_bfloat16>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  return encode(map, type, 3, const_cast<T*>(p), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The operands a call loads by TMA (bit 0 A, bit 1 B), their maps filled.
+template <typename T>
+int tma_operands(EncodeTiled encode, const T* a, long long ab, long long ar,
+                 long long ac, const T* b, long long bb, long long br,
+                 long long bc, int batch, int m, int n, int k,
+                 CUtensorMap* a_map, CUtensorMap* b_map) {
+  return (tile_map(encode, a_map, a, ab, ar, ac, batch, m, k, WM) ? 1 : 0) |
+         (tile_map(encode, b_map, b, bb, br, bc, batch, k, n, WK) ? 2 : 0);
+}
+
+template <typename T>
+int launch_wgmma(const T* c, long long cb, long long cr, long long cc,
+                 const T* a, long long ab, long long ar, long long ac,
+                 const T* b, long long bb, long long br, long long bc, T* out,
+                 long long ob, long long orr, long long oc, int batch, int m,
+                 int n, int k, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap a_map{}, b_map{};
+  const int tma = tma_operands(encode, a, ab, ar, ac, b, bb, br, bc, batch, m,
+                               n, k, &a_map, &b_map);
+  const cudaError_t err = cudaFuncSetAttribute(
+      schur_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(W_SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + WN - 1) / WN, (m + WM - 1) / WM, batch);
+  schur_wgmma_kernel<T><<<grid, WTHREADS, W_SMEM, stream>>>(
+      a_map, b_map, tma, c, cb, cr, cc, a, ab, ar, ac, b, bb, br, bc, out, ob,
+      orr, oc, m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // OUT = C - A B for `batch` problems: A m x k, B k x n, C and OUT m x n,
@@ -493,12 +1095,27 @@ int launch_dmma(const TS* c, long long cb, long long cr, long long cc,
 extern "C" {
 
 SCHUR_ENTRY(schur_f64, double, launch_dmma<double>)
-SCHUR_ENTRY(schur_f32, float, (launch<float, float>))
+SCHUR_ENTRY(schur_f32, float, launch_fma<float>)
 SCHUR_ENTRY(schur_f32_f64, float, launch_dmma<float>)
-SCHUR_ENTRY(schur_bf16, __nv_bfloat16, (launch<__nv_bfloat16, float>))
-SCHUR_ENTRY(schur_f16, __half, (launch<__half, float>))
+SCHUR_ENTRY(schur_bf16, __nv_bfloat16, launch_wgmma<__nv_bfloat16>)
+SCHUR_ENTRY(schur_f16, __half, launch_wgmma<__half>)
 SCHUR_ENTRY(schur_bf16_f64, __nv_bfloat16, launch_dmma<__nv_bfloat16>)
 SCHUR_ENTRY(schur_f16_f64, __half, launch_dmma<__half>)
+
+// Which operands a bf16 or f16 call with these arguments loads by TMA: bit
+// 0 A, bit 1 B; the block's threads copy the others. 0 for all where the
+// driver has no cuTensorMapEncodeTiled.
+int schur_half_tma_operands(const __nv_bfloat16* a, long long ab,
+                            long long ar, long long ac,
+                            const __nv_bfloat16* b, long long bb,
+                            long long br, long long bc, int batch, int m,
+                            int n, int k) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return 0;
+  CUtensorMap a_map{}, b_map{};
+  return tma_operands(encode, a, ab, ar, ac, b, bb, br, bc, batch, m, n, k,
+                      &a_map, &b_map);
+}
 
 const char* spdc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

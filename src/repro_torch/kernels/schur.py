@@ -2,12 +2,14 @@
 
 Port of src/repro/kernels/gemm.py:schur_update: C − A·B for (M, K)·(K, N)
 operands or a (B, M, K)·(B, K, N) stack, at any strides, into a fresh
-output. float64 runs on the tensor cores (DMMA) and accumulates in
-float64; float32 accumulates in its own type, bfloat16 and float16 in
-float32, on the FMA pipes. `acc_dtype=torch.float64` on float32,
-bfloat16 or float16 operands selects the mixed variant (the reference's
-acc_dtype): the DMMA kernel on tiles of the storage type, widened as
-they are read, summed in float64 and rounded to the storage type once.
+output. float64 runs on the f64 tensor cores (DMMA) and accumulates in
+float64; bfloat16 and float16 on the 16-bit tensor cores (wgmma, the
+operands loaded by TMA where their layout allows), accumulated in
+float32 and rounded once; float32 in float32 on the FMA pipes (no TF32).
+`acc_dtype=torch.float64` on float32, bfloat16 or float16 operands
+selects the mixed variant (the reference's acc_dtype): the DMMA kernel
+on tiles of the storage type, widened as they are read, summed in
+float64 and rounded to the storage type once.
 """
 from __future__ import annotations
 
@@ -26,16 +28,37 @@ _SIGNATURES = {
     )
     for suffix in set(routes.ROUTES["schur_update"].values())
 }
+_SIGNATURES["schur_half_tma_operands"] = (
+    _INT, (_PTR, _LL, _LL, _LL, _PTR, _LL, _LL, _LL, _INT, _INT, _INT, _INT))
+#: each route's device kernel (by entry-point suffix) as the profiler
+#: names it, template arguments and all
+KERNELS = {
+    "f64": "schur_dmma_kernel<double>",
+    "f32": "schur_fma_kernel<float>",
+    "f32_f64": "schur_dmma_kernel<float>",
+    "bf16": "schur_wgmma_kernel<__nv_bfloat16>",
+    "f16": "schur_wgmma_kernel<__half>",
+    "bf16_f64": "schur_dmma_kernel<__nv_bfloat16>",
+    "f16_f64": "schur_dmma_kernel<__half>",
+}
+#: rows of OUT one block of each device kernel computes: csrc/schur.cu's
+#: DM, FM and WM
+TILE_ROWS = {"schur_dmma_kernel": 128, "schur_fma_kernel": 128,
+             "schur_wgmma_kernel": 128}
 #: the card's limit on the grid's y axis (row tiles) and z axis (batch)
 _MAX_GRID_YZ = 65535
 
 
+def device_kernel(dtype: torch.dtype,
+                  acc_dtype: torch.dtype | None = None) -> str:
+    """The device kernel (KERNELS) of a call's route."""
+    return KERNELS[routes.suffix("schur_update", dtype, acc_dtype)]
+
+
 def rows_per_block(dtype: torch.dtype,
                    acc_dtype: torch.dtype | None = None) -> int:
-    """Rows of OUT one block computes: csrc/schur.cu's DM for the DMMA
-    kernel (float64, and the mixed routes to float64), BM for the
-    FMA kernel of the other types."""
-    return 128 if torch.float64 in (dtype, acc_dtype) else 64
+    """Rows of OUT one block of the route's device kernel computes."""
+    return TILE_ROWS[device_kernel(dtype, acc_dtype).split("<")[0]]
 
 
 def check_grid(dtype: torch.dtype, batch: int, m: int,
@@ -94,3 +117,22 @@ def schur_update_cuda(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         )
     build.check_launch(lib, "schur_update", code)
     return out
+
+
+def tma_operands(a: torch.Tensor, b: torch.Tensor) -> tuple[bool, bool]:
+    """Whether a bfloat16/float16 call on these A and B loads each by TMA
+    (a unit inner stride, a 16-byte aligned start, row and batch strides
+    of whole 16-byte vectors) or has the block's threads copy it into the
+    same tiles. Both give the same bits, so results cannot tell which
+    ran; the card tests ask this of lu_blocked's operands. CUDA tensors
+    of a 2-byte dtype, as schur_update_cuda takes them."""
+    if a.device.type != "cuda" or a.element_size() != 2 or b.dtype != a.dtype:
+        raise ValueError("tma_operands takes 2-byte CUDA operands of one dtype")
+    m, k = a.shape[-2:]
+    batch = a.shape[0] if a.ndim == 3 else 1
+    lib = build.library("schur", _SIGNATURES)
+    with torch.cuda.device(a.device):
+        mask = lib.schur_half_tma_operands(
+            a.data_ptr(), *_strides(a), b.data_ptr(), *_strides(b), batch, m,
+            b.shape[-1], k)
+    return bool(mask & 1), bool(mask & 2)

@@ -56,7 +56,8 @@ def _imports(path):
 @pytest.mark.parametrize(
     "path",
     sorted(PORT.rglob("*.py"))
-    + [REPO / "chip_smoke.py", REPO / "profile_clock_probe.py"],
+    + [REPO / name for name in ("chip_smoke.py", "profile_clock_probe.py",
+                                "prefill_ab.py", "schur_ab.py")],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_or_reference_import_in_source(path):

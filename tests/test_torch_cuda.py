@@ -601,14 +601,21 @@ def test_lu_panel_tile_bits_same_alone_and_in_stack(cuda, batch):
         assert torch.equal(whole[i], ops.lu_panel(stack[i:i + 1])[0])
 
 
-# ------------------------------------------- Schur in f64 on the DMMA path
-@pytest.mark.parametrize("m,k,n,batch", [(130, 1, 70, None), (129, 3, 65, None),
+# ------------------------- Schur on the DMMA, wgmma and FMA device kernels
+SCHUR_DTYPES = [torch.float64, torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("m,k,n,batch", [(130, 1, 70, None), (130, 1, 70, 2),
+                                          (129, 3, 65, None),
+                                          (129, 65, 17, None), (129, 65, 17, 2),
+                                          (127, 200, 63, None),
+                                          (127, 200, 63, 2),
                                           (200, 45, 131, None), (257, 45, 1, 2),
                                           (5, 100, 300, 3)])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
-                                   torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("dtype", SCHUR_DTYPES)
 def test_schur_kernel_ragged_shapes(cuda, m, k, n, batch, dtype):
-    """M, N and K off every tile and K step, K = 1 and 3 among them."""
+    """M, N and K off every tile and K slice of the three kernels (128 x 64
+    tiles; slices of 32 or 64), K = 1 and 3 among them, batched and not."""
     lead = () if batch is None else (batch,)
     c, a, b = (torch.from_numpy(_rand((*lead, *s), seed)).to(cuda, dtype)
                for s, seed in (((m, n), 4), ((m, k), 5), ((k, n), 6)))
@@ -616,32 +623,36 @@ def test_schur_kernel_ragged_shapes(cuda, m, k, n, batch, dtype):
                  c, a, b, dtype)
 
 
-def test_schur_f64_views_at_odd_offsets(cuda):
+@pytest.mark.parametrize("dtype", SCHUR_DTYPES)
+def test_schur_views_at_odd_offsets(cuda, dtype):
     """Operands at odd element offsets and odd row strides."""
-    flat = torch.from_numpy(_rand(3 * 300 * 301 + 1, 10)).to(cuda)
+    flat = torch.from_numpy(_rand(3 * 300 * 301 + 1, 10)).to(cuda, dtype)
     x = flat[1:].view(3, 300, 301)
     c, a, b = x[0, 1:200, 3:150], x[1, 7:206, 5:50], x[2, 11:56, 1:148]
     before = flat.clone()
     got = ops.schur_update(c, a, b)
-    _schur_close(got, ref.schur_update_ref(c, a, b), c, a, b, torch.float64)
+    _schur_close(got, ref.schur_update_ref(c, a, b), c, a, b, dtype)
     assert torch.equal(got, ops.schur_update(c.contiguous(), a.contiguous(),
                                              b.contiguous()))
     assert torch.equal(flat, before)
 
 
+@pytest.mark.parametrize("dtype", SCHUR_DTYPES)
 @pytest.mark.parametrize("which", ["a", "b", "c", "all"])
-def test_schur_f64_column_major_operands(cuda, which):
+def test_schur_column_major_operands(cuda, which, dtype):
     """Column-major operands stage along their unit-stride axis into the
-    same shared-memory tiles, so the result is bit-equal to row-major."""
+    same shared-memory tiles, so the result is bit-equal to row-major
+    (in 2-byte types B's rows, 400 bytes, load by TMA, its transpose by
+    the block's threads)."""
     m, k, n = 300, 70, 200
-    rows = {name: torch.from_numpy(_rand(shape, seed)).to(cuda)
+    rows = {name: torch.from_numpy(_rand(shape, seed)).to(cuda, dtype)
             for name, shape, seed in (("c", (m, n), 1), ("a", (m, k), 2),
                                       ("b", (k, n), 3))}
     cols = {name: t.t().contiguous().t() if which in (name, "all") else t
             for name, t in rows.items()}
     c, a, b = rows.values()
     got = ops.schur_update(cols["c"], cols["a"], cols["b"])
-    _schur_close(got, ref.schur_update_ref(c, a, b), c, a, b, torch.float64)
+    _schur_close(got, ref.schur_update_ref(c, a, b), c, a, b, dtype)
     assert torch.equal(got, ops.schur_update(c, a, b))
 
 
@@ -653,23 +664,29 @@ def test_schur_f64_inner_update_shape(cuda):
                  c, a, b, torch.float64)
 
 
-def test_schur_f64_same_bits_run_to_run_and_across_a_batch(cuda):
+@pytest.mark.parametrize("dtype", SCHUR_DTYPES)
+@pytest.mark.parametrize("k", [77, 80])
+def test_schur_same_bits_run_to_run_and_across_a_batch(cuda, dtype, k):
     """No split K and no atomics: one call's bits are the same every run,
-    and a matrix's bits do not depend on the stack around it."""
-    c, a, b = (torch.from_numpy(_rand(s, seed)).to(cuda)
-               for s, seed in (((4, 300, 170), 7), ((4, 300, 77), 8),
-                               ((4, 77, 170), 9)))
+    and a matrix's bits do not depend on the stack around it. At K = 80 a
+    2-byte stack's rows are whole 16-byte vectors, so the wgmma kernel
+    loads A by TMA, the batch a coordinate of its map."""
+    c, a, b = (torch.from_numpy(_rand(s, seed)).to(cuda, dtype)
+               for s, seed in (((4, 300, 170), 7), ((4, 300, k), 8),
+                               ((4, k, 170), 9)))
     got = ops.schur_update(c, a, b)
-    _schur_close(got, ref.schur_update_ref(c, a, b), c, a, b, torch.float64)
+    _schur_close(got, ref.schur_update_ref(c, a, b), c, a, b, dtype)
     assert torch.equal(got[2], ops.schur_update(c[2], a[2], b[2]))
-    big = [torch.from_numpy(_rand((1024, 1024), s)).to(cuda) for s in (1, 2, 3)]
+    big = [torch.from_numpy(_rand((1024, 1024), s)).to(cuda, dtype)
+           for s in (1, 2, 3)]
     first = ops.schur_update(*big)
     for _ in range(3):
         assert torch.equal(first, ops.schur_update(*big))
 
 
 @pytest.mark.parametrize("case", ["panel-warp", "panel-block", "panel-stack",
-                                  "schur-f64", "schur-f64-inner", "schur-f32"])
+                                  "schur-f64", "schur-f64-inner", "schur-f32",
+                                  "schur-bf16", "schur-f16"])
 def test_panel_and_schur_launch_once_per_call(cuda, case):
     """One CUDA launch a wrapper call, as chip_smoke.py holds them."""
     if case.startswith("panel"):
@@ -678,12 +695,37 @@ def test_panel_and_schur_launch_once_per_call(cuda, case):
         a = torch.from_numpy(_dominant(shape, 3)).to(cuda)
         assert _profiled_launches(lambda: ops.lu_panel(a)) == 1
         return
-    dtype = torch.float32 if case == "schur-f32" else torch.float64
+    dtype = {"schur-f32": torch.float32, "schur-bf16": torch.bfloat16,
+             "schur-f16": torch.float16}.get(case, torch.float64)
     x = torch.from_numpy(_rand((1024, 1024), 4)).to(cuda, dtype)
     c, a, b = x, x, x
     if case == "schur-f64-inner":
         c, a, b = x[32:, 32:], x[32:, :32], x[:32, 32:]
     assert _profiled_launches(lambda: ops.schur_update(c, a, b)) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_schur_half_loads_lu_blocked_operands_by_tma(cuda, dtype):
+    """The 2-byte routes load A and B by TMA at lu_blocked's shapes: views
+    of the matrix (a trailing update) and the inner update's fresh
+    992 x 32 and 32 x 992 strips beside a view of the diagonal tile. The
+    same values one element off alignment are copied by the block's
+    threads into the same swizzled tiles, and give the same bits."""
+    from repro_torch.kernels import schur
+
+    x = torch.from_numpy(_rand((2048, 2048), 12)).to(cuda, dtype)
+    strip = lambda shape, seed: torch.from_numpy(_rand(shape, seed)).to(
+        cuda, dtype)
+    for c, a, b in ((x[1024:, 1024:], x[1024:, :1024], x[:1024, 1024:]),
+                    (x[32:1024, 32:1024], strip((992, 32), 13),
+                     strip((32, 992), 14))):
+        assert schur.tma_operands(a, b) == (True, True)
+        odd = [torch.empty(t.numel() + 1, dtype=dtype, device=cuda)[1:]
+               .view(t.shape).copy_(t) for t in (a, b)]
+        assert schur.tma_operands(*odd) == (False, False)
+        got = ops.schur_update(c, a, b)
+        _schur_close(got, ref.schur_update_ref(c, a, b), c, a, b, dtype)
+        assert torch.equal(got, ops.schur_update(c, *odd))
 
 
 # --------------------------------------------------- mixed acc_dtype routes
@@ -809,13 +851,14 @@ def test_trsm_narrow_bit_equal_to_plain(cuda, dtype, n, m, batch):
 
 
 @pytest.mark.parametrize("dtype", HALVES)
-@pytest.mark.parametrize("acc", [None, torch.float64], ids=["narrow", "f64"])
+@pytest.mark.parametrize("acc", [None, torch.float32, torch.float64],
+                         ids=["narrow", "f32", "f64"])
 def test_lu_blocked_half_on_card_matches_cpu(cuda, dtype, acc):
     """bf16/f16 lu_blocked on the card against the CPU's plain path,
     within 8 storage ulps of max|factor|: the panels and strips agree bit
-    for bit (narrow) or within 4 ulps (f64), and the updates' sums differ
-    in order, by at most one rounding of a stored value each, which the
-    later steps carry along."""
+    for bit (narrow) or within 4 ulps (f32, f64), and the updates' sums
+    differ in order, by at most one rounding of a stored value each, which
+    the later steps carry along."""
     from repro_torch.core.lu import lu_blocked
 
     x = torch.from_numpy(_dominant((256, 256), 10)).to(dtype)

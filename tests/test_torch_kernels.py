@@ -21,10 +21,11 @@ from repro.kernels import ops as r_ops
 from repro_torch.core import cipher as t_cipher
 from repro_torch.core import keygen as t_keygen
 from repro_torch.core import seed as t_seed
-from repro_torch.kernels import build, ops, ref, routes
+from repro_torch.kernels import build, ops, ref, routes, schur
 from repro_torch.kernels.ced import ced_cuda
 from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.kernels.lu_panel import lu_panel_cuda, max_tile
+from repro_torch.kernels.schur import schur_update_cuda
 from repro_torch.kernels.trsm import trsm_lower_cuda, trsm_upper_right_cuda
 
 r_cipher, r_keygen, r_seed = (
@@ -218,7 +219,10 @@ def test_dispatch_counts_no_launch_on_cpu():
     lambda t: trsm_lower_cuda(t, t),
     lambda t: trsm_upper_right_cuda(t, t),
     lambda t: flash_attention_cuda(*(t.float()[None, None],) * 3),
-], ids=["ced", "lu_panel", "trsm_lower", "trsm_upper_right", "flash_attention"])
+    lambda t: schur_update_cuda(t, t, t),
+    lambda t: schur.tma_operands(t.bfloat16(), t.bfloat16()),
+], ids=["ced", "lu_panel", "trsm_lower", "trsm_upper_right", "flash_attention",
+        "schur_update", "schur_tma_operands"])
 def test_kernel_wrappers_refuse_cpu_tensors(launch):
     """A wrapper launches its kernel or raises; only ops routes CPU
     tensors to the plain versions."""
@@ -260,15 +264,38 @@ def test_lu_panel_route_by_width(dtype):
                                    torch.bfloat16, torch.float16])
 def test_schur_grid_refuses_what_the_card_would_refuse(dtype):
     """65,535 blocks at most on the grid's y axis (row tiles: 128 rows for
-    the f64 kernel, 64 for the others) and z axis (the batch)."""
-    from repro_torch.kernels import schur
-
+    every route's kernel, DMMA, wgmma and FMA) and z axis (the batch)."""
     rows = schur.rows_per_block(dtype)
-    assert rows == (128 if dtype == torch.float64 else 64)
+    assert rows == schur.TILE_ROWS[schur.device_kernel(dtype).split("<")[0]]
+    assert rows == 128
     schur.check_grid(dtype, 65535, 65535 * rows)
     for batch, m in ((1, 65535 * rows + 1), (65536, 1)):
         with pytest.raises(ValueError, match="grid"):
             schur.check_grid(dtype, batch, m)
+
+
+def test_schur_device_kernels_are_the_sources_templates():
+    """Every route's device kernel in schur.KERNELS is a __global__
+    template of csrc/schur.cu, launched by that route's entry point with
+    the table's template arguments, and its row tile is the source's:
+    chip_smoke.py checks the profiler's kernel names against this table."""
+    import re
+
+    src = (build.CSRC / "schur.cu").read_text()
+    assert set(schur.KERNELS) == set(routes.ROUTES["schur_update"].values())
+    tile = {"schur_dmma_kernel": "DM", "schur_fma_kernel": "FM",
+            "schur_wgmma_kernel": "WM"}
+    assert set(tile) == set(schur.TILE_ROWS)
+    for suffix, name in schur.KERNELS.items():
+        base, args = re.fullmatch(r"(\w+)<(.+)>", name).groups()
+        assert re.search(r"template <typename \w+>\s*__global__ void\s+"
+                         rf"(__launch_bounds__\([^)]*\)\s*)?{base}\(", src), name
+        entry = re.search(rf"SCHUR_ENTRY\(schur_{suffix}, [\w ]+, "
+                          r"launch_(\w+)<([^>]+)>\)", src)
+        assert entry, suffix
+        assert (f"schur_{entry.group(1)}_kernel", entry.group(2)) == (base, args)
+        rows = re.search(rf"constexpr int {tile[base]} = (\d+);", src)
+        assert int(rows.group(1)) == schur.TILE_ROWS[base]
 
 
 def test_max_tile_fits_shared_memory():
@@ -532,9 +559,12 @@ def test_mixed_panel_route_keys_off_the_accumulator():
     assert lu_panel.route(340, torch.bfloat16) == "block"
     with pytest.raises(TypeError, match="no CUDA route"):
         routes.suffix("trsm_left", torch.float16, None)
-    # the mixed Schur route runs the f64 DMMA kernel's 128-row blocks
-    from repro_torch.kernels import schur
-
+    # the mixed Schur route runs the f64 DMMA kernel's 128-row blocks, the
+    # f32 route the FMA kernel's, also 128 rows
+    assert schur.device_kernel(torch.float32, torch.float64) == (
+        "schur_dmma_kernel<float>")
     assert schur.rows_per_block(torch.float32, torch.float64) == 128
     assert schur.rows_per_block(torch.bfloat16, torch.float64) == 128
-    assert schur.rows_per_block(torch.float32) == 64
+    assert schur.device_kernel(torch.float32) == "schur_fma_kernel<float>"
+    assert schur.rows_per_block(torch.float32) == schur.TILE_ROWS[
+        "schur_fma_kernel"] == 128
