@@ -42,9 +42,10 @@ Phases, each printed as one JSON line:
 12. the flash-attention kernel against its plain version: the serving
    path's prefill, q (4, 32, 2048, 64) and kv (4, 4, 2048, 64) as
    (B, S, H, D) views, causal, and its decode, q (4, 32, 1, 64) over a
-   2048-long cache prefix, in bf16 and f32 (bf16 decode packs each GQA
-   group into one block and splits the keys into chunks, then merges
-   them), decode with a 40-key window inside the last chunk, then small
+   2048-long cache prefix, in bf16 and f32 (decode packs each GQA group
+   into one block and splits the keys into chunks, then merges them),
+   decode with a 40-key window inside the last chunk in both, gemma3's
+   sliding prefill (q (4, 4, 2048, 256), window 1024) in f32, then small
    window, non-causal, ragged (50 / 77) and fully-masked (Sq > Sk) cases:
    within
    1e-5 · max|v| in f32, and in bf16 every element within
@@ -246,10 +247,12 @@ mixed and half lu_blocked run; bf16/f16 -> f32 is the Schur update's
 default half route, launches from lu_blocked with acc_dtype=float32),
 "<kernel>:bf16" and ":f16" (the panel's and the solves' narrow routes,
 which half lu_blocked runs), each with the device kernels' template
-names the profiler reports, and "flash_attention:f32"
-(the f32 kernel at the prefill and decode shapes, launched by phase 13's
-f32 runs; the flash_attention row also carries phase 14's launches,
-`launches_train`, and its autograd case), then
+names the profiler reports, "flash_attention:f32" (the f32 kernel at
+the prefill and decode shapes, launched by phase 13's f32 runs; the
+flash_attention row also carries phase 14's launches, `launches_train`,
+and its autograd case) and "flash_attention:f32_sliding" (the f32
+kernel's D = 256 configuration at gemma3's window shape; its launches
+are the f32 route's on phase 13, no run of which has that shape), then
 "flash_attention:sliding", ":ring_decode", ":chunk_fold" and
 ":non_causal" at the model families' shapes, with the launches of
 each route over phase 13's family runs. Each timing names the
@@ -3108,9 +3111,11 @@ def flash_inputs(rng, dev, dtype, b, hq, hkv, sq, sk, d, cache_len=None):
     return q, k, v
 
 
-def phase_flash(rng, dev) -> tuple[float, float]:
+def phase_flash(rng, dev) -> dict:
     """The flash kernel against its plain version; returns the largest
-    error over the cases, and over the f32 cases."""
+    error by kernels-line row: "flash_attention" over every case,
+    "flash_attention:f32" over the f32 cases at the serving shapes and
+    the small ones, "flash_attention:f32_sliding" at gemma3's."""
     from repro_torch.kernels import ops, ref
 
     (hq, hkv, d), b, s = FLASH_HEADS, PREFILL_BATCH, PREFILL_LEN
@@ -3118,9 +3123,12 @@ def phase_flash(rng, dev) -> tuple[float, float]:
     for dtype in (torch.bfloat16, torch.float32):
         cases += [("prefill", dtype, (b, hq, hkv, s, s, d), {"causal": True}),
                   ("decode over a cache prefix", dtype,
-                   (b, hq, hkv, 1, s, d, s + 128), {"causal": True})]
-    cases += [("decode, window 40 inside the last chunk", torch.bfloat16,
-               (b, hq, hkv, 1, s, d, s + 128), {"causal": True, "window": 40}),
+                   (b, hq, hkv, 1, s, d, s + 128), {"causal": True}),
+                  ("decode, window 40 inside the last chunk", dtype,
+                   (b, hq, hkv, 1, s, d, s + 128),
+                   {"causal": True, "window": 40})]
+    cases += [("gemma3 sliding prefill", torch.float32,
+               (b, 4, 1, s, s, 256), {"causal": True, "window": 1024}),
               ("window 40", torch.bfloat16, (1, 4, 1, 200, 200, d),
                {"causal": True, "window": 40}),
               ("non-causal", torch.bfloat16, (1, 4, 4, 128, 128, d),
@@ -3129,7 +3137,8 @@ def phase_flash(rng, dev) -> tuple[float, float]:
                {"causal": True}),
               ("fully masked rows, Sq 8 > Sk 4", torch.float32,
                (1, 4, 2, 8, 4, d), {"causal": True})]
-    worst = worst_f32 = 0.0
+    worst = dict.fromkeys(("flash_attention", "flash_attention:f32",
+                           "flash_attention:f32_sliding"), 0.0)
     for label, dtype, shape, kw in cases:
         q, k, v = flash_inputs(rng, dev, dtype, *shape)
         got = ops.flash_attention(q, k, v, **kw)
@@ -3150,10 +3159,13 @@ def phase_flash(rng, dev) -> tuple[float, float]:
                   "fully masked rows are not the mean of V")
         emit(line)
         check(reading["within"], f"flash_attention {label} {dtype}: {reading}")
-        worst = max(worst, reading["max_abs_err"])
+        rows = ["flash_attention"]
         if dtype == torch.float32:
-            worst_f32 = max(worst_f32, reading["max_abs_err"])
-    return worst, worst_f32
+            rows.append("flash_attention:f32_sliding" if label.startswith("gemma3")
+                        else "flash_attention:f32")
+        for name in rows:
+            worst[name] = max(worst[name], reading["max_abs_err"])
+    return worst
 
 
 def flash_compare(got, want, v) -> dict:
@@ -4308,8 +4320,31 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
                      **decode_case},
         note="launches from the serve phase's f32 runs (decode against "
              "prefill over 128 tokens, and the f32 card prefill); f32 on "
-             "the FMA pipes, one launch a call, prefill and decode; the "
-             "bound at the f32 rate")
+             "the FMA pipes (flash_fma32_kernel): prefill 128 query rows "
+             "a block, 8 x 4 a thread, a cp.async ring; decode packs each "
+             "GQA group, splits the keys and merges the chunks "
+             "(decode_case's cuda_launches_per_call); the bound at the f32 "
+             "rate")
+    # gemma3's window shape in f32: the kernel's D = 256 configuration
+    q, k, v = flash_inputs(rng, dev, f32, fb, 4, 1, s, s, 256)
+    kr, vr = (t.repeat_interleave(4, dim=1) for t in (k, v))
+    i = torch.arange(s, device=dev)
+    band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - 1024)
+    pairs = sum(min(t + 1, 1024) for t in range(s))
+    row("flash_attention:f32_sliding", "flash_attn.cu",
+        "src/repro/kernels/flash_attn.py:79", [fb, 4, s, 256],
+        lambda: ops.flash_attention(q, k, v, causal=True, window=1024),
+        lambda: ref.flash_attention_ref(q, k, v, causal=True, window=1024),
+        lambda: sdpa(q, kr, vr, attn_mask=band), 10, 3,
+        4 * (2 * fb * 4 * s * 256 + 2 * fb * s * 256),
+        4 * fb * 4 * 256 * pairs, dtype=f32, kv_shape=[fb, 1, s, 256],
+        window=1024, expect_launches=flash_attn.cuda_launches(q, k),
+        note="gemma3-1b's sliding-layer shape in f32: the FMA kernel at "
+             "D = 256 (64 query rows a block, 32-key tiles); launches are "
+             "the f32 route's on the serve phase (D = 64), since no f32 "
+             "run there has this shape; the bound counts the unmasked "
+             "pairs, the library call is SDPA with the band as a mask")
+    del q, k, v, kr, vr
     # the model families' shapes in bf16, launches by route over the
     # serve phase's model runs (FlashRoutes); the library calls get K/V
     # repeated to the query heads beforehand, so SDPA takes its own
@@ -4561,7 +4596,7 @@ def main() -> int:
     errs.update(linalg["errs"])
     for name, err in gateway["errs"].items():
         errs[name] = max(errs[name], err)
-    errs["flash_attention"], errs["flash_attention:f32"] = phase_flash(rng, dev)
+    errs.update(phase_flash(rng, dev))
     serve_launches, f32_flash_launches, (model_launches, flash_routes) = \
         phase_serve(rng, dev, args.seed)
     per_phase["serve"] = (serve_launches, SERVE_PATH)
@@ -4594,6 +4629,7 @@ def main() -> int:
     launches["schur_update:f32"] = seq_routes["f32"]["schur_update"]
     check(f32_flash_launches > 0, "flash_attention never launched in f32")
     launches["flash_attention:f32"] = f32_flash_launches
+    launches["flash_attention:f32_sliding"] = f32_flash_launches
     for leg in TRISOLVE_LEGS:
         launches[f"trsm:trisolve_{leg}"] = linalg["legs"][leg]
     launches["trsm_lower:row_solve"] = row_solve["calls"]

@@ -103,8 +103,10 @@ def child(src: str, seed: int) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def main(child=child, script: str = __file__, doc: str = __doc__) -> int:
+    """Run `script`'s `child` in each of two trees, A B B A a round, and
+    print the runs and their summary (flash_ab.py passes its own)."""
+    ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--tree", action="append", default=[],
                     help="NAME=PATH of a tree's src directory; give two")
     ap.add_argument("--rounds", type=int, default=2)
@@ -117,7 +119,7 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("schur_ab: no CUDA device", file=sys.stderr)
+        print(f"{Path(script).stem}: no CUDA device", file=sys.stderr)
         return 2
     trees = dict(t.split("=", 1) for t in args.tree)
     if len(trees) != 2:
@@ -127,7 +129,7 @@ def main() -> int:
     for _ in range(args.rounds):
         for name, src in ((a, a_src), (b, b_src), (b, b_src), (a, a_src)):
             proc = subprocess.run(
-                [sys.executable, __file__, "--child", str(ROOT / src),
+                [sys.executable, script, "--child", str(ROOT / src),
                  "--seed", str(args.seed)],
                 capture_output=True, text=True, timeout=600)
             if proc.returncode != 0:

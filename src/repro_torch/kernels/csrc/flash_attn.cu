@@ -70,40 +70,47 @@
 // The softmax works in base 2 (scores scaled by scale * log2 e, exp2f),
 // which moves p by a few f32 ulps before its rounding to V's dtype.
 //
-// f32 keeps exact f32 arithmetic on the FMA pipes (flash_fma_kernel, the
-// design before this one): TF32's 10-bit mantissa would not meet the f32
-// gates. One block of 16 x 16 threads per (batch, query head, tile of 64
-// query rows; 16 rows when Sq <= 16), Q, K and V widened to f32 in
-// shared memory, 4 x 4 register tiles.
+// f32 (flash_fma32_kernel) stays in exact f32 on the FMA pipes: TF32's
+// 10-bit mantissa would not meet the f32 gates. Its bound at the serving
+// shape is operations, 68.7 GFLOP at the 67 TFLOP/s f32 peak: 1.03 ms;
+// its decode's, bytes: 16.8 MB of f32 cache at 2048 keys, 5.0 us. The
+// design before this one reached 31 % of the prefill bound and 35 times
+// the decode's: 4 x 4 register tiles fed by scalar shared-memory loads (a
+// load for two FMAs), K and V copied element by element and transposed
+// with no copy in flight during the arithmetic, three barriers a tile, P
+// through shared memory behind a block barrier, and a decode that filled
+// one of a block's 16 query rows, read each kv head once per query head
+// and walked all keys in one block. Now:
+//  * Each thread holds RS query rows x 4 keys of S and RS rows x D / 16
+//    columns of O in registers (RS = 4: a block of 256 threads owns 64
+//    query rows; at D = 64 two blocks share an SM). Every shared read is
+//    a float4 and feeds 8 FMAs or more: per four d, RS float4s of Q and
+//    four of K give 16 RS FMAs; per four keys, RS float4s of P and
+//    D / 16 of V give RS D / 4.
+//  * K and V tiles (64 keys; 32 at D = 256, to fit 227 KB) in a cp.async
+//    ring of 16-byte copies (4-byte copies where a row does not start on
+//    16 bytes), one barrier a tile, the next tile's copy in flight during
+//    this tile's products. Rows lie DT + 4 floats apart, so the float4
+//    reads of a quarter-warp fall on distinct banks.
+//  * A query row belongs to one half-warp: its max and sum are shuffles,
+//    and its P goes through shared memory that only its warp touches,
+//    behind __syncwarp rather than a block barrier.
+//  * The softmax works in base 2 as above; prefill walks the causal grid
+//    heaviest first and skips tiles by the same rule.
+//  * Decode packs the GQA group as above, 16 rows a block (one a thread
+//    row), and splits the keys into the same fixed 128-key chunks, with
+//    the same f32 partials and flash_combine_kernel<float>: a kv head's
+//    prefix is read once, and a row's bits depend on Sk alone. A 3-stage
+//    ring keeps a chunk's two tiles in flight from the start; warps
+//    whose rows all lie past the group's copy and compute nothing.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
-
-// ---------------------------------------------------------------------------
-// f32: FMA pipes
-
-constexpr int TD = 16;        // threads per block side
-constexpr int NT = TD * TD;   // threads per block
-constexpr int BK = 64;        // keys per tile
-constexpr int CK = BK / TD;   // key columns per thread
-constexpr float NEG_INF = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
-
-template <typename T>
-__device__ __forceinline__ float widen(T v) {
-  return static_cast<float>(v);
-}
-template <>
-__device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <>
-__device__ __forceinline__ float widen<__half>(__half v) {
-  return __half2float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T narrow(float v) {
@@ -116,224 +123,6 @@ __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
 template <>
 __device__ __forceinline__ __half narrow<__half>(float v) {
   return __float2half(v);
-}
-
-// Shared memory, in floats, of one block: Q^T (DT x BQ+1), K^T (DT x BK+1),
-// V (BK x DT), P^T (BK x BQ+1). The +1 columns keep the transposed stores
-// free of bank conflicts.
-template <int RQ, int DT>
-constexpr size_t smem_floats() {
-  return static_cast<size_t>(DT) * (RQ * TD + 1) + DT * (BK + 1) + BK * DT +
-         BK * (RQ * TD + 1);
-}
-
-// Block (x, y, z) computes rows [BQ x, BQ x + BQ) of query head y of batch
-// z, BQ = 16 RQ. Thread (tx, ty) owns rows ty + 16 i (i < RQ), key columns
-// tx + 16 j of each tile and output columns tx + 16 j (j < DT / 16).
-template <typename T, int RQ, int DT>
-__global__ void __launch_bounds__(NT)
-flash_fma_kernel(const T* __restrict__ q, long long qb, long long qh,
-             long long qs, const T* __restrict__ k, long long kb,
-             long long kh, long long ks, const T* __restrict__ v,
-             long long vb, long long vh, long long vs, T* __restrict__ o,
-             long long ob, long long oh, long long os, int group, int sq,
-             int sk, int d, float scale, int causal, int has_window,
-             int window) {
-  constexpr int BQ = RQ * TD;
-  constexpr int CD = DT / TD;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qsm = smem;                   // [DT][BQ + 1]
-  float* ksm = qsm + DT * (BQ + 1);    // [DT][BK + 1]
-  float* vsm = ksm + DT * (BK + 1);    // [BK][DT]
-  float* psm = vsm + BK * DT;          // [BK][BQ + 1]
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * TD + tx;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  q += blockIdx.z * qb + h * qh;
-  k += blockIdx.z * kb + (h / group) * kh;
-  v += blockIdx.z * vb + (h / group) * vh;
-  o += blockIdx.z * ob + h * oh;
-  const int off = sk - sq;  // position of query row i is i + off
-
-  for (int e = tid; e < BQ * DT; e += NT) {
-    const int r = e / DT;
-    const int c = e % DT;
-    const int gr = q0 + r;
-    qsm[c * (BQ + 1) + r] =
-        (gr < sq && c < d) ? widen<T>(q[gr * qs + c]) : 0.f;
-  }
-
-  // Key tiles to visit. Only where every row of the block has its own
-  // diagonal key (causal, first position >= 0) may tiles be skipped.
-  int kt0 = 0;
-  int kt1 = (sk + BK - 1) / BK;
-  const int first_pos = q0 + off;
-  if (causal && first_pos >= 0) {
-    const int last_pos = min(q0 + BQ, sq) - 1 + off;
-    kt1 = min(kt1, last_pos / BK + 1);
-    if (has_window && first_pos - window + 1 > 0) {
-      kt0 = (first_pos - window + 1) / BK;
-    }
-  }
-
-  float m[RQ], l[RQ], acc[RQ][CD];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < CD; ++j) acc[i][j] = 0.f;
-  }
-
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    for (int e = tid; e < BK * DT; e += NT) {
-      const int c = e / DT;
-      const int dd = e % DT;
-      const int gk = k0 + c;
-      const bool in = gk < sk && dd < d;
-      ksm[dd * (BK + 1) + c] = in ? widen<T>(k[gk * ks + dd]) : 0.f;
-      vsm[c * DT + dd] = in ? widen<T>(v[gk * vs + dd]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[RQ][CK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-#pragma unroll
-      for (int j = 0; j < CK; ++j) s[i][j] = 0.f;
-    }
-#pragma unroll 4
-    for (int dd = 0; dd < d; ++dd) {
-      float a[RQ], b[CK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) a[i] = qsm[dd * (BQ + 1) + ty + TD * i];
-#pragma unroll
-      for (int j = 0; j < CK; ++j) b[j] = ksm[dd * (BK + 1) + tx + TD * j];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-#pragma unroll
-        for (int j = 0; j < CK; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qpos = q0 + ty + TD * i + off;
-      float mc = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const int kpos = k0 + tx + TD * j;
-        float val = s[i][j] * scale;
-        if ((causal && kpos > qpos) || (has_window && kpos <= qpos - window)) {
-          val = NEG_INF;
-        }
-        if (kpos >= sk) val = -INFINITY;  // ragged edge: not a key at all
-        s[i][j] = val;
-        mc = fmaxf(mc, val);
-      }
-#pragma unroll
-      for (int w = TD / 2; w > 0; w /= 2) {
-        mc = fmaxf(mc, __shfl_xor_sync(FULL, mc, w, TD));
-      }
-      const float m_new = fmaxf(m[i], mc);
-      const float corr = expf(m[i] - m_new);
-      float ls = 0.f;
-#pragma unroll
-      for (int j = 0; j < CK; ++j) {
-        const int c = tx + TD * j;
-        const float p = (k0 + c < sk) ? expf(s[i][j] - m_new) : 0.f;
-        ls += p;
-        psm[c * (BQ + 1) + ty + TD * i] = widen<T>(narrow<T>(p));
-      }
-#pragma unroll
-      for (int w = TD / 2; w > 0; w /= 2) {
-        ls += __shfl_xor_sync(FULL, ls, w, TD);
-      }
-      l[i] = l[i] * corr + ls;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < CD; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[RQ];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) p[i] = psm[kk * (BQ + 1) + ty + TD * i];
-#pragma unroll
-      for (int j = 0; j < CD; ++j) {
-        const float vv = vsm[kk * DT + tx + TD * j];
-#pragma unroll
-        for (int i = 0; i < RQ; ++i) acc[i][j] = fmaf(p[i], vv, acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int row = q0 + ty + TD * i;
-    if (row >= sq) continue;
-    const float li = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int j = 0; j < CD; ++j) {
-      const int c = tx + TD * j;
-      if (c < d) o[row * os + c] = narrow<T>(acc[i][j] / li);
-    }
-  }
-}
-
-template <typename T, int RQ, int DT>
-int launch_tile(const T* q, long long qb, long long qh, long long qs,
-                const T* k, long long kb, long long kh, long long ks,
-                const T* v, long long vb, long long vh, long long vs, T* o,
-                long long ob, long long oh, long long os, int batch, int hq,
-                int group, int sq, int sk, int d, float scale, int causal,
-                int has_window, int window, cudaStream_t stream) {
-  constexpr int BQ = RQ * TD;
-  const int smem = static_cast<int>(sizeof(float) * smem_floats<RQ, DT>());
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fma_kernel<T, RQ, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(TD, TD);
-  const dim3 grid((sq + BQ - 1) / BQ, hq, batch);
-  flash_fma_kernel<T, RQ, DT><<<grid, block, smem, stream>>>(
-      q, qb, qh, qs, k, kb, kh, ks, v, vb, vh, vs, o, ob, oh, os, group, sq,
-      sk, d, scale, causal, has_window, window);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// f32: 64-row query tiles, or 16-row tiles when Sq <= 16 (decode); the
-// head dimension padded to 64, 128 or 256.
-template <typename T>
-int launch_fma(const T* q, long long qb, long long qh, long long qs, const T* k,
-           long long kb, long long kh, long long ks, const T* v,
-           long long vb, long long vh, long long vs, T* o, long long ob,
-           long long oh, long long os, int batch, int hq, int hkv, int sq,
-           int sk, int d, float scale, int causal, int has_window,
-           int window, cudaStream_t stream) {
-  const int group = hq / hkv;
-#define FLASH_ARGS                                                        \
-  q, qb, qh, qs, k, kb, kh, ks, v, vb, vh, vs, o, ob, oh, os, batch, hq,  \
-      group, sq, sk, d, scale, causal, has_window, window, stream
-  const bool small = sq <= TD;
-  if (d <= 64) {
-    return small ? launch_tile<T, 1, 64>(FLASH_ARGS)
-                 : launch_tile<T, 4, 64>(FLASH_ARGS);
-  }
-  if (d <= 128) {
-    return small ? launch_tile<T, 1, 128>(FLASH_ARGS)
-                 : launch_tile<T, 4, 128>(FLASH_ARGS);
-  }
-  return small ? launch_tile<T, 1, 256>(FLASH_ARGS)
-               : launch_tile<T, 4, 256>(FLASH_ARGS);
-#undef FLASH_ARGS
 }
 
 // ---------------------------------------------------------------------------
@@ -359,7 +148,7 @@ struct Params {
   int causal, has_window, window;
   int chunk;       // > 0: decode, keys per chunk
   int nchunks;     // decode: chunks of keys
-  int row_blocks;  // decode: ceil(group * sq / MQ)
+  int row_blocks;  // decode: ceil(group * sq / packed rows a block)
   int aligned;     // every row and 16-byte chunk lies on 16 bytes
 };
 
@@ -769,6 +558,20 @@ flash_combine_kernel(const Params p) {
   }
 }
 
+// After a decode's chunks: cudaGetLastError() of their launch, then, when
+// the keys were split, the merge's launch and its error.
+template <typename T>
+int launch_combine(const Params& p, cudaStream_t stream) {
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.chunk <= 0 || p.nchunks <= 1) {
+    return static_cast<int>(err);
+  }
+  const long long rows = static_cast<long long>(p.batch) * p.hq * p.sq;
+  flash_combine_kernel<T><<<static_cast<unsigned>((rows + 3) / 4), 128, 0,
+                            stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DT>
 int launch_tc(const Params& p, cudaStream_t stream) {
   const int smem = static_cast<int>((MQ + 4 * NK) * DT * sizeof(T));
@@ -783,14 +586,7 @@ int launch_tc(const Params& p, cudaStream_t stream) {
     grid = dim3((p.sq + MQ - 1) / MQ, p.hq, p.batch);
   }
   flash_tc_kernel<T, DT><<<grid, TC_THREADS, smem, stream>>>(p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || p.chunk <= 0 || p.nchunks <= 1) {
-    return static_cast<int>(err);
-  }
-  const long long rows = static_cast<long long>(p.batch) * p.hq * p.sq;
-  flash_combine_kernel<T><<<static_cast<unsigned>((rows + 3) / 4), 128, 0,
-                            stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch_combine<T>(p, stream);
 }
 
 template <typename T>
@@ -800,17 +596,416 @@ int launch_tc_d(const Params& p, cudaStream_t stream) {
   return launch_tc<T, 256>(p, stream);
 }
 
+// ---------------------------------------------------------------------------
+// f32: FMA pipes
+
+constexpr int FT = 16;             // threads a block side (16 x 16)
+constexpr int F_THREADS = FT * FT;
+constexpr int F_DECODE_ROWS = FT;  // packed decode rows a block
+constexpr unsigned FULL = 0xffffffffu;
+
+// One configuration of the f32 kernel: DT the head dimension padded to
+// 64, 128 or 256; RS query rows a thread, so BQ = 16 RS rows a block; BK
+// keys a tile; STAGES tiles of K and V in the cp.async ring. Q, K and V
+// rows are DT + 4 floats apart and P's BK + 4: whole 16-byte vectors, 4
+// mod 32 banks apart, so that the float4 reads below are free of bank
+// conflicts.
+template <int DT, int RS, int BK, int STAGES>
+struct FmaTile {
+  static_assert(RS == 1 || RS == 4, "rows a thread: 1 or 4");
+  static constexpr int BQ = FT * RS;
+  static constexpr int CK = BK / FT;  // keys a thread
+  static constexpr int CD = DT / FT;  // output columns a thread
+  static constexpr int D_LD = DT + 4;
+  static constexpr int P_LD = BK + 4;
+  static constexpr int KV = BK * D_LD;  // floats of one K or V tile
+  static constexpr size_t SMEM =
+      sizeof(float) * (static_cast<size_t>(BQ) * D_LD +
+                       static_cast<size_t>(STAGES) * 2 * KV +
+                       static_cast<size_t>(BQ) * P_LD);
+};
+
+// Block row of a thread's row i: 4 ty + i, so that the two half-warps of
+// a warp (ty and ty + 1) read rows 4 apart, 16 banks; with one row a
+// thread, row ty.
+template <int RS>
+__device__ __forceinline__ int fma_row(int ty, int i) {
+  return RS == 1 ? ty : 4 * ty + i;
+}
+
+// Copy 4 floats (16 bytes) from g to shared s, or zeros when !pred:
+// aligned, one cp.async of 16 bytes; otherwise four of 4 bytes, legal at
+// any float's address. Both join the ring's commit groups.
+__device__ __forceinline__ void copy4f(float* s, const float* g, bool pred,
+                                       bool aligned) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  if (aligned) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
+                 "l"(g), "r"(pred ? 16 : 0));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                       sa + 4 * e),
+                   "l"(g + (pred ? e : 0)), "r"(pred ? 4 : 0));
+    }
+  }
+}
+
+__device__ __forceinline__ void float4_to(float (&a)[4], const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  a[0] = v.x;
+  a[1] = v.y;
+  a[2] = v.z;
+  a[3] = v.w;
+}
+
+// Block (x, y, z): prefill, query rows [BQ (X - 1 - x), +BQ) of query head
+// y of batch z (X = gridDim.x, heaviest tiles first); decode, key chunk x
+// of kv head y / row_blocks of batch z, packed rows [BQ (y % row_blocks),
+// +BQ) of that head's group, as in flash_tc_kernel. Thread (ty, tx) =
+// (tid / 16, tid % 16) owns block rows fma_row(ty, i), i < RS: in S the
+// keys tx + 16 j of each tile (j < CK), in O the columns 64 g + 4 tx + e
+// (e < 4, g < CD / 4). A row's 16 threads are one half-warp, so its
+// reductions are shuffles and its P goes through shared memory that only
+// its warp touches.
+template <int DT, int RS, int BK, int STAGES, int MINB>
+__global__ void __launch_bounds__(F_THREADS, MINB)
+flash_fma32_kernel(const Params p) {
+  using Tile = FmaTile<DT, RS, BK, STAGES>;
+  constexpr int BQ = Tile::BQ, CK = Tile::CK, CD = Tile::CD;
+  constexpr int D_LD = Tile::D_LD, P_LD = Tile::P_LD, KV = Tile::KV;
+  constexpr int CH = DT / 4;  // 16-byte chunks a row
+  extern __shared__ __align__(16) float f_smem[];
+  float* qsm = f_smem;                  // [BQ][D_LD]
+  float* ring = qsm + BQ * D_LD;        // STAGES x (K, V), each [BK][D_LD]
+  float* psm = ring + STAGES * 2 * KV;  // [BQ][P_LD]
+
+  const int tid = threadIdx.x, tx = tid % FT, ty = tid / FT;
+  const int b = blockIdx.z;
+  const bool packed = p.chunk > 0;
+  int kvh, hfix = 0, q0 = 0, rb = 0, key_lo = 0, key_hi = p.sk, chunk = 0;
+  if (packed) {
+    kvh = blockIdx.y / p.row_blocks;
+    rb = blockIdx.y % p.row_blocks;
+    chunk = blockIdx.x;
+    key_lo = chunk * p.chunk;
+    key_hi = min(p.sk, key_lo + p.chunk);
+  } else {
+    hfix = blockIdx.y;
+    kvh = hfix / p.group;
+    q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  }
+  const int off = p.sk - p.sq;
+  const int packed_rows = p.group * p.sq;
+  // block row r -> (query head h, query row i); false past the last row
+  auto map_row = [&](int r, int& h, int& i) -> bool {
+    if (packed) {
+      const int rr = rb * BQ + r;
+      h = kvh * p.group + rr / p.sq;
+      i = rr % p.sq;
+      return rr < packed_rows;
+    }
+    h = hfix;
+    i = q0 + r;
+    return i < p.sq;
+  };
+
+  const float* qg = static_cast<const float*>(p.q) + b * p.qb;
+  const float* kg = static_cast<const float*>(p.k) + b * p.kb + kvh * p.kh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.vb + kvh * p.vh;
+  const bool aligned = p.aligned != 0;
+
+  // Q tile, zero past the last row and past d
+  for (int e = tid; e < BQ * CH; e += F_THREADS) {
+    const int r = e / CH, c = e % CH;
+    int h, i;
+    const bool ok = map_row(r, h, i) && 4 * c < p.d;
+    copy4f(qsm + r * D_LD + 4 * c, ok ? qg + h * p.qh + i * p.qs + 4 * c : qg,
+           ok, aligned);
+  }
+  cp_async_commit();
+
+  // key tiles to visit; only where every row of the block sees its own
+  // diagonal key (causal, first position >= 0) may tiles be skipped
+  int first_pos, last_pos;
+  if (packed) {
+    first_pos = off;
+    last_pos = p.sk - 1;
+  } else {
+    first_pos = q0 + off;
+    last_pos = min(q0 + BQ, p.sq) - 1 + off;
+  }
+  int kt0 = key_lo / BK;
+  int kt1 = (key_hi + BK - 1) / BK;
+  if (p.causal && first_pos >= 0) {
+    kt1 = min(kt1, last_pos / BK + 1);
+    if (p.has_window && first_pos - p.window + 1 > 0) {
+      kt0 = max(kt0, (first_pos - p.window + 1) / BK);
+    }
+  }
+
+  // K and V rows of tile kt into ring stage `stage`; zeros for keys
+  // outside [key_lo, key_hi) and past d
+  auto load_kv = [&](int kt, int stage) {
+    float* kd = ring + stage * 2 * KV;
+    float* vd = kd + KV;
+    const int k0 = kt * BK;
+    for (int e = tid; e < BK * CH; e += F_THREADS) {
+      const int r = e / CH, c = e % CH;
+      const bool ok = k0 + r >= key_lo && k0 + r < key_hi && 4 * c < p.d;
+      const long long row = ok ? k0 + r : 0;
+      copy4f(kd + r * D_LD + 4 * c, ok ? kg + row * p.ks + 4 * c : kg, ok,
+             aligned);
+      copy4f(vd + r * D_LD + 4 * c, ok ? vg + row * p.vs + 4 * c : vg, ok,
+             aligned);
+    }
+  };
+
+  int qpos[RS];
+#pragma unroll
+  for (int i = 0; i < RS; ++i) {
+    int h, ii;
+    map_row(fma_row<RS>(ty, i), h, ii);
+    qpos[i] = ii + off;
+  }
+  // a warp whose first row (its smallest) is past the last computes
+  // nothing; it still copies its share of every tile
+  int hw, iw;
+  const bool warp_live = map_row(fma_row<RS>(2 * (tid / 32), 0), hw, iw);
+
+  float m[RS], l[RS], acc[RS][CD];
+#pragma unroll
+  for (int i = 0; i < RS; ++i) {
+    m[i] = -1e30f;  // running max, base-2 domain
+    l[i] = 0.f;     // this thread's share of the row sum
+#pragma unroll
+    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
+  }
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (kt0 + s < kt1) load_kv(kt0 + s, s);
+    cp_async_commit();
+  }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile kt landed
+    __syncthreads();  // everyone's have, and tile kt - 1's stage is free
+    const int next = kt + STAGES - 1;
+    if (next < kt1) load_kv(next, (next - kt0) % STAGES);
+    cp_async_commit();
+    if (!warp_live) continue;
+    const float* ks = ring + ((kt - kt0) % STAGES) * 2 * KV;
+    const float* vs = ks + KV;
+    const int k0 = kt * BK;
+
+    // S = Q K^T: per four d, RS float4s of Q and CK of K
+    float s[RS][CK];
+#pragma unroll
+    for (int i = 0; i < RS; ++i) {
+#pragma unroll
+      for (int j = 0; j < CK; ++j) s[i][j] = 0.f;
+    }
+#pragma unroll 4
+    for (int dd = 0; dd < p.d; dd += 4) {
+      float qa[RS][4], ka[CK][4];
+#pragma unroll
+      for (int i = 0; i < RS; ++i) {
+        float4_to(qa[i], qsm + fma_row<RS>(ty, i) * D_LD + dd);
+      }
+#pragma unroll
+      for (int j = 0; j < CK; ++j) {
+        float4_to(ka[j], ks + (tx + FT * j) * D_LD + dd);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int i = 0; i < RS; ++i) {
+#pragma unroll
+          for (int j = 0; j < CK; ++j) {
+            s[i][j] = fmaf(qa[i][u], ka[j][u], s[i][j]);
+          }
+        }
+      }
+    }
+
+    // scale, mask, online softmax; P to this warp's rows of psm
+    const bool need_mask =
+        k0 < key_lo || k0 + BK > key_hi ||
+        (p.causal && k0 + BK - 1 > first_pos) ||
+        (p.has_window && k0 <= last_pos - p.window);
+#pragma unroll
+    for (int i = 0; i < RS; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < CK; ++j) {
+        float val = s[i][j] * p.scale2;
+        if (need_mask) {
+          const int kpos = k0 + tx + FT * j;
+          if ((p.causal && kpos > qpos[i]) ||
+              (p.has_window && kpos <= qpos[i] - p.window)) {
+            val = -1e30f;
+          }
+          // beyond Sk, or another chunk's: not a key of this block
+          if (kpos < key_lo || kpos >= key_hi) val = -INFINITY;
+        }
+        s[i][j] = val;
+        mx = fmaxf(mx, val);
+      }
+#pragma unroll
+      for (int w = FT / 2; w > 0; w /= 2) {
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, w));
+      }
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = exp2f(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= corr;
+#pragma unroll
+      for (int c = 0; c < CD; ++c) acc[i][c] *= corr;
+      float* prow = psm + fma_row<RS>(ty, i) * P_LD;
+#pragma unroll
+      for (int j = 0; j < CK; ++j) {
+        const float pe = exp2f(s[i][j] - m_new);
+        l[i] += pe;
+        prow[tx + FT * j] = pe;
+      }
+    }
+    __syncwarp();  // P's rows are written and read by this warp alone
+
+    // O += P V: per four keys, RS float4s of P and CD of V
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 4) {
+      float pa[RS][4];
+#pragma unroll
+      for (int i = 0; i < RS; ++i) {
+        float4_to(pa[i], psm + fma_row<RS>(ty, i) * P_LD + kk);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float va[CD / 4][4];
+#pragma unroll
+        for (int g = 0; g < CD / 4; ++g) {
+          float4_to(va[g], vs + (kk + u) * D_LD + 64 * g + 4 * tx);
+        }
+#pragma unroll
+        for (int i = 0; i < RS; ++i) {
+#pragma unroll
+          for (int g = 0; g < CD / 4; ++g) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[i][4 * g + e] = fmaf(pa[i][u], va[g][e], acc[i][4 * g + e]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // nothing left in flight, even with no tile visited
+
+  if (!warp_live) return;
+#pragma unroll
+  for (int i = 0; i < RS; ++i) {
+#pragma unroll
+    for (int w = FT / 2; w > 0; w /= 2) l[i] += __shfl_xor_sync(FULL, l[i], w);
+  }
+  const bool split = packed && p.nchunks > 1;
+#pragma unroll
+  for (int i = 0; i < RS; ++i) {
+    int h, ii;
+    if (!map_row(fma_row<RS>(ty, i), h, ii)) continue;
+    if (split) {
+      // partial of row (b, h, ii) for this chunk: acc, then m and l
+      const long long row =
+          ((static_cast<long long>(chunk) * p.batch + b) * p.hq + h) * p.sq +
+          ii;
+      float* dst = p.part + row * (p.d + 2);
+#pragma unroll
+      for (int g = 0; g < CD / 4; ++g) {
+        const int c = 64 * g + 4 * tx;
+        if (c < p.d) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dst[c + e] = acc[i][4 * g + e];
+        }
+      }
+      if (tx == 0) {
+        dst[p.d] = m[i];
+        dst[p.d + 1] = l[i];
+      }
+    } else {
+      const float inv_l = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+      float* dst = static_cast<float*>(p.o) + b * p.ob + h * p.oh + ii * p.os;
+#pragma unroll
+      for (int g = 0; g < CD / 4; ++g) {
+        const int c = 64 * g + 4 * tx;
+        if (c >= p.d) continue;
+        float w[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[e] = acc[i][4 * g + e] * inv_l;
+        if ((reinterpret_cast<unsigned long long>(dst + c) & 15) == 0) {
+          *reinterpret_cast<float4*>(dst + c) =
+              make_float4(w[0], w[1], w[2], w[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dst[c + e] = w[e];
+        }
+      }
+    }
+  }
+}
+
+template <int DT, int RS, int BK, int STAGES, int MINB = 1>
+int launch_fma(const Params& p, cudaStream_t stream) {
+  using Tile = FmaTile<DT, RS, BK, STAGES>;
+  const int smem = static_cast<int>(Tile::SMEM);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fma32_kernel<DT, RS, BK, STAGES, MINB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid;
+  if (p.chunk > 0) {
+    grid = dim3(p.nchunks, p.hkv * p.row_blocks, p.batch);
+  } else {
+    grid = dim3((p.sq + Tile::BQ - 1) / Tile::BQ, p.hq, p.batch);
+  }
+  flash_fma32_kernel<DT, RS, BK, STAGES, MINB>
+      <<<grid, F_THREADS, smem, stream>>>(p);
+  return launch_combine<float>(p, stream);
+}
+
+// Prefill: 64 query rows a block (4 a thread), 64-key tiles (32 at
+// D = 256) in a 2-stage ring; at D = 64, two blocks an SM (128 registers,
+// 104 KB), which ran 6 % faster on the H100 than one block of 128 rows
+// (8 a thread, 210 registers). Decode: 16 packed rows a block (1 a
+// thread) and a 3-stage ring, so a 128-key chunk of 64-key tiles is in
+// flight whole from the start.
+template <typename T>
+int launch_fma_d(const Params& p, cudaStream_t stream) {
+  static_assert(std::is_same<T, float>::value, "the FMA kernel is f32's");
+  const bool decode = p.chunk > 0;
+  if (p.d <= 64) {
+    return decode ? launch_fma<64, 1, 64, 3>(p, stream)
+                  : launch_fma<64, 4, 64, 2, 2>(p, stream);
+  }
+  if (p.d <= 128) {
+    return decode ? launch_fma<128, 1, 64, 3>(p, stream)
+                  : launch_fma<128, 4, 64, 2>(p, stream);
+  }
+  return decode ? launch_fma<256, 1, 32, 3>(p, stream)
+                : launch_fma<256, 4, 32, 2>(p, stream);
+}
+
 }  // namespace
 
 // O = attention(Q, K, V) for `batch` x `hq` query heads over `hkv` kv
 // heads: q and o (batch, hq, sq, d), k and v (batch, hkv, sk, d), each at
 // (batch, head, seq) strides in elements with a unit stride along d;
-// d <= 256 and a multiple of 8. bf16/f16 only: chunk > 0 selects the
-// packed decode with `nchunks` chunks of `chunk` keys, and part holds
-// nchunks x batch x hq x sq x (d + 2) f32 partials when nchunks > 1;
-// aligned says every operand row lies on 16 bytes. Returns the first
+// d <= 256 and a multiple of 8. chunk > 0 selects the packed decode with
+// `nchunks` chunks of `chunk` keys, and part holds nchunks x batch x hq x
+// sq x (d + 2) f32 partials when nchunks > 1; aligned says every operand
+// row lies on 16 bytes. f32 runs the FMA kernel (ROWS packed decode rows
+// a block), bf16 and f16 the tensor-core kernel. Returns the first
 // cudaGetLastError() after a launch that is not cudaSuccess, else 0.
-#define FLASH_TC_ENTRY(NAME, T)                                              \
+#define FLASH_ENTRY(NAME, T, ROWS, LAUNCH)                                   \
   int NAME(const T* q, long long qb, long long qh, long long qs, const T* k, \
            long long kb, long long kh, long long ks, const T* v,             \
            long long vb, long long vh, long long vs, T* o, long long ob,     \
@@ -821,27 +1016,15 @@ int launch_tc_d(const Params& p, cudaStream_t stream) {
     Params p{q, qb, qh, qs, k, kb, kh, ks, v, vb, vh, vs, o, ob, oh, os,    \
              part, batch, hq, hkv, hq / hkv, sq, sk, d, scale * LOG2E,       \
              causal, has_window, window, chunk, nchunks,                     \
-             chunk > 0 ? ((hq / hkv) * sq + MQ - 1) / MQ : 1, aligned};      \
-    return launch_tc_d<T>(p, stream);                                        \
+             chunk > 0 ? ((hq / hkv) * sq + ROWS - 1) / ROWS : 1, aligned};  \
+    return LAUNCH<T>(p, stream);                                             \
   }
 
 extern "C" {
 
-// f32: the FMA kernel; part, chunk, nchunks and aligned are not used.
-int flash_f32(const float* q, long long qb, long long qh, long long qs,
-              const float* k, long long kb, long long kh, long long ks,
-              const float* v, long long vb, long long vh, long long vs,
-              float* o, long long ob, long long oh, long long os, int batch,
-              int hq, int hkv, int sq, int sk, int d, float scale,
-              int causal, int has_window, int window, float* part, int chunk,
-              int nchunks, int aligned, cudaStream_t stream) {
-  return launch_fma<float>(q, qb, qh, qs, k, kb, kh, ks, v, vb, vh, vs, o,
-                           ob, oh, os, batch, hq, hkv, sq, sk, d, scale,
-                           causal, has_window, window, stream);
-}
-
-FLASH_TC_ENTRY(flash_bf16, __nv_bfloat16)
-FLASH_TC_ENTRY(flash_f16, __half)
+FLASH_ENTRY(flash_f32, float, F_DECODE_ROWS, launch_fma_d)
+FLASH_ENTRY(flash_bf16, __nv_bfloat16, MQ, launch_tc_d)
+FLASH_ENTRY(flash_f16, __half, MQ, launch_tc_d)
 
 const char* spdc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -6,10 +6,11 @@ sliding-window masks. Each operand goes in at its own (batch, head, seq)
 strides, so (B, S, H, D) projections and KV-cache prefixes need no copy;
 the output is allocated in q's memory layout.
 
-bf16 and f16 run on the tensor cores. A call with Sq <= DECODE_ROWS packs
-each kv head's GQA group into one block and splits the keys into chunks
+bf16 and f16 run on the tensor cores, f32 on the FMA pipes in exact f32.
+A call with Sq <= DECODE_ROWS packs each kv head's GQA group into
+blocks of PACKED_ROWS[dtype] rows and splits the keys into chunks
 (`decode_split`), then merges the chunks in a second launch; the wrapper
-allocates the chunks' f32 partials. f32 runs the exact FMA kernel.
+allocates the chunks' f32 partials.
 """
 from __future__ import annotations
 
@@ -41,6 +42,10 @@ MAX_HEAD_DIM = 256
 BLOCK_ROWS, KEY_TILE = 64, 64
 #: calls with at most this many query rows take the packed decode path
 DECODE_ROWS = 16
+#: packed decode rows a block: the tensor-core kernel's 64, the f32 FMA
+#: kernel's 16 (one a thread row)
+PACKED_ROWS = {torch.float32: 16, torch.bfloat16: BLOCK_ROWS,
+               torch.float16: BLOCK_ROWS}
 #: key tiles of one decode chunk: at tinyllama's batch 4 x 4 kv heads
 #: over 2048 keys, 16 chunks a row make 256 blocks for the H100's 132 SMs
 CHUNK_TILES = 2
@@ -57,16 +62,16 @@ def decode_split(sk: int) -> tuple[int, int]:
 def cuda_launches(q: torch.Tensor, k: torch.Tensor) -> int:
     """CUDA launches one call makes: two for a decode whose keys are
     split (the chunks, then their merge), else one."""
-    if q.dtype == torch.float32 or q.shape[2] > DECODE_ROWS:
+    if q.shape[2] > DECODE_ROWS:
         return 1
     return 1 + (decode_split(k.shape[2])[1] > 1)
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
-    """Every row of every 16-bit operand starts on 16 bytes, so 8-element
-    chunks copy as one cp.async each."""
+    """Every row of every operand starts on 16 bytes, so 16-byte chunks
+    (8 half or 4 f32 elements) copy as one cp.async each."""
     return all(t.data_ptr() % 16 == 0
-               and all(st % 8 == 0 for st in t.stride()[:3])
+               and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3])
                for t in tensors)
 
 
@@ -127,9 +132,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     chunk = nchunks = 0
     part = None
-    if q.dtype != torch.float32 and sq <= DECODE_ROWS:
+    if sq <= DECODE_ROWS:
         chunk, nchunks = decode_split(sk)
-        if hkv * -(-(hq // hkv) * sq // BLOCK_ROWS) > _MAX_GRID_YZ:
+        if hkv * -(-(hq // hkv) * sq // PACKED_ROWS[q.dtype]) > _MAX_GRID_YZ:
             raise ValueError(f"flash_attention: {hkv} kv heads x "
                              f"{hq // hkv * sq} packed rows exceed the grid")
         if nchunks > 1:

@@ -57,7 +57,7 @@ def _imports(path):
     "path",
     sorted(PORT.rglob("*.py"))
     + [REPO / name for name in ("chip_smoke.py", "profile_clock_probe.py",
-                                "prefill_ab.py", "schur_ab.py")],
+                                "prefill_ab.py", "schur_ab.py", "flash_ab.py")],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_or_reference_import_in_source(path):

@@ -372,34 +372,41 @@ def test_flash_decode_packs_gqa_groups(cuda, dtype, b, hq, hkv, sq, sk):
     q, k, v = _qkv(cuda, b, hq, hkv, sq, sk, 64, dtype, seed=sk,
                    layout="bshd")
     _flash_close(q, k, v, causal=True)
-    want = 1 if dtype == torch.float32 else 2  # split keys, then merge
-    assert flash_attn.cuda_launches(q, k) == want
+    assert flash_attn.cuda_launches(q, k) == 2  # split keys, then merge
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("sk", [333, 40, 64, 65], ids=[
     "ragged-chunks", "under-one-chunk", "one-tile", "one-tile-and-one-key"])
-def test_flash_decode_ragged_key_chunks(cuda, sk):
-    q, k, v = _qkv(cuda, 2, 8, 2, 1, sk, 64, torch.bfloat16, seed=sk)
+def test_flash_decode_ragged_key_chunks(cuda, sk, dtype):
+    q, k, v = _qkv(cuda, 2, 8, 2, 1, sk, 64, dtype, seed=sk)
     _flash_close(q, k, v, causal=True)
 
 
-def test_flash_decode_split_fully_masked_rows_are_mean_of_v(cuda, monkeypatch):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_split_fully_masked_rows_are_mean_of_v(cuda, monkeypatch,
+                                                            dtype):
     """Sq 8 > Sk 5: the first three rows see no key. Forced into chunks
     of 2 keys, every chunk of such a row has m = -1e30, so the merge
     weighs the chunks by their l and returns the mean over all 5 keys."""
     from repro_torch.kernels import flash_attn
 
     monkeypatch.setattr(flash_attn, "decode_split", lambda *a: (2, 3))
-    q, k, v = _qkv(cuda, 1, 4, 2, 8, 5, 16, torch.bfloat16, seed=11)
+    q, k, v = _qkv(cuda, 1, 4, 2, 8, 5, 16, dtype, seed=11)
     got = _flash_close(q, k, v, causal=True)
-    _bf16_close_to_mean(got, v, 3, 2)
+    if dtype == torch.float32:
+        mean = v.mean(dim=2, keepdim=True).repeat_interleave(2, dim=1)
+        assert torch.allclose(got[:, :, :3], mean.expand(1, 4, 3, 16), atol=1e-6)
+    else:
+        _bf16_close_to_mean(got, v, 3, 2)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("sq,window", [(1, 40), (4, 8), (16, 100)])
-def test_flash_decode_window_inside_one_chunk(cuda, sq, window):
+def test_flash_decode_window_inside_one_chunk(cuda, sq, window, dtype):
     """The window covers keys of the last chunk only: every earlier chunk
     visits no tile and must weigh nothing in the merge."""
-    q, k, v = _qkv(cuda, 2, 8, 2, sq, 2048, 64, torch.bfloat16, seed=sq)
+    q, k, v = _qkv(cuda, 2, 8, 2, sq, 2048, 64, dtype, seed=sq)
     _flash_close(q, k, v, causal=True, window=window)
 
 
@@ -408,6 +415,20 @@ def test_flash_prefill_bf16_head_dims(cuda, d):
     q, k, v = _qkv(cuda, 2, 8, 2, 300, 300, d, torch.bfloat16, seed=d,
                    layout="bshd")
     _flash_close(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100),
+                                           (False, None)],
+                         ids=["causal", "window", "non-causal"])
+def test_flash_f32_prefill_head_dims(cuda, d, causal, window):
+    """The f32 FMA kernel's three tile configurations (128 query rows a
+    block at D = 64, 64 at 128 and 256 with 32-key tiles), on the model's
+    strided (B, S, H, D) views, with a row count that leaves a ragged
+    last block and a window that skips whole key tiles."""
+    q, k, v = _qkv(cuda, 2, 8, 2, 300, 300, d, torch.float32, seed=d,
+                   layout="bshd")
+    _flash_close(q, k, v, causal=causal, window=window)
 
 
 def test_flash_f32_full_width_within_tolerance(cuda):
@@ -419,19 +440,21 @@ def test_flash_f32_full_width_within_tolerance(cuda):
     _flash_close(q[:, :, -1:], k, v, causal=True)
 
 
-def test_flash_decode_same_bits_run_to_run(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_same_bits_run_to_run(cuda, dtype):
     """The chunks merge in a fixed order: two calls give the same bits."""
-    q, k, v = _qkv(cuda, 4, 32, 4, 1, 2048, 64, torch.bfloat16, seed=9,
+    q, k, v = _qkv(cuda, 4, 32, 4, 1, 2048, 64, dtype, seed=9,
                    layout="bshd")
     first = ops.flash_attention(q, k, v, causal=True)
     for _ in range(3):
         assert torch.equal(ops.flash_attention(q, k, v, causal=True), first)
 
 
-def test_flash_decode_rows_same_bits_at_any_batch(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_rows_same_bits_at_any_batch(cuda, dtype):
     """The key chunks depend on Sk alone: a batch element's decode rows
     have the same bits alone as in a batch of four."""
-    q, k, v = _qkv(cuda, 4, 32, 4, 1, 2048, 64, torch.bfloat16, seed=10,
+    q, k, v = _qkv(cuda, 4, 32, 4, 1, 2048, 64, dtype, seed=10,
                    layout="bshd")
     whole = ops.flash_attention(q, k, v, causal=True)
     for i in (0, 3):
@@ -485,7 +508,8 @@ def _profiled_launches(fn, reps=4):
 
 @pytest.mark.parametrize("case", ["trsm-strip", "trsm-1024", "trsm-ragged",
                                   "flash-prefill", "flash-decode-split",
-                                  "flash-decode-one-chunk", "flash-f32-decode"])
+                                  "flash-decode-one-chunk", "flash-f32-decode",
+                                  "flash-f32-prefill"])
 def test_launch_formulas_match_profiled_kernels(cuda, case):
     """trsm.cuda_launches and flash_attn.cuda_launches, which the
     wrappers' docstrings state, against the launches the profiler
@@ -504,7 +528,8 @@ def test_launch_formulas_match_profiled_kernels(cuda, case):
     sq, sk, dtype = {"flash-prefill": (300, 300, torch.bfloat16),
                      "flash-decode-split": (1, 2048, torch.bfloat16),
                      "flash-decode-one-chunk": (4, 100, torch.bfloat16),
-                     "flash-f32-decode": (1, 2048, torch.float32)}[case]
+                     "flash-f32-decode": (1, 2048, torch.float32),
+                     "flash-f32-prefill": (300, 300, torch.float32)}[case]
     q, k, v = _qkv(cuda, 2, 8, 2, sq, sk, 64, dtype, seed=sk)
     got = _profiled_launches(lambda: ops.flash_attention(q, k, v, causal=True))
     assert got == flash_attn.cuda_launches(q, k)
@@ -552,15 +577,17 @@ def test_trsm_ragged_leaves_and_batches(cuda, n, m, batch, dtype):
         assert torch.equal(ops.trsm_lower(l, b)[1], one)
 
 
-def test_flash_kernel_rows_off_16_bytes(cuda):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_rows_off_16_bytes(cuda, dtype):
     """Operands whose rows do not start on 16 bytes (an odd element
-    offset and odd strides) copy element by element instead of by
-    cp.async, with the same result."""
+    offset and odd strides) copy element by element (f32: 4-byte
+    cp.async copies) instead of 16 bytes at a time, with the same
+    result."""
     rng = np.random.default_rng(12)
 
     def odd(b, h, s, d):
         flat = torch.from_numpy(rng.standard_normal(b * h * s * (d + 1) + 1))
-        flat = flat.to(cuda, torch.bfloat16)
+        flat = flat.to(cuda, dtype)
         return flat[1:].view(b, h, s, d + 1)[..., :d]
 
     q, k, v = odd(2, 8, 40, 64), odd(2, 2, 90, 64), odd(2, 2, 90, 64)

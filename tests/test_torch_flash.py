@@ -137,3 +137,81 @@ def test_refuses_what_the_kernel_does_not_take(kwargs, exc):
     k = torch.zeros(1, hkv, sk, d, dtype=dtype)
     with pytest.raises(exc):
         ops.flash_attention(q, k, k.clone(), window=kwargs.get("window"))
+
+
+# --- the packed split decode (Sq <= 16), emulated in plain PyTorch -----------
+
+def _split_decode(q, k, v, *, causal=True, window=None, split=None):
+    """The split decode's arithmetic, as the CUDA kernels do it and only
+    the tests use it: scores in base 2 (scale · log2 e), masked ones the
+    −1e30 sentinel; per chunk of keys (flash_attn.decode_split(Sk), or
+    `split`) its max m, sum l and unnormalised acc; then
+    flash_combine_kernel's merge, the chunks weighted by exp2(m_c − M) in
+    chunk order, divided by the weighted l. q (B, Hq, Sq, D), k and v
+    (B, Hkv, Sk, D), f32 tensors."""
+    from repro_torch.kernels import flash_attn
+
+    _, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    chunk, n = split or flash_attn.decode_split(sk)
+    kk = k.repeat_interleave(hq // hkv, dim=1)
+    vv = v.repeat_interleave(hq // hkv, dim=1)
+    s = q @ kk.transpose(-1, -2) * (d ** -0.5 * np.log2(np.e))
+    qpos = torch.arange(sq)[:, None] + (sk - sq)
+    kpos = torch.arange(sk)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, -1e30)
+    parts = []
+    for c in range(n):
+        sc = s[..., c * chunk:(c + 1) * chunk]
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp2(sc - m)
+        parts.append((m, p.sum(dim=-1, keepdim=True),
+                      p @ vv[:, :, c * chunk:(c + 1) * chunk]))
+    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l = sum(l_c * torch.exp2(m - top) for m, l_c, _ in parts)
+    acc = sum(a * torch.exp2(m - top) for m, _, a in parts)
+    return (acc / l).numpy()
+
+
+@pytest.mark.parametrize("sk", [333, 40, 65])
+@pytest.mark.parametrize("sq", [1, 4])
+def test_split_decode_matches_pallas_and_oracle(sk, sq):
+    """f32 at a GQA group of 8 over ragged key counts: three chunks with
+    a partial last one, one chunk shorter than a tile, one tile and a
+    key."""
+    q, k, v = _inputs(2, 16, 2, sq, sk, 16, seed=sk + sq)
+    got = _split_decode(*map(torch.from_numpy, (q, k, v)))
+    np.testing.assert_allclose(got, _pallas(q, k, v, causal=True), atol=3e-5)
+    np.testing.assert_allclose(got, _oracle(q, k, v, causal=True), atol=3e-5)
+    np.testing.assert_allclose(got, _port(q, k, v, causal=True), atol=3e-5)
+
+
+@pytest.mark.parametrize("sq,window", [(1, 40), (4, 8)])
+def test_split_decode_window_inside_the_last_chunk(sq, window):
+    """The window covers keys of the last chunk only: the earlier chunks'
+    m is the sentinel, and they weigh nothing in the merge."""
+    q, k, v = _inputs(1, 8, 1, sq, 333, 16, seed=window)
+    got = _split_decode(*map(torch.from_numpy, (q, k, v)), window=window)
+    kw = {"causal": True, "window": window}
+    np.testing.assert_allclose(got, _pallas(q, k, v, **kw), atol=3e-5)
+    np.testing.assert_allclose(got, _oracle(q, k, v, **kw), atol=3e-5)
+
+
+def test_split_decode_fully_masked_rows_are_mean_of_v():
+    """Sq 8 > Sk 5 in chunks of 2 keys: the first three rows see no key,
+    every chunk's m is the sentinel, so the merge weighs the chunks by l
+    alone and gives the mean of V over all 5 keys, as the Pallas kernel
+    does."""
+    q, k, v = _inputs(1, 8, 1, 8, 5, 16, seed=11)
+    got = _split_decode(*map(torch.from_numpy, (q, k, v)), split=(2, 3))
+    np.testing.assert_allclose(got, _pallas(q, k, v, causal=True), atol=3e-5)
+    mean = np.broadcast_to(v.mean(axis=2, keepdims=True), (1, 8, 3, 16))
+    np.testing.assert_allclose(got[:, :, :3], mean, atol=1e-6)
+    np.testing.assert_allclose(got[:, :, 3:],
+                               _oracle(q, k, v, causal=True)[:, :, 3:],
+                               atol=3e-5)

@@ -1,15 +1,17 @@
 """The half-precision routes of the panel, triangular-solve and Schur
-kernels (bfloat16 and float16 storage, with float64 arithmetic or, for
-the panel and the solves, in the half type itself), and lu_blocked on
-them, against the reference's Pallas kernels in interpret mode and its
-lu_blocked(use_kernels=True). Inputs are numpy-seeded, rounded to the
-storage type once and handed to both packages. The CUDA kernels are held
+kernels (bfloat16 and float16 storage, with float32 or float64
+arithmetic or, for the panel and the solves, in the half type itself),
+and lu_blocked on them, against the reference's Pallas kernels in
+interpret mode and its lu_blocked(use_kernels=True). Inputs are
+numpy-seeded, rounded to the storage type once and handed to both
+packages. The CUDA kernels are held
 against these plain versions in tests/test_torch_cuda.py.
 
 Tolerances, u the storage type's unit roundoff (eps / 2):
-  * f64 arithmetic (panel, solves): 4 storage ulps of max|want|. Both
-    sides round once to the storage type from f64 values that differ in
-    summation order only (on this CPU they agree bit for bit).
+  * f32 and f64 arithmetic (panel, solves): 4 storage ulps of
+    max|want|. Both sides round once to the storage type from wide values
+    that differ in summation order only (in f64 on this CPU they agree
+    bit for bit).
   * Narrow arithmetic: the port rounds every operation to the half type;
     the reference's interpret mode rounds per XLA fusion, keeping some
     intermediates in f32 (bfloat16 agrees bit for bit here, float16 does
@@ -38,8 +40,9 @@ from repro_torch.kernels import ops, ref, routes
 
 HALVES = {"bf16": (torch.bfloat16, jnp.bfloat16),
           "f16": (torch.float16, jnp.float16)}
-#: (port acc_dtype, reference acc_dtype) of the two arithmetic routes
-ARITH = {"narrow": (None, None), "f64": (torch.float64, jnp.float64)}
+#: (port acc_dtype, reference acc_dtype) of the arithmetic routes
+ARITH = {"narrow": (None, None), "f32": (torch.float32, jnp.float32),
+         "f64": (torch.float64, jnp.float64)}
 
 
 def _rand(shape, seed):
@@ -85,7 +88,7 @@ def test_lu_panel_half_matches_pallas(half, arith, shape):
     got = ops.lu_panel(t, acc_dtype=acc)
     assert got.dtype == HALVES[half][0]
     want = _f64(r_ops._lu_panel_compact(j, interpret=True, acc_dtype=jacc))
-    if arith == "f64":
+    if arith != "narrow":
         _within_ulps(got, want, half)
         return
     b = shape[-1]
@@ -110,7 +113,7 @@ def test_trsm_half_match_pallas(half, arith, lead):
     x2 = ops.trsm_upper_right(tu, tb2, acc_dtype=acc)
     w1 = _f64(r_ops.trsm_lower(jl, jb, interpret=True, acc_dtype=jacc))
     w2 = _f64(r_ops.trsm_upper_right(ju, jb2, interpret=True, acc_dtype=jacc))
-    if arith == "f64":
+    if arith != "narrow":
         _within_ulps(x1, w1, half)
         _within_ulps(x2, w2, half)
         return
@@ -156,8 +159,8 @@ def test_schur_half_to_f64_rounds_once(half):
                                            (64, 32, 2)],
                          ids=["64-b32", "128-b64", "batched"])
 def test_lu_blocked_half_matches_reference(half, arith, n, block, batch):
-    """lu_blocked on a bf16/f16 matrix, with and without acc_dtype=f64,
-    against the reference's kernel route (every Pallas kernel in
+    """lu_blocked on a bf16/f16 matrix, narrow and with acc_dtype=f32 or
+    f64, against the reference's kernel route (every Pallas kernel in
     interpret mode): factors of the storage type within 4 storage ulps
     of max|factor|."""
     acc, jacc = ARITH[arith]

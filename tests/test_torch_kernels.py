@@ -313,7 +313,9 @@ def test_flash_decode_split_covers_the_keys_and_fills_the_card(
         b, hkv, group, sq, sk):
     """Whole key tiles per chunk, every key in exactly one chunk, no empty
     chunk, a split that depends on Sk alone (so a row's output does not
-    depend on the batch), and a block per SM at tinyllama's decode."""
+    depend on the batch), and a block per SM at tinyllama's decode, for
+    the tensor-core kernel's 64 packed rows a block and the f32 FMA
+    kernel's 16."""
     from repro_torch.kernels import flash_attn
 
     chunk, n = flash_attn.decode_split(sk)
@@ -321,9 +323,11 @@ def test_flash_decode_split_covers_the_keys_and_fills_the_card(
     assert chunk == flash_attn.CHUNK_TILES * flash_attn.KEY_TILE
     assert (n - 1) * chunk < sk <= n * chunk
     assert 1 <= n <= tiles
-    blocks = b * hkv * -(-group * sq // flash_attn.BLOCK_ROWS) * n
-    if b * hkv >= 16 and sk >= 2048:  # tinyllama, batch >= 4
-        assert blocks >= 132
+    assert flash_attn.PACKED_ROWS[torch.float32] == 16
+    for rows in flash_attn.PACKED_ROWS.values():
+        blocks = b * hkv * -(-group * sq // rows) * n
+        if b * hkv >= 16 and sk >= 2048:  # tinyllama, batch >= 4
+            assert blocks >= 132
 
 
 @pytest.mark.parametrize("n,launches", [(32, 1), (64, 1), (65, 3), (256, 7),
@@ -336,17 +340,20 @@ def test_trsm_launches_per_call(n, launches):
 
 
 def test_flash_launches_per_call_on_cpu_shapes():
-    """f32 and prefill are one launch; a bf16 decode is two once its keys
-    span more than one chunk."""
+    """Prefill is one launch; a decode, f32 or bf16, is two once its keys
+    span more than one chunk (the chunks, then their merge)."""
     from repro_torch.kernels import flash_attn
 
     q = torch.zeros(1, 4, 32, 8)
     assert flash_attn.cuda_launches(q, q[:, :2]) == 1
     assert flash_attn.cuda_launches(q[:, :, :1], q[:, :2]) == 1
     assert flash_attn.cuda_launches(q.bfloat16(), q[:, :2].bfloat16()) == 1
-    kv = torch.zeros(1, 2, 129, 8, dtype=torch.bfloat16)
-    assert flash_attn.cuda_launches(q[:, :, :1].bfloat16(), kv[:, :, :128]) == 1
-    assert flash_attn.cuda_launches(q[:, :, :1].bfloat16(), kv) == 2
+    for dtype in (torch.bfloat16, torch.float32):
+        kv = torch.zeros(1, 2, 129, 8, dtype=dtype)
+        qd = q[:, :, :1].to(dtype)
+        assert flash_attn.cuda_launches(qd, kv[:, :, :128]) == 1
+        assert flash_attn.cuda_launches(qd, kv) == 2
+        assert flash_attn.cuda_launches(q[:, :, :17].to(dtype), kv) == 1
 
 
 def test_build_names_libraries_by_content_and_flags():
@@ -375,6 +382,7 @@ def test_build_without_nvcc_raises(monkeypatch):
 MIXED = {
     "f32->f64": (torch.float32, torch.float64, jnp.float32, jnp.float64),
     "bf16->f32": (torch.bfloat16, torch.float32, jnp.bfloat16, jnp.float32),
+    "f16->f32": (torch.float16, torch.float32, jnp.float16, jnp.float32),
 }
 
 
