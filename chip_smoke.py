@@ -50,7 +50,12 @@ Phases, each printed as one JSON line:
    within
    1e-5 · max|v| in f32, and in bf16 every element within
    2 eps |want| + eps/8 · max|v| and the whole within eps of ||want||
-   (FLASH_TOL says why);
+   (FLASH_TOL says why); then the split decode's halves (decode under a
+   mesh) on the 2048-key decode case in bf16 and f32 (SPLIT_CUTS): the
+   decode partial over each of M = 2 and M = 4 key ranges and the merge
+   of their chunks, bit-equal to the unsplit decode where every range
+   starts on a multiple of the 128-key chunk, and within FLASH_TOL of
+   the plain version on ragged ranges and with one empty range;
 13. serve: tinyllama-1.1b at full width and depth in bf16, weights from
    --seed on the card: `build_prefill_step` on 4 × 2048 prompts (finite
    logits, 22 flash launches per call, warm time); 128 decode steps
@@ -99,7 +104,15 @@ Phases, each printed as one JSON line:
    the flash kernel launched through local_map, the losses equal within
    MESH_RTOL; then the first step's gradient of every parameter both
    ways (none zero), each within MESH_RTOL; the later grad norms and the
-   final checkpoint's leaves are read.
+   final checkpoint's leaves are read. Then decode under the mesh
+   (mesh_decode): tinyllama-1.1b at full width and depth in bf16,
+   weights from --seed, caches of 4 rows whose first 512 slots hold k
+   and v drawn from --seed, then MESH_DECODE_STEPS greedy steps from
+   copies of those caches without rules and, with the
+   counts set to 0, under the smoke rules on the (1, 1) mesh (the
+   parameters and caches DTensors): equal tokens and bit-equal logits,
+   one decode partial and one merge a layer a step, no other flash
+   launch.
 
 Then, from a random stream of their own (so the phases above keep their
 inputs), the f32 and mixed-precision slice and recovery, before phase 12:
@@ -255,7 +268,10 @@ kernel's D = 256 configuration at gemma3's window shape; its launches
 are the f32 route's on phase 13, no run of which has that shape), then
 "flash_attention:sliding", ":ring_decode", ":chunk_fold" and
 ":non_causal" at the model families' shapes, with the launches of
-each route over phase 13's family runs. Each timing names the
+each route over phase 13's family runs, and "flash_attention:decode_partial"
+and ":combine" (the split decode's halves at half the bf16 decode case's
+keys and at both halves' chunks, launches from phase 15's decode under
+the mesh). Each timing names the
 profiler windows it took (profile_windows); the run line counts the
 timings that needed more than one and names their rows, counts the
 windows that lost a device event (each profiled again), and gives the
@@ -319,6 +335,8 @@ SERVER_PATH = ("lu_panel", "trsm_lower", "trsm_upper_right")
 MAIN_PATH = CLIENT_PATH + SERVER_PATH
 SEQUENTIAL_PATH = SERVER_PATH + ("schur_update",)
 SERVE_PATH = ("flash_attention",)
+#: decode under a mesh: B6's split decode, its two halves apart
+MESH_DECODE_PATH = ("flash_decode_partial", "flash_combine")
 #: the faults phase's witness case: witness_matrix(WITNESS_SEED, 4096)
 #: over N = 4 with server 2's in-band single tamper at its default
 #: magnitude, and per method the JAX reference's (verified, culprit) and
@@ -462,6 +480,16 @@ HALF_SEQUENTIAL = ((torch.bfloat16, "bf16", "bf16_f32", "bf16_f64"),
 #: follow. They are read, not gated; a gradient lost by the sharded
 #: path shows in the first step's gradients instead.
 MESH_STEPS = 8
+#: the mesh phase's decode: (batch, slots) of the caches filled from
+#: --seed, then the greedy steps each way
+MESH_DECODE_PREFIX, MESH_DECODE_STEPS = (4, 512), 16
+#: phase 12's split decodes: the 2048-key decode case's keys cut into
+#: ranges laid end to end, as M model ranks hold a cache's slots; M = 2
+#: and 4 on multiples of the 128-key chunk, then ragged cuts, one with an
+#: empty last range
+SPLIT_CUTS = {"2 ranks": (0, 1024, 2048), "4 ranks": (0, 512, 1024, 1536, 2048),
+              "2 ranks, ragged": (0, 700, 2048),
+              "4 ranks, ragged, one empty": (0, 600, 1300, 2048, 2048)}
 MESH_RTOL = {"losses": 2e-5, "first_loss": 1e-6, "first_gradients": 2e-5}
 MESH_SHAPE = (8, 256)  # batch, sequence
 MESH_LAUNCH = ["--arch", "repro-100m", "--batch", str(MESH_SHAPE[0]),
@@ -1139,7 +1167,8 @@ def phase_sequential(rng, dev) -> dict:
                    "trsm_upper_right": nb * (panels - 1) + outer,
                    "schur_update": sum(k * k for k in range(nb))
                    + nb * (panels - 1), "trsm_left": 0,
-                   "flash_attention": 0}
+                   "flash_attention": 0, "flash_decode_partial": 0,
+                   "flash_combine": 0}
     check(launches == want_counts, f"sequential launches {launches}")
     ln, un, _ = lu_nserver(x, N_SERVERS)
     dl = float((l - ln).abs().max())
@@ -2629,7 +2658,8 @@ def phase_sequential_routes(rng, dev) -> dict:
                    "trsm_upper_right": nb * (panels - 1) + nb * (nb - 1) // 2,
                    "schur_update": sum(k * k for k in range(nb))
                    + nb * (panels - 1), "trsm_left": 0,
-                   "flash_attention": 0}
+                   "flash_attention": 0, "flash_decode_partial": 0,
+                   "flash_combine": 0}
     targs_of = {n: t for n, _, _, t in (*MIXED_ROUTES, *NARROW_ROUTES)}
 
     def run_route(route, xr, acc):
@@ -3165,6 +3195,70 @@ def phase_flash(rng, dev) -> dict:
                         else "flash_attention:f32")
         for name in rows:
             worst[name] = max(worst[name], reading["max_abs_err"])
+    worst.update(flash_split(rng, dev))
+    return worst
+
+
+def flash_split(rng, dev) -> dict:
+    """The split decode's halves on phase 12's 2048-key decode case, in
+    bf16 and f32, over each cut of SPLIT_CUTS: the partial kernel over
+    each range (every range given as many 128-key chunks as the widest
+    needs), the merge kernel over all ranges' chunks in order; against
+    the unsplit kernel decode (bit-equal where every range starts on a
+    multiple of the chunk) and the plain whole decode (FLASH_TOL).
+    Returns the largest error of each half alone: the partial's, its
+    chunks merged by the plain merge against the plain partials merged
+    so; the merge's, against the plain merge of the same partials."""
+    from repro_torch.kernels import ops, ref
+
+    (hq, hkv, d), b, s = FLASH_HEADS, PREFILL_BATCH, PREFILL_LEN
+    worst = dict.fromkeys(("flash_attention:decode_partial",
+                           "flash_attention:combine"), 0.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = flash_inputs(rng, dev, dtype, b, hq, hkv, 1, s, d, s + 128)
+        whole = ops.flash_attention(q, k, v, causal=True)
+        plain_whole = ref.flash_attention_ref(q, k, v, causal=True)
+        for label, cuts in SPLIT_CUTS.items():
+            ranges = list(zip(cuts, cuts[1:]))
+            chunks = max(-(-(hi - lo) // 128) for lo, hi in ranges)
+
+            def partials(fn):
+                return torch.cat([fn(q, k[:, :, lo:hi], v[:, :, lo:hi],
+                                     chunks=chunks)
+                                  for lo, hi in ranges])
+
+            part, launches = counted(ops, lambda: partials(ops.flash_decode_partial))
+            got, merged = counted(ops, lambda: ops.flash_combine(part, dtype))
+            plain_part = partials(ref.flash_decode_partial_ref)
+            reading = flash_compare(got, plain_whole, v)
+            merged_plainly = ref.flash_combine_ref(part, dtype).float()
+            errors = {
+                "flash_attention:decode_partial": float(
+                    (merged_plainly - ref.flash_combine_ref(plain_part, dtype)
+                     .float()).abs().max()),
+                "flash_attention:combine": float(
+                    (got.float() - merged_plainly).abs().max())}
+            aligned = all(lo % 128 == 0 for lo in cuts)
+            bit_equal = bool(torch.equal(got, whole))
+            emit({"phase": "kernel_vs_plain", "kernel": "flash_attention",
+                  "case": f"split decode over {label}", "dtype": str(dtype),
+                  "q": list(q.shape), "kv": list(k.shape), "cuts": list(cuts),
+                  "chunks_per_range": chunks, "bit_equal_to_unsplit": bit_equal,
+                  "halves_vs_plain": errors,
+                  "launches": {"partial": launches["flash_decode_partial"],
+                               "merge": merged["flash_combine"]},
+                  **reading})
+            check(reading["within"], f"split decode over {label} {dtype}: "
+                                     f"{reading}")
+            check(not aligned or bit_equal,
+                  f"split decode over {label} {dtype} is not the unsplit "
+                  "decode's bits")
+            check(launches["flash_decode_partial"]
+                  == sum(hi > lo for lo, hi in ranges)
+                  and merged["flash_combine"] == 1,
+                  f"split decode launches {launches} {merged}")
+            for name, err in errors.items():
+                worst[name] = max(worst[name], err)
     return worst
 
 
@@ -4036,6 +4130,88 @@ def phase_mesh() -> dict:
     return smoke["launches"]
 
 
+def mesh_decode(dev, seed: int) -> dict:
+    """Decode under the mesh (phase 15, module docstring): tinyllama-1.1b
+    from --seed, caches whose first MESH_DECODE_PREFIX slots hold k and v
+    drawn from --seed (both sides start from copies of them, so they need
+    not come from the model), then MESH_DECODE_STEPS greedy steps from a
+    token drawn from --seed, first without rules, then under the smoke
+    rules on a (1, 1) mesh with the counts set to 0 just before. Returns
+    those counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.distrib.sharding import full, make_rules, use_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serve.kvcache import init_caches, place_caches
+    from repro_torch.serve.steps import build_decode_step
+
+    t0 = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    (b, filled), steps = MESH_DECODE_PREFIX, MESH_DECODE_STEPS
+    model = init_lm(cfg, seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    caches = init_caches(cfg, b, filled + steps, device=dev)
+    for cache in caches:
+        for name in ("k", "v"):
+            prefix = cache[name][:, :filled]
+            prefix.copy_(torch.randn(prefix.shape, generator=gen, device=dev))
+        cache["pos"][:filled] = torch.arange(filled, device=dev)
+        cache["step"].fill_(filled)
+    first = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen, device=dev,
+                          dtype=torch.int32)
+    saved = [{name: leaf.clone() for name, leaf in cache.items()}
+             for cache in caches]
+    decode = build_decode_step(cfg)
+
+    def at(t):
+        return torch.full((b,), t, dtype=torch.int32, device=dev)
+
+    def greedy(tok, caches):
+        logits_all, tokens = [], []
+        for t in range(filled, filled + steps):
+            logits, _ = decode(model, caches, {"tokens": tok}, at(t))
+            logits = full(logits)
+            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+            logits_all.append(logits)
+            tokens.append(tok)
+        return torch.stack(logits_all), torch.cat(tokens, dim=1)
+
+    (plain_logits, plain_tokens), plain_s = wall(lambda: greedy(first, caches))
+    with train.process_group(dev) as (_, world, dev):
+        mesh = make_smoke_mesh(train.smoke_mesh_shape(world), ("data", "model"),
+                               device_type=dev.type)
+        rules = make_rules(mesh, num_heads=cfg.num_heads,
+                           num_kv_heads=cfg.num_kv_heads)
+        with use_rules(rules):
+            model = train.place_params(model, rules)
+            placed = place_caches(saved)
+            ((logits, tokens), launches), mesh_s = wall(
+                lambda: run_counted(ops, lambda: greedy(first, placed)))
+        mesh_shape = list(mesh.shape)
+    layers = attention_layers(cfg)
+    line = {"phase": "mesh_decode", "arch": SERVE_ARCH, "dtype": cfg.activation_dtype,
+            "mesh": mesh_shape, "prefix": list(MESH_DECODE_PREFIX),
+            "greedy_steps": steps,
+            "greedy_s": {"none": plain_s, "smoke": mesh_s},
+            "tokens_equal": bool(torch.equal(tokens, plain_tokens)),
+            "logits_bit_equal": bool(torch.equal(logits, plain_logits)),
+            "max_abs_logits_diff": float((logits - plain_logits).abs().max()),
+            "sample": tokens[0].tolist(),
+            "launches": {name: n for name, n in launches.items() if n},
+            "phase_s": time.perf_counter() - t0}
+    emit(line)
+    check(mesh_shape == [1, 1], f"the decode mesh is {mesh_shape}")
+    check(line["tokens_equal"], "decode under the mesh chose other tokens")
+    check(line["logits_bit_equal"],
+          f"decode under the mesh is off by {line['max_abs_logits_diff']}")
+    check(launches["flash_decode_partial"] == launches["flash_combine"]
+          == layers * steps and launches["flash_attention"] == 0,
+          f"decode under the mesh launched {launches}")
+    return launches
+
+
 def phase_train(rng, dev, seed: int) -> tuple[dict, dict]:
     """Training on the card (module docstring): B6 under autograd, card
     against CPU, tinyllama-1.1b at full size, the launcher; within
@@ -4325,6 +4501,44 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
              "GQA group, splits the keys and merges the chunks "
              "(decode_case's cuda_launches_per_call); the bound at the f32 "
              "rate")
+    # the split decode's halves (decode under a mesh), bf16: the partial
+    # over the first of two ranks' halves of the decode case's keys, and
+    # the merge of both halves' chunks
+    qd, kd, vd = flash_inputs(rng, dev, bf16, fb, hq, hkv, 1, s, d, s + 128)
+    half = s // 2
+    per_half = half // 128
+    kh, vh = kd[:, :, :half], vd[:, :, :half]
+    row("flash_attention:decode_partial", "flash_attn.cu",
+        "src/repro/kernels/flash_attn.py:79", [fb, hq, 1, d],
+        lambda: ops.flash_decode_partial(qd, kh, vh, chunks=per_half),
+        lambda: ref.flash_decode_partial_ref(qd, kh, vh, chunks=per_half),
+        None, 50, 10,
+        2 * (fb * hq * d + 2 * fb * hkv * half * d)
+        + 4 * per_half * fb * hq * (d + 2),
+        4 * fb * hq * half * d, bf16, expect_launches=1,
+        kv_range=[fb, hkv, half, d], partials=[per_half, fb, hq, 1, d + 2],
+        note="launches from the mesh phase's decode under the (1, 1) mesh "
+             "(22 layers x 16 greedy steps); the split decode's first "
+             "half alone (flash_tc_kernel with every chunk's f32 partial "
+             "left in the caller's buffer), over one of two ranks' key "
+             "ranges; bytes: q, the range's K and V once, the partials "
+             "written once; no library call computes a partial")
+    part = torch.cat([ops.flash_decode_partial(qd, kd[:, :, lo:lo + half],
+                                               vd[:, :, lo:lo + half],
+                                               chunks=per_half)
+                      for lo in (0, half)])
+    row("flash_attention:combine", "flash_attn.cu",
+        "src/repro/kernels/flash_attn.py:79", list(part.shape),
+        lambda: ops.flash_combine(part, bf16),
+        lambda: ref.flash_combine_ref(part, bf16), None, 50, 10,
+        4 * part.numel() + 2 * fb * hq * d, 2 * part.numel(), f32,
+        expect_launches=1, out_dtype="bfloat16",
+        note="launches from the mesh phase's decode under the (1, 1) mesh; "
+             "the split decode's second half alone (flash_combine_kernel) "
+             "over two ranges' 16 chunks of f32 partials into the bf16 "
+             "output; bytes: the partials read once, the output written "
+             "once; the bound at the f32 rate; no library call merges "
+             "partials")
     # gemma3's window shape in f32: the kernel's D = 256 configuration
     q, k, v = flash_inputs(rng, dev, f32, fb, 4, 1, s, s, 256)
     kr, vr = (t.repeat_interleave(4, dim=1) for t in (k, v))
@@ -4608,6 +4822,7 @@ def main() -> int:
     train_flash, per_phase["train"] = phase_train(rng_train, dev, args.seed)
     per_phase["train"] = (per_phase["train"], SERVE_PATH)
     per_phase["mesh"] = (phase_mesh(), SERVE_PATH)
+    per_phase["mesh_decode"] = (mesh_decode(dev, args.seed), MESH_DECODE_PATH)
     for phase, (launches, path) in per_phase.items():
         for name in path:
             check(launches[name] > 0, f"{name} never launched in phase {phase}")
@@ -4635,6 +4850,10 @@ def main() -> int:
     launches["trsm_lower:row_solve"] = row_solve["calls"]
     for route in ("sliding", "ring_decode", "chunk_fold", "non_causal"):
         launches[f"flash_attention:{route}"] = flash_routes[route]
+    launches["flash_attention:decode_partial"] = \
+        per_phase["mesh_decode"][0]["flash_decode_partial"]
+    launches["flash_attention:combine"] = \
+        per_phase["mesh_decode"][0]["flash_combine"]
     errs["trsm_lower:row_solve"] = row_solve["max_abs_err"]
     line = kernels_line(rng, dev, launches, errs, strips, linalg["operands"],
                         gateway["flush"], row_solve["operands"], train_flash)

@@ -233,8 +233,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     over two mesh axes into one dimension (a strided shard, whose sizes
     it cannot work out on fake tensors); anything else is x @ w itself.
     Without active rules it is x @ w at once: the serving paths call this
-    at every projection of every layer."""
+    at every projection of every layer. A sharded decode token (B, 1, d)
+    has its one-row sequence gathered first and goes as the (B, d)
+    product an unsharded step runs, so that on one rank the two agree bit
+    for bit."""
     if x.ndim == 3 and current_rules() is not None and is_sharded(x):
+        if x.shape[1] == 1:
+            from torch.distributed.tensor import Replicate, Shard
+
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if pl == Shard(1) else pl for pl in x.placements])
+            return (x.flatten(0, 1) @ w).unsqueeze(1)
         return torch.bmm(x, w.expand(x.shape[0], *w.shape))
     return x @ w
 

@@ -103,6 +103,27 @@
 //    prefix is read once, and a row's bits depend on Sk alone. A 3-stage
 //    ring keeps a chunk's two tiles in flight from the start; warps
 //    whose rows all lie past the group's copy and compute nothing.
+//
+// The split decode's two halves are entry points of their own as well,
+// for a decode whose keys lie on several ranks (models/attention.py's
+// decode under a mesh: each rank holds a slice of the cache's slots):
+//  * flash_<dtype>_partial runs the chunk kernel alone for one query row
+//    over one key range and leaves every chunk's f32 partial (acc, m, l)
+//    in a buffer the caller owns, in the decode's own 128-key chunks;
+//    chunks past the range's keys leave acc = 0, l = 0, m = -1e30, which
+//    weigh nothing in a merge. Bound: bytes, the range's K and V rows and q read once, the
+//    partials written once (at 2048 bf16 keys of tinyllama's 4 x 4 kv
+//    heads, 8.4 MB: 2.5 us).
+//  * flash_<dtype>_combine runs flash_combine_kernel alone over a
+//    (chunks, rows, d + 2) partial buffer, merging the chunks in order.
+//    Bound: bytes, the partials read once and the output written once.
+// Partial then combine over one range is the decode entry's arithmetic;
+// over ranges that start on multiples of the chunk, laid end to end, it
+// is that of the decode over their union, bit for bit. The partial takes
+// one query row only: its row sees every key of its range, so ranges
+// merge into the decode over their union. (Rows right-aligned to each
+// range's own keys would not: every range but the last would mask keys
+// that lie in the past of every row.)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -132,6 +153,10 @@ constexpr int MQ = 64;           // query rows per block, 16 per warp
 constexpr int NK = 64;           // keys per tile
 constexpr int TC_THREADS = 128;  // 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
+// keys per chunk of the decode partial: the unsplit decode's chunk
+// (kernels/flash_attn.py's decode_split), so ranges that start on its
+// multiples give that decode's chunks
+constexpr int DECODE_CHUNK = 128;
 
 struct Params {
   const void* q;
@@ -150,6 +175,7 @@ struct Params {
   int nchunks;     // decode: chunks of keys
   int row_blocks;  // decode: ceil(group * sq / packed rows a block)
   int aligned;     // every row and 16-byte chunk lies on 16 bytes
+  int partial;     // decode: leave every chunk's partial, merge none
 };
 
 template <typename T>
@@ -487,7 +513,7 @@ flash_tc_kernel(const Params p) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  const bool split = packed && p.nchunks > 1;
+  const bool split = packed && (p.nchunks > 1 || p.partial);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const bool ok = r == 0 ? okA : okB;
@@ -529,6 +555,8 @@ flash_tc_kernel(const Params p) {
 // Merge the key chunks of each row: one warp a row (b, h, i), lanes over
 // D. M = max of the chunks' m; each chunk weighs exp2(m_c - M); the sums
 // run over the chunks in order, so the result is the same on every run.
+// A chunk with no key (acc = l = 0, m = -1e30) adds exactly zero beside
+// any chunk with one.
 template <typename T>
 __global__ void __launch_bounds__(128)
 flash_combine_kernel(const Params p) {
@@ -558,18 +586,25 @@ flash_combine_kernel(const Params p) {
   }
 }
 
-// After a decode's chunks: cudaGetLastError() of their launch, then, when
-// the keys were split, the merge's launch and its error.
+// The merge of p.nchunks chunks' partials into p.o, and its error.
 template <typename T>
-int launch_combine(const Params& p, cudaStream_t stream) {
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || p.chunk <= 0 || p.nchunks <= 1) {
-    return static_cast<int>(err);
-  }
+int launch_merge(const Params& p, cudaStream_t stream) {
   const long long rows = static_cast<long long>(p.batch) * p.hq * p.sq;
   flash_combine_kernel<T><<<static_cast<unsigned>((rows + 3) / 4), 128, 0,
                             stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// After a decode's chunks: cudaGetLastError() of their launch, then, when
+// the keys were split and the caller asked for the output, the merge's
+// launch and its error.
+template <typename T>
+int launch_combine(const Params& p, cudaStream_t stream) {
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.chunk <= 0 || p.nchunks <= 1 || p.partial) {
+    return static_cast<int>(err);
+  }
+  return launch_merge<T>(p, stream);
 }
 
 template <typename T, int DT>
@@ -908,7 +943,7 @@ flash_fma32_kernel(const Params p) {
 #pragma unroll
     for (int w = FT / 2; w > 0; w /= 2) l[i] += __shfl_xor_sync(FULL, l[i], w);
   }
-  const bool split = packed && p.nchunks > 1;
+  const bool split = packed && (p.nchunks > 1 || p.partial);
 #pragma unroll
   for (int i = 0; i < RS; ++i) {
     int h, ii;
@@ -1005,6 +1040,26 @@ int launch_fma_d(const Params& p, cudaStream_t stream) {
 // row lies on 16 bytes. f32 runs the FMA kernel (ROWS packed decode rows
 // a block), bf16 and f16 the tensor-core kernel. Returns the first
 // cudaGetLastError() after a launch that is not cudaSuccess, else 0.
+//
+// NAME_partial is the packed decode's first half alone for one query row
+// (sq == 1, sk >= 1, else cudaErrorInvalidValue; no mask, no window), in
+// chunks of DECODE_CHUNK keys: every one of the nchunks chunks leaves its
+// partial in part, which is nchunks x batch x hq x (d + 2) f32: the
+// unnormalised accumulator, then m (base 2) and l. A chunk wholly past sk
+// visits no tile and leaves acc = 0, l = 0 and m at the -1e30 sentinel,
+// so it weighs nothing in a merge with any chunk that holds a key. One
+// launch. Its bound is bytes: the sk keys' K and V rows and q read once,
+// the partials written once.
+//
+// NAME_combine is the second half: it merges the nchunks chunks of each
+// of the batch x hq x sq rows of part, in chunk order, into o (at its
+// strides, unit along d). One launch; bound by bytes, the partials read
+// once and o written once. A decode whose keys are split across callers
+// (ranks of a mesh, each with its own key range) runs NAME_partial on
+// each range and NAME_combine over their partials laid end to end; where
+// every range starts on a multiple of the chunk, the chunks and their
+// order are those of NAME on the whole range, and so are the output's
+// bits.
 #define FLASH_ENTRY(NAME, T, ROWS, LAUNCH)                                   \
   int NAME(const T* q, long long qb, long long qh, long long qs, const T* k, \
            long long kb, long long kh, long long ks, const T* v,             \
@@ -1016,8 +1071,30 @@ int launch_fma_d(const Params& p, cudaStream_t stream) {
     Params p{q, qb, qh, qs, k, kb, kh, ks, v, vb, vh, vs, o, ob, oh, os,    \
              part, batch, hq, hkv, hq / hkv, sq, sk, d, scale * LOG2E,       \
              causal, has_window, window, chunk, nchunks,                     \
-             chunk > 0 ? ((hq / hkv) * sq + ROWS - 1) / ROWS : 1, aligned};  \
+             chunk > 0 ? ((hq / hkv) * sq + ROWS - 1) / ROWS : 1, aligned,   \
+             0};                                                             \
     return LAUNCH<T>(p, stream);                                             \
+  }                                                                          \
+  int NAME##_partial(const T* q, long long qb, long long qh, long long qs,   \
+                     const T* k, long long kb, long long kh, long long ks,   \
+                     const T* v, long long vb, long long vh, long long vs,   \
+                     int batch, int hq, int hkv, int sq, int sk, int d,      \
+                     float scale, float* part, int nchunks, int aligned,     \
+                     cudaStream_t stream) {                                  \
+    if (sq != 1 || sk < 1) return static_cast<int>(cudaErrorInvalidValue);   \
+    Params p{q, qb, qh, qs, k, kb, kh, ks, v, vb, vh, vs, nullptr, 0, 0, 0, \
+             part, batch, hq, hkv, hq / hkv, sq, sk, d, scale * LOG2E,       \
+             1, 0, 0, DECODE_CHUNK, nchunks,                                 \
+             ((hq / hkv) * sq + ROWS - 1) / ROWS, aligned, 1};               \
+    return LAUNCH<T>(p, stream);                                             \
+  }                                                                          \
+  int NAME##_combine(const float* part, T* o, long long ob, long long oh,    \
+                     long long os, int batch, int hq, int sq, int d,         \
+                     int nchunks, cudaStream_t stream) {                     \
+    Params p{nullptr, 0, 0, 0, nullptr, 0, 0, 0, nullptr, 0, 0, 0, o, ob,   \
+             oh, os, const_cast<float*>(part), batch, hq, 1, hq, sq, 0, d,   \
+             0.f, 0, 0, 0, 1, nchunks, 1, 0, 0};                             \
+    return launch_merge<T>(p, stream);                                       \
   }
 
 extern "C" {

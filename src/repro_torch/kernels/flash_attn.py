@@ -11,6 +11,15 @@ A call with Sq <= DECODE_ROWS packs each kv head's GQA group into
 blocks of PACKED_ROWS[dtype] rows and splits the keys into chunks
 (`decode_split`), then merges the chunks in a second launch; the wrapper
 allocates the chunks' f32 partials.
+
+The two halves of that decode are wrappers of their own, for keys that
+lie on several ranks: `flash_decode_partial_cuda` leaves the chunks' f32
+partials of one query row over one key range, (chunks, B, Hq, 1, D + 2)
+with the unnormalised accumulator, then m (base 2) and l, in
+`decode_split`'s chunks, and
+`flash_combine_cuda` merges such a buffer, chunks in order, into the
+output. A range with no key is the empty partial (acc = l = 0, m the
+−1e30 sentinel) with no launch.
 """
 from __future__ import annotations
 
@@ -32,6 +41,14 @@ _SIGNATURES = {
     )
     for suffix in _SUFFIX.values()
 }
+for _suffix in _SUFFIX.values():
+    _SIGNATURES[f"flash_{_suffix}_partial"] = (
+        _INT,
+        (_PTR, _LL, _LL, _LL, _PTR, _LL, _LL, _LL, _PTR, _LL, _LL, _LL,
+         _INT, _INT, _INT, _INT, _INT, _INT, _FLT, _PTR, _INT, _INT, _PTR),
+    )
+    _SIGNATURES[f"flash_{_suffix}_combine"] = (
+        _INT, (_PTR, _PTR, _LL, _LL, _LL, _INT, _INT, _INT, _INT, _INT, _PTR))
 _MAX_GRID_YZ = 65535
 #: any window at least this wide masks nothing at a length that fits the
 #: kernel's int positions, so wider ones are passed as this
@@ -59,6 +76,36 @@ def decode_split(sk: int) -> tuple[int, int]:
     return chunk, -(-sk // chunk)
 
 
+def partial_chunks(q: torch.Tensor, k: torch.Tensor,
+                   chunks: int | None) -> int:
+    """Chunks of a decode partial over k's keys, in `decode_split`'s
+    chunk: `chunks`, at least enough to hold the keys (by default just
+    enough); raises on what the partial does not take.
+    It takes one query row, which sees every key of its range, so that
+    ranges laid end to end merge into the decode over their union."""
+    if q.shape[2] != 1:
+        raise ValueError(f"a decode partial takes one query row, got "
+                         f"{q.shape[2]}")
+    sk = k.shape[2]
+    chunk = decode_split(sk)[0]
+    need = max(-(-sk // chunk), 1)
+    chunks = need if chunks is None else chunks
+    if chunks < need:
+        raise ValueError(f"a decode partial over {sk} keys in chunks of "
+                         f"{chunk} needs {need} chunks, got {chunks}")
+    return chunks
+
+
+def empty_partial(q: torch.Tensor, chunks: int) -> torch.Tensor:
+    """The partial of a key range with no key: acc = l = 0 and m the
+    −1e30 sentinel in every chunk, which weighs nothing in a merge."""
+    b, hq, sq, d = q.shape
+    part = torch.zeros((chunks, b, hq, sq, d + 2), dtype=torch.float32,
+                       device=q.device)
+    part[..., d] = -1e30
+    return part
+
+
 def cuda_launches(q: torch.Tensor, k: torch.Tensor) -> int:
     """CUDA launches one call makes: two for a decode whose keys are
     split (the chunks, then their merge), else one."""
@@ -76,8 +123,10 @@ def _aligned(*tensors: torch.Tensor) -> bool:
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   window: int | None) -> None:
-    """Raise on what neither the kernel nor its plain version takes."""
+                   window: int | None, *, keys_may_be_empty: bool = False
+                   ) -> None:
+    """Raise on what neither the kernel nor its plain version takes; a
+    decode partial (keys_may_be_empty) takes a range with no key."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention takes q (B, Hq, Sq, D) and k, v "
                          f"(B, Hkv, Sk, D); got {tuple(q.shape)}, "
@@ -89,7 +138,7 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, sk = k.shape[1], k.shape[2]
     if hkv == 0 or hq % hkv:
         raise ValueError(f"flash_attention: {hq} query heads over {hkv} kv heads")
-    if sk == 0:
+    if sk == 0 and not keys_may_be_empty:
         raise ValueError("flash_attention needs at least one key")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
@@ -103,26 +152,41 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"{MAX_HEAD_DIM}")
 
 
+def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: int | None, keys_may_be_empty: bool = False) -> None:
+    """Raise on operands the kernel does not take on the card."""
+    for t in (q, k, v):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(
+                f"flash_attention needs CUDA operands on one device, got "
+                f"{q.device}/{k.device}/{v.device}")
+    check_operands(q, k, v, window, keys_may_be_empty=keys_may_be_empty)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name} needs a unit stride "
+                             f"along D, got strides {t.stride()}")
+    b, hq = q.shape[:2]
+    if hq > _MAX_GRID_YZ or b > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: batch {b} or heads {hq} exceed the grid")
+
+
+def _check_packed(q: torch.Tensor, k: torch.Tensor) -> None:
+    hq, sq = q.shape[1], q.shape[2]
+    hkv = k.shape[1]
+    if hkv * -(-(hq // hkv) * sq // PACKED_ROWS[q.dtype]) > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention: {hkv} kv heads x "
+                         f"{hq // hkv * sq} packed rows exceed the grid")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int | None = None,
                          scale: float | None = None) -> torch.Tensor:
     """softmax(QKᵀ·scale + mask)·V on CUDA tensors: q (B, Hq, Sq, D), k and
     v (B, Hkv, Sk, D), unit stride along D. Returns a new (B, Hq, Sq, D)
     tensor laid out in memory as q is; the operands are left as they are."""
-    for t in (q, k, v):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(
-                f"flash_attention needs CUDA operands on one device, got "
-                f"{q.device}/{k.device}/{v.device}")
-    check_operands(q, k, v, window)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"flash_attention: {name} needs a unit stride "
-                             f"along D, got strides {t.stride()}")
+    _check_cuda(q, k, v, window)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if hq > _MAX_GRID_YZ or b > _MAX_GRID_YZ:
-        raise ValueError(f"flash_attention: batch {b} or heads {hq} exceed the grid")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
@@ -134,9 +198,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     part = None
     if sq <= DECODE_ROWS:
         chunk, nchunks = decode_split(sk)
-        if hkv * -(-(hq // hkv) * sq // PACKED_ROWS[q.dtype]) > _MAX_GRID_YZ:
-            raise ValueError(f"flash_attention: {hkv} kv heads x "
-                             f"{hq // hkv * sq} packed rows exceed the grid")
+        _check_packed(q, k)
         if nchunks > 1:
             part = torch.empty(nchunks * b * hq * sq * (d + 2),
                                dtype=torch.float32, device=q.device)
@@ -151,4 +213,69 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             int(_aligned(q, k, v)), torch.cuda.current_stream().cuda_stream,
         )
     build.check_launch(lib, "flash_attention", code)
+    return out
+
+
+def flash_decode_partial_cuda(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, scale: float | None = None,
+                              chunks: int | None = None) -> torch.Tensor:
+    """The packed decode's chunk kernel alone for one query row over k's
+    keys (Sq == 1, Sk >= 0): a new (chunks, B, Hq, 1, D + 2) f32 tensor of
+    each chunk's unnormalised accumulator, m (base 2) and l, in
+    decode_split's chunks, `chunks` of them (default as many as hold the
+    keys; those past the keys are empty). The row sees every key. One
+    launch; none for a range with no key, whose partial is
+    empty_partial's."""
+    _check_cuda(q, k, v, None, keys_may_be_empty=True)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    chunks = partial_chunks(q, k, chunks)
+    if sk == 0 or b == 0:
+        return empty_partial(q, chunks)
+    _check_packed(q, k)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    part = torch.empty((chunks, b, hq, sq, d + 2), dtype=torch.float32,
+                       device=q.device)
+    lib = build.library("flash_attn", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        code = getattr(lib, f"flash_{_SUFFIX[q.dtype]}_partial")(
+            q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
+            v.data_ptr(), *v.stride()[:3], b, hq, hkv, sq, sk, d,
+            float(scale), part.data_ptr(), chunks, int(_aligned(q, k, v)), torch.cuda.current_stream().cuda_stream,
+        )
+    build.check_launch(lib, "flash_attention decode partial", code)
+    return part
+
+
+def check_partials(part: torch.Tensor, dtype: torch.dtype) -> None:
+    """Raise on a partial buffer the merge does not take."""
+    if part.ndim != 5 or part.dtype != torch.float32:
+        raise ValueError("flash_combine takes (chunks, B, Hq, Sq, D + 2) f32 "
+                         f"partials, got {tuple(part.shape)} {part.dtype}")
+    if part.shape[0] < 1 or part.shape[4] < 3:
+        raise ValueError(f"flash_combine: partials {tuple(part.shape)} hold "
+                         "no chunk or no column")
+    if dtype not in _SUFFIX:
+        raise TypeError(f"flash_combine: no output type {dtype}")
+
+
+def flash_combine_cuda(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The packed decode's merge alone: a new (B, Hq, Sq, D) tensor of
+    `dtype` from (chunks, B, Hq, Sq, D + 2) f32 partials on the card,
+    chunks merged in order. One launch."""
+    check_partials(part, dtype)
+    if part.device.type != "cuda":
+        raise ValueError(f"flash_combine needs CUDA partials, got {part.device}")
+    part = part.contiguous()
+    chunks, b, hq, sq, d2 = part.shape
+    out = torch.empty((b, hq, sq, d2 - 2), dtype=dtype, device=part.device)
+    if out.numel() == 0:
+        return out
+    lib = build.library("flash_attn", _SIGNATURES)
+    with torch.cuda.device(part.device):
+        code = getattr(lib, f"flash_{_SUFFIX[dtype]}_combine")(
+            part.data_ptr(), out.data_ptr(), *out.stride()[:3], b, hq, sq,
+            d2 - 2, chunks, torch.cuda.current_stream().cuda_stream)
+    build.check_launch(lib, "flash_attention combine", code)
     return out

@@ -6,7 +6,10 @@ ref.py. Any other device raises.
 
 `LAUNCHES[name]` counts the kernel launches each wrapper made (plain
 versions never count), so a run can show that its path went through the
-kernels; `reset_launches()` zeroes every count. A mixed route counts
+kernels; `reset_launches()` zeroes every count. `flash_attention` counts
+one a call (a split decode's two CUDA launches included);
+`flash_decode_partial` and `flash_combine`, the split decode's halves
+for keys spread over ranks, count their own. A mixed route counts
 under its kernel's name. `trsm_left` also counts each launch under its
 leg in `TRSM_LEFT_LEGS` (the four solves of a trisolve chunk).
 
@@ -26,7 +29,9 @@ import torch
 
 from . import ref
 from .ced import ced_cuda
-from .flash_attn import check_operands, flash_attention_cuda
+from .flash_attn import (check_operands, check_partials, flash_attention_cuda,
+                         flash_combine_cuda, flash_decode_partial_cuda,
+                         partial_chunks)
 from .flash_grad import FlashAttention
 from .lu_panel import lu_panel_cuda
 from .routes import accumulator
@@ -36,6 +41,7 @@ from .trsm import trsm_left_cuda, trsm_lower_cuda, trsm_upper_right_cuda
 LAUNCHES: dict[str, int] = {
     "ced": 0, "lu_panel": 0, "trsm_lower": 0, "trsm_upper_right": 0,
     "trsm_left": 0, "schur_update": 0, "flash_attention": 0,
+    "flash_decode_partial": 0, "flash_combine": 0,
 }
 #: trsm_left's launches by leg: "l" solves L a = b, "u" U y = a, "ut"
 #: Uᵀ a = b and "lt" Lᵀ y = a (T's stored triangle, then "t" where the
@@ -162,3 +168,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_operands(q, k, v, window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
+
+
+def flash_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         scale: float | None = None,
+                         chunks: int | None = None) -> torch.Tensor:
+    """The split decode's first half over one range of keys: q (B, Hq, 1,
+    D), one query row, which sees every key of k and v (B, Hkv, Sk, D),
+    Sk >= 0. Returns (chunks, B, Hq, 1, D + 2) f32 partials: each chunk's
+    unnormalised accumulator, m (base 2) and l, in
+    flash_attn.decode_split's chunks, `chunks` at least enough for the
+    keys (the rest empty: acc = l = 0, m = −1e30). A range with no key
+    launches nothing."""
+    chunks = partial_chunks(q, k, chunks)
+    if _on_cuda(q, k, v):
+        out = flash_decode_partial_cuda(q, k, v, scale=scale, chunks=chunks)
+        if k.shape[2] and q.shape[0]:
+            LAUNCHES["flash_decode_partial"] += 1
+        return out
+    check_operands(q, k, v, None, keys_may_be_empty=True)
+    return ref.flash_decode_partial_ref(q, k, v, scale=scale, chunks=chunks)
+
+
+def flash_combine(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The split decode's second half: (chunks, B, Hq, Sq, D + 2) f32
+    partials (flash_decode_partial's, or several ranges' laid end to end
+    along chunks) merged in chunk order into a (B, Hq, Sq, D) tensor of
+    `dtype`."""
+    if _on_cuda(part):
+        out = flash_combine_cuda(part, dtype)
+        if out.numel():
+            LAUNCHES["flash_combine"] += 1
+        return out
+    check_partials(part, dtype)
+    return ref.flash_combine_ref(part, dtype)

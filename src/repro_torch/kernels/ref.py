@@ -174,3 +174,65 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     o = torch.matmul(p.to(v.dtype).float(), vv.float())
     return (o / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+#: log2(e), by which the split decode scales its scores (csrc/flash_attn.cu)
+LOG2E = 1.4426950408889634
+
+
+def flash_decode_partial_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             *, scale: float | None = None,
+                             chunks: int) -> torch.Tensor:
+    """The split decode's first half in its kernel's arithmetic, for one
+    query row (Sq == 1) that sees every key: per chunk of
+    flash_attn.decode_split's keys (`chunks` of them, those past Sk
+    empty), the unnormalised accumulator, then m and l, as (chunks, B,
+    Hq, 1, D + 2) f32. Scores are f32 in base 2 (scale · log2 e); m is
+    the chunk's max with the −1e30 sentinel (an empty chunk keeps it,
+    with acc = l = 0), p = exp2(s − m), l the sum of the f32 p, and acc
+    the f32 product of p cast to V's dtype with V."""
+    from .flash_attn import decode_split
+
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    part = torch.zeros((chunks, b, hq, sq, d + 2), dtype=torch.float32,
+                       device=q.device)
+    part[..., d] = NEG_INF
+    if sk == 0:
+        return part
+    g = hq // hkv
+    kk = k.repeat_interleave(g, dim=1).float()
+    vv = v.repeat_interleave(g, dim=1)
+    s = torch.matmul(q.float(), kk.transpose(-1, -2)) * (scale * LOG2E)
+    chunk, need = decode_split(sk)
+    for c in range(need):
+        keys = slice(c * chunk, (c + 1) * chunk)
+        sc = s[..., keys]
+        m = sc.amax(dim=-1, keepdim=True).clamp(min=NEG_INF)
+        p = torch.exp2(sc - m)
+        part[c, ..., :d] = torch.matmul(p.to(v.dtype).float(),
+                                        vv[:, :, keys].float())
+        part[c, ..., d] = m[..., 0]
+        part[c, ..., d + 1] = p.sum(dim=-1)
+    return part
+
+
+def flash_combine_ref(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The split decode's merge in its kernel's arithmetic: (chunks, B,
+    Hq, Sq, D + 2) f32 partials to (B, Hq, Sq, D) of `dtype`. M is the
+    chunks' largest m, chunk c weighs exp2(m_c − M), and the weighted
+    sums of l and of acc run over the chunks in order; the output is the
+    accumulator times 1 / l (1 / 1 where l is 0), cast to `dtype`."""
+    d = part.shape[-1] - 2
+    m = part[..., d:d + 1]
+    top = m.amax(dim=0)
+    lsum = torch.zeros_like(top)
+    acc = torch.zeros_like(part[0, ..., :d])
+    for c in range(part.shape[0]):
+        w = torch.exp2(m[c] - top)
+        lsum = lsum + part[c, ..., d + 1:] * w
+        acc = acc + part[c, ..., :d] * w
+    inv = 1.0 / torch.where(lsum == 0, torch.ones_like(lsum), lsum)
+    return (acc * inv).to(dtype)

@@ -23,9 +23,12 @@ eager PyTorch step and are null, with the reason under "null_keys":
 time), `xla_cost_analysis_raw` (there is no XLA cost analysis) and
 `memory_stats.alias_bytes` (no buffer donation: the port's update is out
 of place). `memory_stats.peak_est_bytes` is the largest live-tensor total
-per device the count saw. Decode under a mesh is not ported
-(models/attention.py raises), so the decode cells of attention archs
-fail with that message.
+per device the count saw. A decode cell costs the token at the end of a
+full cache, as the reference's decode reads every slot: each attention
+layer's host step is its cache length less one (a fake tensor holds no
+value to read it from), so every rank runs B6's decode partial over its
+own slots, and the partials' all-gather over the model axis and their
+merge are counted (models/attention.py's decode under a mesh).
 """
 from __future__ import annotations
 
@@ -135,7 +138,7 @@ def lower_cell(arch: str, shape_name: str, mesh, mesh_name: str):
 
     from ..distrib.sharding import distribute
     from ..models.lm import init_lm
-    from ..serve.kvcache import init_caches
+    from ..serve.kvcache import init_caches, place_caches
     from ..serve.steps import build_decode_step, build_prefill_step
     from ..train.optimizer import AdamWConfig, init_opt_state
     from ..train.steps import build_train_step
@@ -170,7 +173,7 @@ def lower_cell(arch: str, shape_name: str, mesh, mesh_name: str):
             else:
                 caches = init_caches(cfg, shape.global_batch, shape.seq_len,
                                      device="cpu")
-                caches = _place_caches(cfg, caches)
+                caches = _at_last_slot(place_caches(caches))
                 leaves = [t for c in caches for t in c.values()]
                 meta["caches_total_bytes"] = float(
                     sum(tensor_bytes(t) for t in leaves))
@@ -191,16 +194,14 @@ def lower_cell(arch: str, shape_name: str, mesh, mesh_name: str):
     return cost, rules, meta
 
 
-def _place_caches(cfg, caches: list[dict]) -> list[dict]:
-    """Each cache leaf placed by the reference's cache_logical_specs (a
-    stacked leaf's leading period axis dropped: the port's caches are
-    per layer)."""
-    from ..distrib.sharding import distribute
-    from ..serve.kvcache import CACHE_SPECS
-
-    return [{name: distribute(leaf, *CACHE_SPECS.get(name, (None,) * leaf.ndim))
-             if leaf.ndim else leaf for name, leaf in cache.items()}
-            for cache in caches]
+def _at_last_slot(caches: list[dict]) -> list[dict]:
+    """Each attention cache's step set on the host to its last slot (its
+    length less one), so that the decode token attends every slot; an
+    SSM layer's state has no step."""
+    for cache in caches:
+        if "step" in cache:
+            cache["step"] = cache["k"].shape[1] - 1
+    return caches
 
 
 def _tensors(tree):

@@ -35,7 +35,12 @@ The flash kernel (B6) is one fused op: its flops are the products of its
 unmasked (query, key) pairs, its bytes q, k, v and the output once each;
 the plain version it stands for on the CPU (and its materialised scores)
 is not counted. Its backward is the plain version's gradient on the card
-too, and is counted op by op.
+too, and is counted op by op. The split decode's halves under a mesh are
+fused ops too: the partial's flops are its pairs over the rank's own
+keys, its bytes q, the rank's K and V rows and the partials; the merge's
+flops are a multiply-add per partial element, its bytes the partials
+and the output. The partials' all-gather over the model axis between
+them is a collective like any other.
 
 `peak_live_bytes` is the largest total of live local tensors the
 counting sees (the step's arguments included, as `live_bytes` sets them).
@@ -251,30 +256,44 @@ def _skip_propagation(counter: _Counter):
 
 @contextlib.contextmanager
 def _fused_flash(counter: _Counter):
-    """ops.flash_attention counted as the one kernel it launches on the
-    card (module docstring)."""
+    """ops.flash_attention, ops.flash_decode_partial and ops.flash_combine
+    each counted as the one kernel it launches on the card (module
+    docstring)."""
     from ..kernels import ops
 
-    original = ops.flash_attention
+    originals = {name: getattr(ops, name) for name in (
+        "flash_attention", "flash_decode_partial", "flash_combine")}
 
-    def flash(q, k, v, *, causal=True, window=None, scale=None):
-        counter.paused += 1
-        try:
-            out = original(q, k, v, causal=causal, window=window, scale=scale)
-        finally:
-            counter.paused -= 1
+    def fused(name, flops, operands):
+        def run(*args, **kwargs):
+            counter.paused += 1
+            try:
+                out = originals[name](*args, **kwargs)
+            finally:
+                counter.paused -= 1
+            counter.cost.flops += flops(out, *args, **kwargs)
+            counter.cost.hbm_bytes += sum(tensor_bytes(t) for t in
+                                          (*operands(*args), out))
+            counter.keep_alive(out)
+            return out
+        return run
+
+    def attention_flops(out, q, k, v, *, causal=True, window=None, **_):
         b, hq, sq, d = q.shape
-        pairs = _flash_pairs(sq, k.shape[2], causal, window)
-        counter.cost.flops += 4.0 * b * hq * d * pairs
-        counter.cost.hbm_bytes += sum(tensor_bytes(t) for t in (q, k, v, out))
-        counter.keep_alive(out)
-        return out
+        return 4.0 * b * hq * d * _flash_pairs(sq, k.shape[2], causal, window)
 
-    ops.flash_attention = flash
+    ops.flash_attention = fused("flash_attention", attention_flops,
+                                lambda q, k, v: (q, k, v))
+    ops.flash_decode_partial = fused("flash_decode_partial", attention_flops,
+                                     lambda q, k, v: (q, k, v))
+    ops.flash_combine = fused("flash_combine",
+                              lambda out, part, dtype: 2.0 * part.numel(),
+                              lambda part, dtype: (part,))
     try:
         yield
     finally:
-        ops.flash_attention = original
+        for name, fn in originals.items():
+            setattr(ops, name, fn)
 
 
 @contextlib.contextmanager

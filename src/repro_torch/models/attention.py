@@ -36,8 +36,23 @@ where their heads do not divide over the model axis, as the reference
 repeats them); in the sequence-parallel fallback, on the rank's block of
 query rows against the keys up to its block's end (gathered over the
 model axis inside), which the kernel's right-aligned rows then place at
-their true positions. Decode under a
-mesh is not ported (NotImplementedError).
+their true positions.
+
+Decode under sharding rules (`_sharded_decode`) takes the caches where
+serve.kvcache.place_caches put them, once, where they were made:
+CACHE_SPECS, batch over the data axes and slots over the model axis, as
+the reference does (its scores constrained to the cache's
+layout, so that GSPMD splits the softmax over the ranks' keys). Every
+model rank gets q with all heads and the token's k and v; it writes them
+into the token's slot where that slot is its own, runs B6's decode
+partial (`ops.flash_decode_partial`) over its own slots among the
+token's keys, and all-gathers the ranks' f32 partials over the model
+axis; B6's merge (`ops.flash_combine`) then takes the chunks in rank
+order, so every rank holds the whole (B, H, 1, D) output. K and V keep
+their kv heads (the kernel's head map is GQA). A rank with no key among
+its slots contributes empty chunks (l = 0), which weigh nothing. With
+one model rank the partial's chunks are the unsharded decode's own, so
+the two agree bit for bit.
 """
 from __future__ import annotations
 
@@ -45,8 +60,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distrib.sharding import constrain, current_rules, matmul
+from ..distrib.sharding import (constrain, current_rules, gather,
+                                is_sharded, matmul)
 from ..kernels import ops
+from ..kernels.flash_attn import decode_split
 from ..serve.kvcache import merge_cache_updates
 from .common import Initializer, apply_mrope, apply_rope
 
@@ -193,6 +210,66 @@ def _decode_keys(kind: str, step: int, length: int, window: int | None) -> int:
     return min(step + 1, length)
 
 
+def _sharded_decode(q, k, v, pos1d, cache: dict, cfg, rules, *, kind: str,
+                    window, scale: float) -> torch.Tensor:
+    """One decode token under sharding rules (module docstring): q (B, 1,
+    H, D), k and v (B, 1, Hkv, D), pos1d (B, 1) as `attention` has them;
+    the cache's k, v and pos DTensors placed by CACHE_SPECS
+    (serve.kvcache.place_caches, where the caches are made). Writes the
+    token into its slot on the rank that holds it and advances the host's
+    step; returns (B, H, 1, D) placed by ("batch", None, None, None), whole
+    on every model rank."""
+    from torch.distributed._functional_collectives import wait_tensor
+    from torch.distributed.tensor.experimental import local_map
+
+    for name in ("k", "v", "pos"):
+        if not is_sharded(cache[name]):
+            raise ValueError(
+                f"decode under sharding rules needs the cache's {name!r} "
+                "placed by CACHE_SPECS (serve.kvcache.place_caches)")
+    step = int(cache["step"])
+    length = cache["k"].shape[1]
+    if step >= length and kind == "full":
+        raise ValueError(
+            f"the cache holds {length} tokens and is full; size it to the "
+            "prompt plus the generated tokens")
+    slot = step % length
+    keys = _decode_keys(kind, step, length, window)
+    mesh, axis, ranks = rules.mesh, rules.model_axis, rules.model_size
+    # each rank's slots: torch.chunk's split of the L slots, as Shard's
+    per_rank = -(-length // ranks)
+    # as many chunks as a rank's slots need, so every rank's partial has
+    # one shape for the all-gather
+    chunks = decode_split(per_rank)[1]
+
+    def local(ql, kl, vl, pl, ck, cv, cpos):
+        lo = mesh.get_local_rank(axis) * per_rank if axis else 0
+        if lo <= slot < lo + ck.shape[1]:
+            ck[:, slot - lo] = kl[:, 0]
+            cv[:, slot - lo] = vl[:, 0]
+            cpos[slot - lo:slot - lo + 1] = pl[0, :1]
+        n = max(0, min(keys - lo, ck.shape[1]))
+        part = ops.flash_decode_partial(
+            ql.transpose(1, 2), ck[:, :n].transpose(1, 2),
+            cv[:, :n].transpose(1, 2), scale=scale, chunks=chunks)
+        if ranks > 1:
+            part = wait_tensor(gather(part, 0, (axis,), mesh))
+        return ops.flash_combine(part, ql.dtype)
+
+    whole = rules.placements("batch", None, None, None)
+    out = local_map(
+        local, out_placements=(whole,),
+        in_placements=(whole, whole, whole, rules.placements("batch", None),
+                       rules.placements("batch", "model", None, None),
+                       rules.placements("batch", "model", None, None),
+                       rules.placements("model")),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(q, k.to(cache["k"].dtype), v.to(cache["v"].dtype), pos1d,
+      cache["k"], cache["v"], cache["pos"])
+    cache["step"] += 1
+    return out
+
+
 def attention(
     p: Attention,
     x: torch.Tensor,
@@ -216,6 +293,8 @@ def attention(
     with no copy. That is the reference's two-block softmax over the
     cache plus the new token; the caller's position must equal the step
     (the tokens already cached), as the reference's decode step requires.
+    Under sharding rules the decode splits its keys over the model axis
+    (`_sharded_decode`).
     """
     if kind not in ("full", "sliding", "chunked"):
         raise ValueError(f"unknown attention kind {kind!r}")
@@ -248,14 +327,12 @@ def attention(
                        scale=scale)
     elif cache is None:
         out = _prefill(q, k, v, cfg, kind=kind, window=local, scale=scale)
+    elif s != 1:
+        raise ValueError(f"decode takes one token per row, got {s}")
+    elif sharded:
+        out = _sharded_decode(q, k, v, pos1d, cache, cfg, rules, kind=kind,
+                              window=window, scale=scale)
     else:
-        if sharded:
-            raise NotImplementedError(
-                "decode under a mesh is not ported: the caches' sequence "
-                "axis shards over the model axis, which needs a split-key "
-                "softmax across ranks")
-        if s != 1:
-            raise ValueError(f"decode takes one token per row, got {s}")
         step = merge_cache_updates(cache, k, v, pos1d[0, :1],
                                    ring=kind != "full")
         keys = _decode_keys(kind, step, cache["k"].shape[1], window)

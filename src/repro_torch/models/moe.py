@@ -156,7 +156,8 @@ def _sharded_moe(p: MoE, x: torch.Tensor, cfg, rules) -> torch.Tensor:
     over the model axis (Partial) for the constraint after it. Tokens
     come in at their placements and are gathered inside (the sequence
     over the model axis; the batch too where a group would span batch
-    shards), so each rank's gradients are its shards'."""
+    shards), so each rank's gradients are its shards'. A sequence that
+    does not split evenly (a decode token, S = 1) comes in whole."""
     from torch.distributed.tensor import Partial
     from torch.distributed.tensor.experimental import local_map
 
@@ -164,6 +165,9 @@ def _sharded_moe(p: MoE, x: torch.Tensor, cfg, rules) -> torch.Tensor:
     b, s, d = x.shape
     group = _group_size(cfg, b * s)
     x_pl = rules.placements("batch", "seq", None)
+    if s % math.prod(axis_size(mesh, a) for a, pl in
+                     zip(mesh.mesh_dim_names, x_pl) if pl.is_shard(1)):
+        x_pl = rules.placements("batch", None, None)
     seq_axes = tuple(a for a, pl in zip(mesh.mesh_dim_names, x_pl)
                      if pl.is_shard(1))
     batch_axes = tuple(a for a, pl in zip(mesh.mesh_dim_names, x_pl)

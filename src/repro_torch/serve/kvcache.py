@@ -9,7 +9,14 @@ attention layer's dict holds the reference's leaves:
     nothing was written yet;
   * "step": () int32, the tokens written so far. It lives on the host:
     it is the write index, read by Python in every layer, and reading it
-    from device memory would synchronise the card once per layer.
+    from device memory would synchronise the card once per layer. (A
+    Python int serves as well: the dry run sets one, since a fake tensor
+    holds no value.)
+
+Under sharding rules (`place_caches`) "k", "v" and "pos" are DTensors
+placed by CACHE_SPECS, batch over the data axes and slots over the model
+axis, and models/attention.py's decode writes and reads each rank's own
+slots.
 
 L is pattern-aware as in the reference: max_seq slots for full layers;
 for sliding and chunked layers a ring of `window` slots, token t in slot
@@ -90,6 +97,22 @@ CACHE_SPECS = {"k": ("batch", "model", None, None),
                "v": ("batch", "model", None, None), "pos": ("model",),
                "step": (), "state": ("batch", "model", None, None),
                "conv": ("batch", None, None)}
+
+
+def place_caches(caches: list[dict]) -> list[dict]:
+    """Every layer cache's tensor leaves placed by CACHE_SPECS under the
+    active sharding rules (the reference's cache_logical_specs, each leaf
+    unstacked), in the dicts themselves; the host's "step" is never
+    placed, and without active rules nothing changes. Returns the same
+    list. Call it once, where the caches are made."""
+    from ..distrib.sharding import distribute
+
+    for cache in caches:
+        for name, leaf in cache.items():
+            if name != "step" and isinstance(leaf, torch.Tensor):
+                cache[name] = distribute(leaf, *CACHE_SPECS.get(
+                    name, (None,) * leaf.ndim))
+    return caches
 
 
 def cache_logical_specs(cfg, caches: list[dict]) -> dict:

@@ -12,7 +12,7 @@ import torch
 
 from ..distrib.sharding import plain_replicated
 from ..models.lm import forward_hidden, lm_logits_last
-from .kvcache import init_caches
+from .kvcache import init_caches, place_caches
 
 
 def build_prefill_step(cfg):
@@ -57,7 +57,7 @@ def greedy_generate(cfg, params, prompt: torch.Tensor, steps: int,
     (B, S0 + steps)."""
     b, s0 = prompt.shape
     max_seq = max_seq or (s0 + steps)
-    caches = init_caches(cfg, b, max_seq, device=prompt.device)
+    caches = place_caches(init_caches(cfg, b, max_seq, device=prompt.device))
     decode = build_decode_step(cfg)
 
     tok = prompt[:, :1]

@@ -535,6 +535,98 @@ def test_launch_formulas_match_profiled_kernels(cuda, case):
     assert got == flash_attn.cuda_launches(q, k)
 
 
+# --- the split decode's halves over key ranges (decode under a mesh) -----
+
+#: cuts of a 2048-key decode into ranges laid end to end, as a mesh's
+#: model ranks hold the cache's slots: two and four ranges on multiples
+#: of the 128-key chunk, two ragged ones, and three of which the last
+#: holds no key
+RANGE_CUTS = {"aligned-2": (0, 1024, 2048),
+              "aligned-4": (0, 512, 1024, 1536, 2048),
+              "ragged": (0, 700, 2048), "empty": (0, 1024, 2048, 2048)}
+
+
+def _range_partials(partial, q, k, v, cuts):
+    """`partial` (the wrapper or its plain version) over each range of
+    `cuts`, every range given as many 128-key chunks as the widest
+    needs, laid end to end along the chunks."""
+    chunks = max(-(-(b - a) // 128) for a, b in zip(cuts, cuts[1:]))
+    return torch.cat([partial(q, k[:, :, a:b], v[:, :, a:b], chunks=chunks)
+                      for a, b in zip(cuts, cuts[1:])])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("cuts", sorted(RANGE_CUTS))
+def test_decode_partial_and_combine_match_plain(cuda, dtype, cuts):
+    """The partial kernel over each range and the merge kernel over their
+    chunks, at tinyllama's decode shape, against the plain versions and
+    the plain whole decode; on ranges that start on multiples of the
+    chunk, bit-equal to the kernel's own unsplit decode (the same
+    chunks, merged in the same order). One launch a range with keys and
+    one for the merge."""
+    bounds = RANGE_CUTS[cuts]
+    q, k, v = _qkv(cuda, 4, 32, 4, 1, 2048, 64, dtype, seed=len(bounds),
+                   layout="bshd")
+    ops.reset_launches()
+    got = ops.flash_combine(
+        _range_partials(ops.flash_decode_partial, q, k, v, bounds), dtype)
+    with_keys = sum(b > a for a, b in zip(bounds, bounds[1:]))
+    assert ops.LAUNCHES["flash_decode_partial"] == with_keys
+    assert ops.LAUNCHES["flash_combine"] == 1
+    plain = ref.flash_combine_ref(
+        _range_partials(ref.flash_decode_partial_ref, q, k, v, bounds), dtype)
+    _flash_within(got, plain, v)
+    _flash_within(got, ref.flash_attention_ref(q, k, v, causal=True), v)
+    if all(a % 128 == 0 for a in bounds):
+        assert torch.equal(got, ops.flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_partial_of_an_empty_range(cuda, dtype):
+    """A range with no key launches no kernel and gives the empty
+    partial (acc = l = 0, m = −1e30); merged beside a range with keys it
+    changes no bit; a partial's chunks past its keys are the same."""
+    q, k, v = _qkv(cuda, 2, 8, 2, 1, 300, 64, dtype, seed=3)
+    ops.reset_launches()
+    empty = ops.flash_decode_partial(q, k[:, :, :0], v[:, :, :0], chunks=3)
+    assert ops.LAUNCHES["flash_decode_partial"] == 0
+    assert (empty[..., :64] == 0).all() and (empty[..., 65] == 0).all()
+    assert (empty[..., 64] == -1e30).all()
+    full = ops.flash_decode_partial(q, k, v)
+    padded = ops.flash_decode_partial(q, k, v, chunks=6)
+    assert torch.equal(padded[:3], full) and torch.equal(padded[3:], empty)
+    want = ops.flash_combine(full, dtype)
+    assert torch.equal(want, ops.flash_attention(q, k, v, causal=True))
+    for parts in ((full, empty), (empty, full), (padded,)):
+        assert torch.equal(ops.flash_combine(torch.cat(parts), dtype), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_halves_launch_one_kernel_each(cuda, dtype):
+    """The profiler sees one device kernel a partial (keys present) and
+    one a merge."""
+    q, k, v = _qkv(cuda, 2, 8, 2, 1, 2048, 64, dtype, seed=9)
+    part = ops.flash_decode_partial(q, k, v)
+    assert _profiled_launches(lambda: ops.flash_decode_partial(q, k, v)) == 1
+    assert _profiled_launches(lambda: ops.flash_combine(part, dtype)) == 1
+
+
+def test_decode_partial_entry_refuses_more_than_one_row(cuda):
+    """The C partial entry itself refuses two query rows (and no key)
+    with cudaErrorInvalidValue, before any launch."""
+    from repro_torch.kernels import build, flash_attn
+
+    q, k, v = _qkv(cuda, 1, 8, 2, 2, 256, 64, torch.bfloat16, seed=5)
+    part = torch.empty(2 * 8 * 2 * 66, dtype=torch.float32, device=cuda)
+    lib = build.library("flash_attn", flash_attn._SIGNATURES)
+    for sq, sk in ((2, 256), (1, 0)):
+        code = lib.flash_bf16_partial(
+            q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
+            v.data_ptr(), *v.stride()[:3], 1, 8, 2, sq, sk, 64, 0.125,
+            part.data_ptr(), 2, 1, torch.cuda.current_stream().cuda_stream)
+        assert code == 1  # cudaErrorInvalidValue
+
+
 @pytest.mark.parametrize("n,m", [(256, 300), (1024, 1024), (100, 77)])
 def test_trsm_columns_bit_equal_across_splits_and_strides(cuda, n, m):
     """Each column's (each row's, for Z = B·U⁻¹) arithmetic depends on

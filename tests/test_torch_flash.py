@@ -215,3 +215,104 @@ def test_split_decode_fully_masked_rows_are_mean_of_v():
     np.testing.assert_allclose(got[:, :, 3:],
                                _oracle(q, k, v, causal=True)[:, :, 3:],
                                atol=3e-5)
+
+
+# --- the split decode's halves over key ranges (decode under a mesh) --------
+
+#: key ranges of a 333-key decode, laid end to end as the ranks of a
+#: mesh hold the cache's slots: one range; two and four that start on
+#: multiples of the 128-key chunk; two ragged ones; and one of four
+#: ranges that holds no key
+RANGES = {"one": (0, 333), "two": (0, 256, 333), "four": (0, 128, 256, 256, 333),
+          "ragged": (0, 100, 333), "empty": (0, 130, 260, 333, 333)}
+
+
+@pytest.fixture(scope="module")
+def decode_case():
+    """q (2, 16, 1, 16) over k, v (2, 2, 333, 16): GQA group 8, and the
+    Pallas kernel's and the oracle's outputs in f32 and bf16."""
+    q, k, v = _inputs(2, 16, 2, 1, 333, 16, seed=27)
+    return (q, k, v,
+            {dtype: _pallas(q, k, v, dtype, causal=True)
+             for dtype in (np.float32, "bfloat16")},
+            _oracle(q, k, v, causal=True))
+
+
+def _partials(q, k, v, bounds, dtype):
+    """Each range's partial (as many chunks as the widest range needs),
+    laid end to end along the chunks, and the torch dtype of the run."""
+    cast = (lambda x: torch.from_numpy(x).to(torch.bfloat16)) \
+        if dtype == "bfloat16" else torch.from_numpy
+    q, k, v = cast(q), cast(k), cast(v)
+    chunks = max(-(-(b - a) // 128) for a, b in zip(bounds, bounds[1:]))
+    ops.reset_launches()
+    parts = [ops.flash_decode_partial(q, k[:, :, a:b], v[:, :, a:b],
+                                      chunks=max(chunks, 1))
+             for a, b in zip(bounds, bounds[1:])]
+    return torch.cat(parts), q.dtype
+
+
+@pytest.mark.parametrize("ranges", sorted(RANGES))
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_decode_partials_over_ranges_merge_to_the_decode(decode_case, ranges,
+                                                          dtype):
+    """The plain partial over each range, then the plain merge over all
+    ranges' chunks in order, against the Pallas kernel (interpret mode)
+    at its bounds; in f32 also against the oracle and _split_decode (the
+    same chunks where the ranges start on multiples of 128)."""
+    q, k, v, pallas, oracle = decode_case
+    part, torch_dtype = _partials(q, k, v, RANGES[ranges], dtype)
+    got = ops.flash_combine(part, torch_dtype)
+    assert ops.LAUNCHES["flash_decode_partial"] == ops.LAUNCHES["flash_combine"] == 0
+    assert got.dtype == torch_dtype and got.shape == (2, 16, 1, 16)
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, pallas[dtype], atol=TOL[dtype])
+    if dtype == np.float32:
+        np.testing.assert_allclose(got, oracle, atol=3e-5)
+        np.testing.assert_allclose(
+            got, _split_decode(*map(torch.from_numpy, (q, k, v))), atol=3e-5)
+
+
+def test_empty_partial_weighs_nothing(decode_case):
+    """A range with no key gives acc = l = 0 and the −1e30 sentinel in
+    every chunk; merged beside a range with keys it changes no bit, and
+    the partial's chunks past its keys are the same empty chunks."""
+    q, k, v = map(torch.from_numpy, decode_case[:3])
+    empty = ops.flash_decode_partial(q, k[:, :, :0], v[:, :, :0], chunks=2)
+    assert empty.shape == (2, 2, 16, 1, 18)
+    assert (empty[..., :16] == 0).all() and (empty[..., 17] == 0).all()
+    assert (empty[..., 16] == -1e30).all()
+    full = ops.flash_decode_partial(q, k, v)
+    padded = ops.flash_decode_partial(q, k, v, chunks=5)
+    assert full.shape[0] == 3 and torch.equal(padded[:3], full)
+    torch.testing.assert_close(padded[3:], empty, rtol=0, atol=0)
+    want = ops.flash_combine(full, torch.float32)
+    for parts in ((full, empty), (empty, full), (padded,)):
+        assert torch.equal(ops.flash_combine(torch.cat(parts), torch.float32),
+                           want)
+
+
+@pytest.mark.parametrize("kwargs", [{"chunks": 2}, {"sq": 2}, {"sq": 17}])
+def test_decode_partial_refuses_what_it_does_not_take(kwargs):
+    """333 keys in 128-key chunks need 3 chunks; a partial takes one
+    query row (rows right-aligned to one range's keys would mask keys of
+    the ranges before the last, so ranges would not merge into the
+    decode over their union)."""
+    q = torch.zeros(1, 4, kwargs.get("sq", 1), 16)
+    k = torch.zeros(1, 2, 333, 16)
+    with pytest.raises(ValueError):
+        ops.flash_decode_partial(q, k, k, chunks=kwargs.get("chunks"))
+
+
+def test_decode_partial_chunk_is_the_decodes():
+    """The C partial entry's DECODE_CHUNK is decode_split's chunk, which
+    the plain partial and the unsplit decode use: ranges that start on
+    its multiples give the unsplit decode's chunks."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import flash_attn
+
+    src = (Path(flash_attn.__file__).parent / "csrc" / "flash_attn.cu").read_text()
+    found = re.findall(r"constexpr int DECODE_CHUNK = (\d+);", src)
+    assert [int(c) for c in found] == [flash_attn.decode_split(1)[0]]

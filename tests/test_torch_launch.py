@@ -196,6 +196,45 @@ def test_dryrun_prefill_cell_at_smoke_size(smoke_configs, fake_mesh):
     assert "opt_total_bytes" not in meta and cost.total_coll_wire > 0
 
 
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "gemma3-1b"])
+def test_dryrun_decode_cell_at_smoke_size(smoke_configs, fake_mesh,
+                                          monkeypatch, arch):
+    """A decode_32k cell on the fake (2, 4) mesh: the token sits at the
+    end of a full cache (step L − 1 from the host), so each attention
+    layer's decode partial is counted over this rank's own slots, a
+    quarter of them (32768 / 4 for a full cache, 16 / 4 for gemma3's
+    sliding rings), and the partials' all-gather over the model axis is
+    counted as a collective: (4 ranks x chunks, 64 rows of the batch, 4
+    heads, 1, D + 2) f32 gathered."""
+    pairs, gathers = [], []
+    flash_pairs, collective = op_cost._flash_pairs, op_cost.Cost.collective
+
+    def spy_pairs(sq, sk, causal, window):
+        pairs.append(sk)
+        return flash_pairs(sq, sk, causal, window)
+
+    def spy_collective(self, kind, nbytes, link, count=True):
+        gathers.append((kind, nbytes))
+        return collective(self, kind, nbytes, link, count)
+
+    monkeypatch.setattr(op_cost, "_flash_pairs", spy_pairs)
+    monkeypatch.setattr(op_cost.Cost, "collective", spy_collective)
+    cost, rules, meta = dryrun.lower_cell(arch, "decode_32k", fake_mesh,
+                                          "smoke")
+    cfg = meta["cfg"]
+    assert rules.model_size == 4 and meta["caches_total_bytes"] > 0
+    lengths = [32768 if mixer == "attn_full" else cfg.window
+               for mixer, _ in cfg.layer_list()]
+    assert pairs == [n // 4 for n in lengths]
+    for n in sorted(set(lengths)):
+        chunks = -(-(n // 4) // 128)
+        part = 4 * chunks * 64 * cfg.num_heads * (cfg.head_dim + 2) * 4
+        assert gathers.count(("all-gather", part)) == lengths.count(n)
+    assert cost.coll_counts["all-gather"] >= len(lengths)
+    assert cost.flops > 4.0 * 64 * cfg.num_heads * cfg.head_dim * sum(pairs)
+    assert "opt_total_bytes" not in meta
+
+
 def test_spdc_cell_counts_the_relay():
     """The N-server pipeline under fake tensors: one collective-permute a
     hop of the port's hop log, its bytes the relay buffer's; the baseline
@@ -262,18 +301,20 @@ def test_perf_set_variant_against_baseline(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.slow
-def test_dryrun_one_cell_subprocess(tmp_path):
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+def test_dryrun_one_cell_subprocess(tmp_path, shape):
     """End-to-end dry run of a model-sharded cell on the 16×16 mesh (a
-    fresh process: 256 fake ranks)."""
+    fresh process: 256 fake ranks); decode_32k is the reference's own
+    case (tests/test_launch.py)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "gemma3-1b", "--shape", "prefill_32k", "--mesh", "single", "--out",
+         "gemma3-1b", "--shape", shape, "--mesh", "single", "--out",
          str(tmp_path)],
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=1200,
     )
     assert out.returncode == 0, out.stdout + out.stderr
-    rec = json.load(open(tmp_path / "gemma3-1b__prefill_32k__single.json"))
+    rec = json.load(open(tmp_path / f"gemma3-1b__{shape}__single.json"))
     assert rec["chips"] == 256
     assert rec["compute_s"] > 0 and rec["memory_s"] > 0 and rec["collective_s"] > 0
     assert rec["dominant"] in ("compute", "memory", "collective")

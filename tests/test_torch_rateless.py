@@ -1,7 +1,9 @@
 """The port's rateless straggler-adaptive dispatch and fleet health on the
-CPU, against the JAX reference. Mirrors tests/test_rateless.py (all of
-it but the gateway case, which tests/test_torch_gateway.py mirrors, and
-the slow chaos matrix).
+CPU, against the JAX reference. Mirrors tests/test_rateless.py, all of
+it but the gateway case, which tests/test_torch_gateway.py mirrors. Its
+chaos matrix (four fault plans × three seeds) keeps the reference's
+`slow` and `chaos` marks, so tier-1 deselects it; run it with
+`-m chaos`.
 
 Includes the acceptance end to end: N = 4 edge workers, one
 Pareto-delayed and one tampering, no straggler_deadline — the session
@@ -478,3 +480,54 @@ def test_rateless_verdict_and_culprit_match_reference():
     want = r_outsource(m, N, rateless=True, tamper=ref_tamper)
     assert not got.verified and not want.verified
     assert got.report.verdict.culprit == want.report.verdict.culprit == 13 // 4
+
+
+# ------------------------------------------------------------- chaos matrix
+def _chaos_plans():
+    """The reference's four plans (tests/test_rateless.py), in the port's
+    ServerFault."""
+    delay = dict(kind="delay", delay_s=0.15, delay_dist="exponential")
+    pareto = dict(kind="delay", delay_s=0.15, delay_dist="pareto",
+                  delay_alpha=2.0)
+    return {
+        "tamper-pair": (
+            ServerFault(server=0, kind="tamper", mode="block", magnitude=0.4),
+            ServerFault(server=2, kind="tamper", mode="sign_flip"),
+        ),
+        "dropout-delay": (
+            ServerFault(server=1, kind="dropout"),
+            ServerFault(server=3, **delay),
+        ),
+        "pareto-tamper": (
+            ServerFault(server=0, **pareto),
+            ServerFault(server=1, kind="tamper", mode="single", target="l"),
+        ),
+        "exp-exp-dropout": (
+            ServerFault(server=0, **delay),
+            ServerFault(server=1, **delay),
+            ServerFault(server=2, kind="dropout"),
+        ),
+    }
+
+
+@pytest.mark.slow
+@pytest.mark.chaos
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("plan_name", sorted(_chaos_plans()))
+def test_chaos_matrix_rateless_survives_fault_plans(plan_name, seed):
+    """Seeded chaos: every tamper × dropout × delay-distribution plan must
+    end in a verified determinant matching the honest rateless run, whose
+    determinants are the reference's honest run's."""
+    plan = _chaos_plans()[plan_name]
+    B, n = 3, 24
+    m = _wellcond(n, seed=100 + seed, batch=B)
+    honest = outsource_determinant(m, N, rateless=True, device=CPU)
+    np.testing.assert_allclose(_logabs(honest),
+                               _logabs(r_outsource(m, N, rateless=True)),
+                               rtol=1e-10)
+    cfg = RatelessConfig(request_timeout_s=0.3, probation_cooldown_s=0.2)
+    client = SPDCClient(rateless=cfg, recover=True, device=CPU)
+    with _pool() as tp:
+        out = client.open_session(m, N, faults=plan).run(tp)
+    assert np.asarray(out.verified).all(), (plan_name, seed)
+    np.testing.assert_allclose(_logabs(out), _logabs(honest), rtol=1e-10)

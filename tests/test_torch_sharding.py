@@ -9,6 +9,13 @@ FakeStore) where only the layout matters, four gloo ranks on the CPU
 that starts a process group destroys it, so other files in the same
 worker see none.
 
+The sharded decode (models/attention.py's `_sharded_decode`) runs in
+one spawn of four gloo ranks for four cases; its logits are held to the
+unsharded port's within 1e-5 of max|logits| (the same arithmetic, the
+keys' softmax merged over two ranks' partials) and to the reference's
+decode step on the same weights within 1e-4, the bar of
+tests/test_torch_models.py.
+
 Tolerances: the sharded step's losses and grad norms against the
 unsharded port's within 1e-5 relative, its parameters after two AdamW
 steps within 1e-5 absolute (the same arithmetic, its sums split over
@@ -42,6 +49,8 @@ from repro.configs import smoke_config as r_smoke
 from repro.distrib.sharding import make_rules as r_make_rules
 from repro.models.common import split_tree
 from repro.models.lm import init_lm as r_init_lm
+from repro.serve.kvcache import init_caches as r_init_caches_for_decode
+from repro.serve.steps import build_decode_step as r_build_decode_step
 from repro.serve.kvcache import cache_logical_specs as r_cache_specs
 from repro.serve.kvcache import init_caches as r_init_caches
 from repro.train.optimizer import AdamWConfig as RAdamWConfig
@@ -292,6 +301,126 @@ def test_sharded_train_step_matches_unsharded_and_reference(
                                        err_msg=name)
     assert got["metrics"][0]["loss"] == pytest.approx(
         _reference_loss(cfg, _config(arch, heads, r_smoke)), rel=1e-5)
+
+
+# ----------------------------------------------------------- sharded decode
+#: the decode cases, one spawn for all: a full cache; 3 heads, which do
+#: not divide over the model axis (the sequence-parallel fallback);
+#: gemma3's sliding rings of 16 slots, driven past their window so that
+#: they wrap; llama4's chunked rings (and its expert-parallel MoE)
+DECODE_CASES = {"full": (ARCH, None), "seq-fallback": (ARCH, (3, 1)),
+                "sliding": ("gemma3-1b", None),
+                "chunked": ("llama4-scout-17b-a16e", None)}
+#: batch, tokens decoded (each cache holds that many slots, so each model
+#: rank of a full cache holds half: the second rank has no key for the
+#: first half of the steps), the prefill's prompt
+DECODE_BATCH, DECODE_STEPS, DECODE_PROMPT = 4, 20, 8
+
+
+@pytest.fixture(scope="module")
+def sharded_decode(tmp_path_factory):
+    """Every decode case on four gloo ranks as a (2, 2) mesh, one thread
+    a rank: (the logits by case and phase, rank 0's summary)."""
+    import torch.multiprocessing as mp
+
+    sys.path.insert(0, str(Path(__file__).parent))
+    try:
+        import _torch_mesh_worker
+    finally:
+        sys.path.pop(0)
+    tmp = tmp_path_factory.mktemp("decode")
+    out = tmp / "rank0"
+    mp.spawn(_torch_mesh_worker.decode,
+             args=(4, str(tmp / "store"), str(out), DECODE_CASES, DECODE_BATCH,
+                   DECODE_STEPS, DECODE_PROMPT),
+             nprocs=4)
+    with np.load(f"{out}.npz") as arrays:
+        logits = dict(arrays)
+    return logits, json.loads(Path(f"{out}.json").read_text())
+
+
+def _reference_decode(cfg, tokens: torch.Tensor) -> np.ndarray:
+    """The reference's decode loop on the port's seed-0 weights (carried
+    by interop): (steps, B, Vp) logits."""
+    arch, heads = cfg
+    cfg_t, cfg_r = _config(arch, heads, smoke_config), _config(arch, heads,
+                                                               r_smoke)
+    tree = interop.lm_tree_from_port(cfg_t, init_lm(cfg_t, 0, device="cpu"))
+    params = jax.tree.map(jnp.asarray, tree)
+    b, s = tokens.shape
+    caches = r_init_caches_for_decode(cfg_r, b, s)
+    step = jax.jit(r_build_decode_step(cfg_r))
+    out = []
+    for t in range(s):
+        logits, caches = step(params, caches,
+                              {"tokens": jnp.asarray(tokens[:, t:t + 1].numpy())},
+                              jnp.full((b,), t, jnp.int32))
+        out.append(np.asarray(logits))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+def test_sharded_decode_matches_unsharded_and_reference(sharded_decode, case):
+    """Four gloo ranks as a (2, 2) mesh: the caches end as DTensors placed
+    by CACHE_SPECS; the prefill of the prompt and every decode step's
+    logits are the unsharded port's within 1e-5 of max|logits|, and the
+    decode steps the reference's within 1e-4."""
+    import _torch_mesh_worker as worker
+
+    logits, summary = sharded_decode
+    assert summary["mesh"] == [2, 2] and summary["placed"][case]
+    arch, heads = DECODE_CASES[case]
+    cfg = _config(arch, heads, smoke_config)
+    v = cfg.vocab_size
+    tokens = worker.decode_tokens(cfg, DECODE_BATCH, DECODE_STEPS)
+    model = init_lm(cfg, 0, device="cpu")
+    from repro_torch.serve.steps import build_prefill_step
+
+    want = {"prefill": build_prefill_step(cfg)(
+                model, {"tokens": tokens[:, :DECODE_PROMPT]}).numpy(),
+            "decode": worker.decode_logits(cfg, model, tokens)}
+    for phase, w in want.items():
+        got = logits[f"{case}/{phase}"]
+        assert got.shape == w.shape, phase
+        scale = np.abs(w[..., :v]).max()
+        np.testing.assert_allclose(got[..., :v], w[..., :v], rtol=0,
+                                   atol=1e-5 * scale, err_msg=phase)
+    np.testing.assert_allclose(
+        logits[f"{case}/decode"][..., :v],
+        _reference_decode(DECODE_CASES[case], tokens)[..., :v], atol=1e-4)
+
+
+def test_sharded_decode_takes_placed_caches_only():
+    """On one gloo rank as a (1, 1) mesh: the decode step under rules
+    refuses caches that place_caches did not place, and with placed ones
+    gives the unsharded port's logits within 1e-5 of max|logits|."""
+    sys.path.insert(0, str(Path(__file__).parent))
+    try:
+        import _torch_mesh_worker as worker
+    finally:
+        sys.path.pop(0)
+    from repro_torch.distrib.sharding import make_rules, use_rules
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.serve.kvcache import init_caches, place_caches
+
+    cfg = smoke_config(ARCH)
+    tokens = worker.decode_tokens(cfg, DECODE_BATCH, 6)
+    model = init_lm(cfg, 0, device="cpu")
+    want = worker.decode_logits(cfg, model, tokens)
+    with launch_train.process_group(torch.device("cpu")):
+        mesh = make_smoke_mesh((1, 1), ("data", "model"), device_type="cpu")
+        rules = make_rules(mesh, num_heads=cfg.num_heads,
+                           num_kv_heads=cfg.num_kv_heads)
+        with use_rules(rules):
+            placed = launch_train.place_params(model, rules)
+            with pytest.raises(ValueError, match="place_caches"):
+                worker.decode_logits(cfg, placed, tokens)
+            got = worker.decode_logits(cfg, placed, tokens, place_caches(
+                init_caches(cfg, DECODE_BATCH, 6, device="cpu")))
+    assert not dist.is_initialized()
+    v = cfg.vocab_size
+    np.testing.assert_allclose(got[..., :v], want[..., :v], rtol=0,
+                               atol=1e-5 * np.abs(want[..., :v]).max())
 
 
 # ------------------------------------------------------------- the launcher
