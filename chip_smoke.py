@@ -268,7 +268,10 @@ kernel's D = 256 configuration at gemma3's window shape; its launches
 are the f32 route's on phase 13, no run of which has that shape), then
 "flash_attention:sliding", ":ring_decode", ":chunk_fold" and
 ":non_causal" at the model families' shapes, with the launches of
-each route over phase 13's family runs, and "flash_attention:decode_partial"
+each route over phase 13's family runs (each bf16 prefill row, and the
+flash_attention row, names its device kernel by the profiler,
+device_kernels, and the run fails unless that is flash_wgmma_kernel
+alone), and "flash_attention:decode_partial"
 and ":combine" (the split decode's halves at half the bf16 decode case's
 keys and at both halves' chunks, launches from phase 15's decode under
 the mesh). Each timing names the
@@ -633,6 +636,25 @@ def template_name(name: str) -> str:
 #: come from its wrapper's table, schur.KERNELS)
 ROUTED_KERNELS = ("lu_warp_kernel", "lu_panel_kernel", "leaf_kernel",
                   "update_kernel")
+
+
+def kernel_names(fn) -> list:
+    """The device kernels (template names) one call of fn puts on the
+    card, from the profiler's device events."""
+    events, _, _ = device_events(fn, 1)
+    return sorted({template_name(e.name) for e in events})
+
+
+def prefill_kernels(fn, q) -> list:
+    """The device kernels of one bf16/f16 prefill call, held to the
+    wgmma prefill kernel the wrapper names for q (flash_wgmma_kernel)
+    alone: never the decode's flash_tc_kernel."""
+    from repro_torch.kernels import flash_attn
+
+    names = kernel_names(fn)
+    check(names == [flash_attn.device_kernel(q)],
+          f"a prefill ran {names}, not {flash_attn.device_kernel(q)}")
+    return names
 
 
 def route_profile(fn) -> tuple[list, float]:
@@ -4445,6 +4467,8 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
     (hq, hkv, d), fb, s = FLASH_HEADS, PREFILL_BATCH, PREFILL_LEN
     q, k, v = flash_inputs(rng, dev, bf16, fb, hq, hkv, s, s, d)
     qd, kd, vd = flash_inputs(rng, dev, bf16, fb, hq, hkv, 1, s, d, s + 128)
+    names = prefill_kernels(lambda: ops.flash_attention(q, k, v, causal=True),
+                            q)
     decode_case = case(
         lambda: ops.flash_attention(qd, kd, vd),
         lambda: ref.flash_attention_ref(qd, kd, vd),
@@ -4459,6 +4483,7 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         2 * fb * hq * s * s * d, dtype=bf16,
         kv_shape=[fb, hkv, s, d],
         expect_launches=flash_attn.cuda_launches(q, k),
+        device_kernels=names,
         decode_case={"q": [fb, hq, 1, d], "kv_prefix": [fb, hkv, s, d],
                      **decode_case},
         launches_train=train_flash["launches_train"],
@@ -4468,7 +4493,8 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
              "phase's tinyllama steps (22 forwards and 22 remat recomputes "
              "a step, under autograd; autograd_case: the forward kernel and "
              "the plain backward at the prefill shape); causal prefill counted at half "
-             "of 4·B·Hq·S²·D; bf16 tensor cores (mma.sync), decode packs "
+             "of 4·B·Hq·S²·D; bf16 prefill on wgmma fed by a TMA ring "
+             "(device_kernels, by the profiler), decode on mma.sync packs "
              "each GQA group and splits the keys, then merges the chunks "
              "(decode_case's cuda_launches_per_call); the library call "
              "(scaled_dot_product_attention) is a yardstick the port never "
@@ -4569,6 +4595,8 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
     i = torch.arange(s2, device=dev)
     band = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
     pairs = sum(min(t + 1, w) for t in range(s2))
+    names = prefill_kernels(
+        lambda: ops.flash_attention(q, k, v, causal=True, window=w), q)
     row("flash_attention:sliding", "flash_attn.cu",
         "src/repro/kernels/flash_attn.py:79", [fb, 4, s2, 256],
         lambda: ops.flash_attention(q, k, v, causal=True, window=w),
@@ -4577,6 +4605,7 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         2 * (2 * fb * 4 * s2 * 256 + 2 * fb * s2 * 256),
         4 * fb * 4 * 256 * pairs, dtype=bf16, kv_shape=[fb, 1, s2, 256],
         window=w, expect_launches=flash_attn.cuda_launches(q, k),
+        device_kernels=names,
         note="gemma3-1b's sliding layers: the window route, prefill "
              "past the 1024-token window; the bound counts the unmasked "
              "pairs, Σ_i min(i + 1, W); the library call is SDPA with "
@@ -4605,6 +4634,8 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
                 ref.flash_attention_ref(q[c:c + 1, hs], k[c:c + 1, g:g + 1],
                                         v[c:c + 1, g:g + 1], causal=True)
 
+    names = prefill_kernels(lambda: ops.flash_attention(q, k, v, causal=True),
+                            q)
     row("flash_attention:chunk_fold", "flash_attn.cu",
         "src/repro/kernels/flash_attn.py:79", [2, heads, cw, d2],
         lambda: ops.flash_attention(q, k, v, causal=True), plain_chunks,
@@ -4612,12 +4643,15 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         2 * (2 * 2 * heads * cw * d2 + 2 * 2 * kvh * cw * d2),
         4 * heads * d2 * 2 * (cw * (cw + 1) // 2), dtype=bf16,
         kv_shape=[2, kvh, cw, d2], expect_launches=flash_attn.cuda_launches(q, k),
+        device_kernels=names,
         note="llama4's chunked layers: a 16384-token prefill folded into "
              "two 8192-token chunks as the batch, run causal; the plain "
              "version runs one kv-head group of one chunk at a time (16 "
              "calls) to fit the card")
     del q, k, v, kr, vr
     q, k, v = flash_inputs(rng, dev, bf16, fb, 16, 16, s2, s2, 80)
+    names = prefill_kernels(lambda: ops.flash_attention(q, k, v, causal=False),
+                            q)
     row("flash_attention:non_causal", "flash_attn.cu",
         "src/repro/kernels/flash_attn.py:79", [fb, 16, s2, 80],
         lambda: ops.flash_attention(q, k, v, causal=False),
@@ -4625,6 +4659,7 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         lambda: sdpa(q, k, v), 10, 3, 2 * 4 * fb * 16 * s2 * 80,
         4 * fb * 16 * s2 * s2 * 80, dtype=bf16, kv_shape=[fb, 16, s2, 80],
         expect_launches=flash_attn.cuda_launches(q, k),
+        device_kernels=names,
         note="hubert-xlarge, the encoder: non-causal prefill at head "
              "dimension 80")
     del q, k, v

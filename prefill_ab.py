@@ -3,13 +3,19 @@
 alternated, on one NVIDIA GPU.
 
     python3 prefill_ab.py --tree parent=.checkout/parent/src --tree change=src \\
-        [--arch mamba2-370m --arch granite-moe-1b-a400m] [--rounds 2] [--warm 5]
+        [--arch mamba2-370m --arch llama4-scout-17b-a16e:4] [--rounds 2] \\
+        [--warm 5]
 
 Each (tree, arch) run is a process of its own with that tree's `src` on
-its path, so two checkouts of `repro_torch` never share one. A run draws
-the full config's bf16 weights from --seed, 4 prompts of 2048 tokens
-from numpy's default_rng(seed) (chip_smoke.py's serving prefill shape),
-builds `build_prefill_step`, calls it once cold and then --warm times,
+its path, so two checkouts of `repro_torch` never share one. An arch
+given as NAME:LAYERS keeps that many layers at full width (as
+chip_smoke.py's SERVE_MODELS cut llama4 and qwen2-vl to fit the card). A
+run draws the config's bf16 weights from --seed and a prompt batch of
+chip_smoke.py's serving prefill shape, 4 × 2048, or its CHUNK_PREFILL,
+1 × 16384, for a model with chunked attention: tokens from numpy's
+default_rng(seed), or for a stub frontend (hubert, qwen2-vl) the
+embeddings chip_smoke.py's model_inputs draws. It builds
+`build_prefill_step`, calls it once cold and then --warm times,
 each call closed by a synchronize, and prints one JSON line with the warm
 times and their median. The trees run in the order A B B A in every
 round, so that a drift of the card's clock over the call weighs on both.
@@ -43,11 +49,23 @@ def child(src: str, arch: str, seed: int, warm: int) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg = get_config(arch)
+    from dataclasses import replace
+
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import CHUNK_PREFILL, model_inputs
+
+    name, _, layers = arch.partition(":")
+    cfg = get_config(name)
+    if layers:
+        cfg = replace(cfg, num_layers=int(layers))
     model = init_lm(cfg, seed, device=dev)
-    tokens = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (BATCH, PROMPT))
-    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    chunked = any(m == "attn_chunked" for m, _ in cfg.layer_list())
+    shape = CHUNK_PREFILL if chunked else (BATCH, PROMPT)
+    if cfg.frontend is None:
+        tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size, shape)
+        batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    else:
+        batch = model_inputs(cfg, dev, *shape, seed, 0)
     prefill = build_prefill_step(cfg)
 
     def timed() -> float:

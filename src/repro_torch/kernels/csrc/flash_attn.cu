@@ -23,52 +23,86 @@
 // which is what the Pallas kernel returns. Key tiles wholly past the
 // causal diagonal, or wholly before the window, are skipped only in a
 // block whose rows all see their own diagonal key: there a skipped tile's
-// contribution would have been rescaled to exactly zero.
+// contribution would have been rescaled to exactly zero. The softmax
+// works in base 2 (scores scaled by scale * log2 e, exp2f), which moves p
+// by a few f32 ulps before its rounding to V's dtype.
 //
 // What bounds it on the H100: for prefill, operations. At the serving
 // path's q (4, 32, 2048, 64) and kv (4, 4, 2048, 64) in bf16, causal, the
 // two products take 4 B Hq S^2 D operations, half of them under the mask:
 // 68.7 GFLOP against 75.5 MB of q, k, v and o, so 69 us at the 989
-// TFLOP/s bf16 tensor-core peak and 23 us at 3.35 TB/s. For decode (Sq = 1
-// over a cache prefix), bytes: 8.4 MB of cache at 2048 keys is 2.5 us, the
+// TFLOP/s bf16 tensor-core peak and 23 us at 3.35 TB/s. The softmax's
+// B Hq S (S + 1) / 2 = 268.6 M exp2f there take about as long again on
+// the SFUs (16 a clock an SM, ~3.9 T/s): run after the products instead of
+// under them, they would double that floor. For decode (Sq = 1 over a
+// cache prefix), bytes: 8.4 MB of cache at 2048 keys is 2.5 us, the
 // arithmetic a thousandth of that.
 //
-// What the design does about it, bf16 and f16 (flash_tc_kernel):
-//  * Both products on the tensor cores, mma.sync m16n8k16 with f32
-//    accumulators, operands fetched from shared memory by ldmatrix (K
-//    plain, V transposed). mma.sync rather than wgmma: a 16-row warp tile
-//    keeps the online softmax in each warp's registers, P goes from the
-//    S accumulators into the A operand of P V without touching shared
-//    memory, and at D = 64 a 64-row block already has 3-4 blocks a SM
-//    in flight; the warpgroup-wide wgmma, with its shared-memory
-//    descriptors, is left to a later change if the kernel stays far from
-//    its bound.
-//  * A block is 4 warps and 64 query rows, 16 a warp; Q stays in
-//    registers as A fragments for the whole key loop (D <= 128; at
-//    D = 256 it would take 64 of them, so there Q is re-read from shared
-//    memory each tile).
-//  * K and V tiles of 64 keys stay in their own dtype in shared memory,
-//    rows XOR-swizzled by 16-byte chunk so ldmatrix is conflict-free,
-//    double-buffered with cp.async: the next tile's copy is in flight
-//    while the current one is multiplied (operands whose rows do not
-//    start on 16 bytes are copied element by element instead).
-//  * Prefill blocks walk the causal grid heaviest first.
-//  * Decode (Sq <= 16): one block serves one (batch, kv head) and packs
-//    the rows of every query head of its GQA group (tinyllama: 8 heads
-//    x 1 row), so a kv head's prefix is read once, not once per query
-//    head. The keys are split into chunks of a fixed 128 keys across
-//    blocks (at tinyllama's 4 x 4 kv heads over 2048 keys, 256 blocks
-//    for the 132 SMs); each block leaves its partial (m, l, unnormalised
-//    accumulator) in f32 scratch, and flash_combine_kernel merges the
-//    chunks of each row in a fixed order (no atomics). A row's arithmetic
-//    depends on Sk alone, not on the batch, the head count or the card,
-//    so its output is the same from run to run and at any batch size
-//    (the wrapper picks the chunks). A fully masked row has m = -1e30
-//    in every chunk, so the combine weights the chunks by their l alone
-//    and returns the mean of V over all Sk keys. One call is one launch,
-//    or two when the keys are split.
-// The softmax works in base 2 (scores scaled by scale * log2 e, exp2f),
-// which moves p by a few f32 ulps before its rounding to V's dtype.
+// bf16 and f16 prefill (Sq > 16), flash_wgmma_kernel<T, DT>: Hopper's
+// instructions, designed for this card rather than carried over:
+//  * a block of three warpgroups. Warpgroup 0 is the producer: one thread
+//    issues every TMA copy and the warpgroup gives registers back
+//    (setmaxnreg.dec to 40); warpgroups 1 and 2 are consumers
+//    (setmaxnreg.inc to 232). Up to DT = 128 a block owns 128 query rows
+//    of one (batch, head), 64 a consumer; at DT = 256 it owns 64 rows and
+//    the consumers split O's 256 columns, each computing the rows' S and
+//    softmax itself, so that no thread holds more than 64 f32 of O.
+//    Blocks walk the causal grid heaviest first;
+//  * Q's tile is loaded once; K and V tiles of BK keys (128 at DT = 64,
+//    64 at DT = 128 and 256) pass through a ring of PF_STAGES = 2 stages.
+//    Each K and each V tile has a "full" mbarrier that the producer's
+//    copies complete and an "empty" one that every consumer warp arrives
+//    on once the product that read it has been waited for: K after
+//    S = Q K^T, V after P V, so K is refilled while V is still in use.
+//    Every tile is DT / 64 panels of 128-byte rows under the 128-byte
+//    swizzle that TMA writes and a wgmma descriptor reads;
+//  * TMA: the host encodes one 4-D tensor map per operand and call, over
+//    (D, S, H, B) at the operand's own strides (so (B, S, H, D) views and
+//    cache prefixes need no copy), boxes of 64 columns by a tile's rows,
+//    zero-filled past D, Sq and Sk. An operand TMA cannot take (a start or
+//    a stride off 16 bytes) is copied by the producer warpgroup's threads
+//    into the same swizzled tiles against the same barriers, so both
+//    routes give the same bits;
+//  * S = Q K^T: wgmma m64n{BK}k16, Q and K both K-major from shared
+//    memory, f32 accumulators in registers, all DT / 16 k-steps (the
+//    columns past D are zeros; a branch or loop that stops at
+//    ceil(D / 16) makes ptxas serialize every wgmma of the kernel);
+//  * the online softmax in registers, in the arithmetic described above,
+//    the mask a loop of its own that runs only on tiles that need it, and
+//    exp2 by the SFU's ex2.approx.ftz;
+//  * O += P V: wgmma m64n{64|128}k16 with A from registers: the S
+//    accumulators' layout is the A fragments', so P is packed to T in
+//    place; B is the V tile as stored (keys x D), read with the transpose
+//    bit, its 64-column panels a leading byte offset apart;
+//  * the next tile's S product is issued, with this tile's P V, before
+//    this tile's softmax, so the exp2 of tile j run while the tensor
+//    cores take P_{j-1} V_{j-1}; the two consumers interleave on the SM
+//    besides (making them take turns through named barriers timed the
+//    same, PERF.md);
+//  * the epilogue divides by l, rounds once to T, stages the rows through
+//    Q's tile and stores 16 bytes a thread at q's layout.
+// Every configuration runs in registers alone: on this toolkit ptxas
+// gives the pipelined consumer about 168 registers whatever setmaxnreg
+// grants, and a thread's O, S and P (64 + 32 + 16 at DT = 128) fit that.
+// Decode (Sq <= 16), flash_tc_kernel<T, DT>: one block serves one (batch,
+// kv head) and packs the rows of every query head of its GQA group
+// (tinyllama: 8 heads x 1 row), so a kv head's prefix is read once, not
+// once per query head. Both products on mma.sync m16n8k16 with f32
+// accumulators, operands fetched from shared memory by ldmatrix (K plain,
+// V transposed); a block is 4 warps and 64 packed rows, 16 a warp, Q in
+// registers as A fragments (D <= 128); K and V tiles of 64 keys, rows
+// XOR-swizzled by 16-byte chunk, double-buffered with cp.async (operands
+// whose rows do not start on 16 bytes copied element by element). The
+// keys are split into chunks of a fixed 128 keys across blocks (at
+// tinyllama's 4 x 4 kv heads over 2048 keys, 256 blocks for the 132 SMs);
+// each block leaves its partial (m, l, unnormalised accumulator) in f32
+// scratch, and flash_combine_kernel merges the chunks of each row in a
+// fixed order (no atomics). A row's arithmetic depends on Sk alone, not
+// on the batch, the head count or the card, so its output is the same from
+// run to run and at any batch size (the wrapper picks the chunks). A
+// fully masked row has m = -1e30 in every chunk, so the combine weights
+// the chunks by their l alone and returns the mean of V over all Sk keys.
+// One call is one launch, or two when the keys are split.
 //
 // f32 (flash_fma32_kernel) stays in exact f32 on the FMA pipes: TF32's
 // 10-bit mantissa would not meet the f32 gates. Its bound at the serving
@@ -131,6 +165,8 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 template <typename T>
@@ -146,17 +182,7 @@ __device__ __forceinline__ __half narrow<__half>(float v) {
   return __float2half(v);
 }
 
-// ---------------------------------------------------------------------------
-// bf16 / f16: tensor cores
-
-constexpr int MQ = 64;           // query rows per block, 16 per warp
-constexpr int NK = 64;           // keys per tile
-constexpr int TC_THREADS = 128;  // 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
-// keys per chunk of the decode partial: the unsplit decode's chunk
-// (kernels/flash_attn.py's decode_split), so ranges that start on its
-// multiples give that decode's chunks
-constexpr int DECODE_CHUNK = 128;
 
 struct Params {
   const void* q;
@@ -219,6 +245,653 @@ struct Mma<__half> {
   }
 };
 
+// ---------------------------------------------------------------------------
+// bf16 / f16 prefill: wgmma fed by a TMA ring
+
+constexpr int PF_THREADS = 384;  // producer + two consumer warpgroups
+// by DT = 64, 128, 256: query rows a block and keys a tile
+constexpr int PF_ROWS[3] = {128, 128, 64};
+constexpr int PF_KEYS[3] = {128, 64, 64};
+constexpr int PF_STAGES = 2;  // K and V tiles in the ring
+constexpr int PF_PRODUCER_REGS = 40;
+constexpr int PF_CONSUMER_REGS = 232;  // 40 x 128 + 232 x 256 = 168 x 384
+
+// One configuration: DT the head dimension padded to 64, 128 or 256. Up
+// to DT = 128 the two consumers split the block's BQ = 128 rows, 64 each,
+// every one with all DT columns of O; at DT = 256 they share BQ = 64 rows
+// and split O's columns, 128 each (both compute the rows' S and softmax),
+// so that O is at most 64 f32 registers a thread either way. Shared
+// memory: Q's tile, then the ring's stages (K's tile, V's tile), then the
+// mbarriers, after up to SWIZZLE_ATOM bytes of slack that align Q to the
+// swizzle.
+template <int DT>
+struct PfTile {
+  static constexpr int BQ = PF_ROWS[DT / 128];
+  static constexpr int BK = PF_KEYS[DT / 128];
+  static constexpr bool SPLIT_COLS = BQ == 64;
+  static constexpr int NCOL = SPLIT_COLS ? DT / 2 : DT;  // O's columns
+  static constexpr int PANEL_Q = BQ * 128;  // one 64-column panel
+  static constexpr int PANEL_KV = BK * 128;
+  static constexpr int Q_BYTES = BQ * DT * 2;
+  static constexpr int KV_BYTES = BK * DT * 2;  // one K or V tile
+  static constexpr int STAGE = 2 * KV_BYTES;
+  static constexpr int BARS = 1 + 4 * PF_STAGES;
+  static constexpr size_t SMEM =
+      SWIZZLE_ATOM + Q_BYTES + PF_STAGES * STAGE + 8 * BARS;
+};
+
+// The mbarriers: Q's, then for each stage a "full" barrier of its K tile
+// and of its V tile, which the producer completes, and an "empty" one of
+// each, which every consumer warp arrives on once the product that read
+// the tile has been waited for (K's after S = Q K^T, V's after P V, so a
+// stage's K is refilled a tile before its V).
+struct PfBars {
+  unsigned at;
+  __device__ __forceinline__ unsigned q() const { return at; }
+  __device__ __forceinline__ unsigned full_k(int st) const {
+    return at + 8 * (1 + 4 * st);
+  }
+  __device__ __forceinline__ unsigned full_v(int st) const {
+    return full_k(st) + 8;
+  }
+  __device__ __forceinline__ unsigned empty_k(int st) const {
+    return full_k(st) + 16;
+  }
+  __device__ __forceinline__ unsigned empty_v(int st) const {
+    return full_k(st) + 24;
+  }
+};
+
+// wgmma operand lists: N f32 accumulators d[0..N) as %0..%N-1
+#define WG_R32                                                               \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31"
+#define WG_R64                                                               \
+  WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+         "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+         "%57, %58, %59, %60, %61, %62, %63"
+#define WG_F8(d, i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),               \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F32(d, i) \
+  WG_F8(d, i), WG_F8(d, i + 8), WG_F8(d, i + 16), WG_F8(d, i + 24)
+#define WG_F64(d, i) WG_F32(d, i), WG_F32(d, i + 32)
+// d (+)= A B, A and B from shared memory, both K-major; the first k-step
+// passes P = 0 (scale-d) and overwrites d.
+#define WG_SS(N, TY, R, A, B, P)                                            \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                            \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" R "}, " \
+  A ", " B ", p, 1, 1, 0, 0;\n}\n"
+// d += A B, A from registers (four 32-bit fragments), B from shared
+// memory MN-major (the transpose bit); P is 1 (accumulate).
+#define WG_RS(N, TY, R, A, B, P)                                            \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                            \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {" R "}, " \
+  A ", " B ", p, 1, 1, 1;\n}\n"
+
+template <typename T>
+constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
+
+// S = Q K^T, the warpgroup's 64 rows by N keys: d[4 j + 2 h + e] is row
+// 16 w + lane / 4 + 8 h, key 8 j + 2 (lane % 4) + e, for warp w.
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], unsigned long long a,
+                                         unsigned long long b, int scale_d) {
+  if constexpr (is_bf16<T>) {
+    asm volatile(WG_SS(64, "bf16", WG_R32, "%32", "%33", "%34")
+                 : WG_F32(d, 0)
+                 : "l"(a), "l"(b), "r"(scale_d));
+  } else {
+    asm volatile(WG_SS(64, "f16", WG_R32, "%32", "%33", "%34")
+                 : WG_F32(d, 0)
+                 : "l"(a), "l"(b), "r"(scale_d));
+  }
+}
+template <typename T>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], unsigned long long a,
+                                         unsigned long long b, int scale_d) {
+  if constexpr (is_bf16<T>) {
+    asm volatile(WG_SS(128, "bf16", WG_R64, "%64", "%65", "%66")
+                 : WG_F64(d, 0)
+                 : "l"(a), "l"(b), "r"(scale_d));
+  } else {
+    asm volatile(WG_SS(128, "f16", WG_R64, "%64", "%65", "%66")
+                 : WG_F64(d, 0)
+                 : "l"(a), "l"(b), "r"(scale_d));
+  }
+}
+
+// x, opaque to the optimizer: a descriptor derived from it is built where
+// it is used, not hoisted out of the loop and held in registers.
+__device__ __forceinline__ unsigned opaque(unsigned x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// O += P V, the warpgroup's 64 rows by N columns, in S's layout.
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         unsigned long long b) {
+  if constexpr (is_bf16<T>) {
+    asm volatile(WG_RS(64, "bf16", WG_R32, "{%32, %33, %34, %35}", "%36",
+                       "%37")
+                 : WG_F32(d, 0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    asm volatile(WG_RS(64, "f16", WG_R32, "{%32, %33, %34, %35}", "%36",
+                       "%37")
+                 : WG_F32(d, 0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+}
+template <typename T>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         unsigned long long b) {
+  if constexpr (is_bf16<T>) {
+    asm volatile(WG_RS(128, "bf16", WG_R64, "{%64, %65, %66, %67}", "%68",
+                       "%69")
+                 : WG_F64(d, 0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  } else {
+    asm volatile(WG_RS(128, "f16", WG_R64, "{%64, %65, %66, %67}", "%68",
+                       "%69")
+                 : WG_F64(d, 0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+}
+
+// 2^x by the SFU alone (ex2.approx.ftz): exp2f's accurate path adds
+// instructions for denormal results, which p does not need (a p below
+// 2^-126 of its row's max weighs nothing in bf16 or f16 P V).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Barrier of one consumer warpgroup's 128 threads (ids 1 and 2; 0 is
+// __syncthreads').
+__device__ __forceinline__ void consumer_sync(int consumer) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + consumer) : "memory");
+}
+
+// Copy rows [row0, row0 + R) of a 2-byte operand (row r at g + r * rs, a
+// unit stride along d) into a tile of DT / 64 swizzled panels, zeros past
+// `rows` and past d: the producer warpgroup's 128 threads, a plain 2-byte
+// load and store an element, consecutive threads along d.
+template <int R, int DT>
+__device__ __forceinline__ void pf_copy(unsigned char* tile,
+                                        const unsigned short* g, long long rs,
+                                        int row0, int rows, int d, int tid) {
+#pragma unroll 1
+  for (int e = tid; e < R * DT; e += 128) {
+    const int r = e / DT, c = e % DT;
+    const bool ok = row0 + r < rows && c < d;
+    *reinterpret_cast<unsigned short*>(tile + (c / 64) * (R * 128) +
+                                       swizzled(r, c % 64)) =
+        ok ? g[(row0 + r) * rs + c] : 0;
+  }
+}
+
+// The producer warpgroup: Q's tile once, then tiles kt0 .. kt0 + ntiles - 1
+// of K and V into the ring, each K or V tile of a stage refilled once
+// every consumer warp has released it. All by TMA (tma == 7): thread 0
+// alone, each barrier expecting one arrival and the boxes' bytes.
+// Otherwise all 128 threads copy the operands TMA does not take, then
+// arrive (thread 0 with the TMA bytes of the others).
+template <int DT>
+__device__ __forceinline__ void pf_produce(
+    const CUtensorMap* q_map, const CUtensorMap* k_map,
+    const CUtensorMap* v_map, const Params& p, int tma, unsigned char* base,
+    unsigned base_addr, int b, int h, int kvh, int q0, int kt0, int ntiles) {
+  using Tile = PfTile<DT>;
+  const int tid = threadIdx.x;
+  const bool all_tma = tma == 7;
+  if (all_tma && tid != 0) return;
+  const PfBars bars{base_addr + Tile::Q_BYTES + PF_STAGES * Tile::STAGE};
+  const auto publish = [&](unsigned bar, unsigned bytes, auto&& issue) {
+    if (!all_tma) fence_proxy_async();
+    if (tid == 0) {
+      mbar_expect_tx(bar, bytes);
+      issue();
+    } else {
+      mbar_arrive(bar);
+    }
+  };
+  if (!(tma & 1)) {
+    pf_copy<Tile::BQ, DT>(
+        base, static_cast<const unsigned short*>(p.q) + b * p.qb + h * p.qh,
+        p.qs, q0, p.sq, p.d, tid);
+  }
+  publish(bars.q(), tma & 1 ? Tile::Q_BYTES : 0, [&] {
+    if (!(tma & 1)) return;
+#pragma unroll
+    for (int c = 0; c < DT / 64; ++c) {
+      tma_load_4d(base_addr + c * Tile::PANEL_Q, q_map, bars.q(), 64 * c, q0,
+                  h, b);
+    }
+  });
+  const unsigned short* kg =
+      static_cast<const unsigned short*>(p.k) + b * p.kb + kvh * p.kh;
+  const unsigned short* vg =
+      static_cast<const unsigned short*>(p.v) + b * p.vb + kvh * p.vh;
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % PF_STAGES;
+    const unsigned parity = (i / PF_STAGES - 1) & 1;
+    const int k0 = (kt0 + i) * Tile::BK;
+    unsigned char* kd = base + Tile::Q_BYTES + st * Tile::STAGE;
+    const unsigned kd_addr = base_addr + Tile::Q_BYTES + st * Tile::STAGE;
+    if (i >= PF_STAGES) mbar_wait(bars.empty_k(st), parity);
+    if (!(tma & 2)) pf_copy<Tile::BK, DT>(kd, kg, p.ks, k0, p.sk, p.d, tid);
+    publish(bars.full_k(st), tma & 2 ? Tile::KV_BYTES : 0, [&] {
+      if (!(tma & 2)) return;
+#pragma unroll
+      for (int c = 0; c < DT / 64; ++c) {
+        tma_load_4d(kd_addr + c * Tile::PANEL_KV, k_map, bars.full_k(st),
+                    64 * c, k0, kvh, b);
+      }
+    });
+    if (i >= PF_STAGES) mbar_wait(bars.empty_v(st), parity);
+    if (!(tma & 4)) {
+      pf_copy<Tile::BK, DT>(kd + Tile::KV_BYTES, vg, p.vs, k0, p.sk, p.d,
+                            tid);
+    }
+    publish(bars.full_v(st), tma & 4 ? Tile::KV_BYTES : 0, [&] {
+      if (!(tma & 4)) return;
+#pragma unroll
+      for (int c = 0; c < DT / 64; ++c) {
+        tma_load_4d(kd_addr + Tile::KV_BYTES + c * Tile::PANEL_KV, v_map,
+                    bars.full_v(st), 64 * c, k0, kvh, b);
+      }
+    });
+  }
+}
+
+// Scale, mask and the online softmax of one S tile in place: s becomes
+// p = exp2(s - m) in f32 against the new running max; m and l move to it,
+// and corr is the factor the accumulator must take. Rows A (h = 0) and B
+// (h = 1) of this thread are at positions qpos[h]; tq = lane % 4. The mask
+// is a loop of its own behind the tile's need_mask: folded into the
+// scale-and-max loop as selects, its index arithmetic ran on every tile
+// and took most of the softmax's time.
+template <int BK>
+__device__ __forceinline__ void pf_softmax(float (&s)[BK / 2], float (&m)[2],
+                                           float (&l)[2], float (&corr)[2],
+                                           const Params& p, int k0,
+                                           bool need_mask, const int (&qpos)[2],
+                                           int tq) {
+  const float scale2 = p.scale2;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] *= scale2;
+  if (need_mask) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 8 * j + 2 * tq + (e & 1);
+        const int qp = qpos[e >> 1];
+        if ((p.causal && kpos > qp) ||
+            (p.has_window && kpos <= qp - p.window)) {
+          s[4 * j + e] = -1e30f;
+        }
+        if (kpos >= p.sk) s[4 * j + e] = -INFINITY;  // beyond Sk: not a key
+      }
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    corr[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = fast_exp2(s[4 * j + e] - m[e >> 1]);
+      l[e >> 1] += pe;
+      s[4 * j + e] = pe;
+    }
+  }
+}
+
+// P rounded to T as the A fragments of P V, key step kk = keys 16 kk ..
+// 16 kk + 15: the layout mma.sync's m16n8k16 A operand and wgmma's
+// register A share.
+template <typename T, int BK>
+__device__ __forceinline__ void pf_pack(uint32_t (&pa)[BK / 16][4],
+                                        const float (&s)[BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      pa[kk][x] = Mma<T>::pack(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+    }
+  }
+}
+
+// A consumer warpgroup: its 64 query rows by NCOL columns of O, over the
+// ring's tiles in order. Per tile j: wait for K_j (and V_{j-1}), issue S_j =
+// Q K_j^T and O += P_{j-1} V_{j-1}, wait for S_j and release K_j, run
+// S_j's softmax while the P V product runs, wait for that and release
+// V_{j-1}, rescale O and pack P_j. A warpgroup whose rows all lie past Sq
+// releases each tile as it lands and computes nothing.
+template <typename T, int DT>
+__device__ __forceinline__ void pf_consume(const Params& p,
+                                           unsigned char* base,
+                                           unsigned base_addr, int b, int h,
+                                           int q0, int kt0, int ntiles) {
+  using Tile = PfTile<DT>;
+  constexpr int BK = Tile::BK;
+  const int consumer = threadIdx.x / 128 - 1;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int tq = lane % 4;
+  const PfBars bars{base_addr + Tile::Q_BYTES + PF_STAGES * Tile::STAGE};
+  const auto parity = [](int i) { return (i / PF_STAGES) & 1; };
+  const int row0 = q0 + (Tile::SPLIT_COLS ? 0 : 64 * consumer);
+  const int col0 = Tile::SPLIT_COLS ? Tile::NCOL * consumer : 0;
+  if (row0 >= p.sq) {
+    for (int i = 0; i < ntiles; ++i) {
+      const int st = i % PF_STAGES;
+      mbar_wait(bars.full_k(st), parity(i));
+      if (lane == 0) mbar_arrive(bars.empty_k(st));
+      mbar_wait(bars.full_v(st), parity(i));
+      if (lane == 0) mbar_arrive(bars.empty_v(st));
+    }
+    return;
+  }
+  const int off = p.sk - p.sq;
+  const int first_pos = row0 + off;
+  const int last_pos = min(row0 + 64, p.sq) - 1 + off;
+  const int qpos[2] = {row0 + 16 * warp + lane / 4 + off,
+                       row0 + 16 * warp + lane / 4 + 8 + off};
+  const unsigned q_tile =
+      base_addr + (Tile::SPLIT_COLS ? 0 : consumer * 64 * 128);
+  const unsigned ring = base_addr + Tile::Q_BYTES;
+
+  float o[Tile::NCOL / 2], s[BK / 2];
+  uint32_t pa[BK / 16][4];
+  float m[2] = {-1e30f, -1e30f};  // running max, base-2 domain
+  float l[2] = {0.f, 0.f};        // this thread's share of the row sums
+  float corr[2];
+#pragma unroll
+  for (int i = 0; i < Tile::NCOL / 2; ++i) o[i] = 0.f;
+
+  // descriptors of k-step kk: Q's and K's advance by 32 bytes inside a
+  // 128-byte row, then by a panel; V's by 16 key rows. All DT / 16
+  // k-steps run, columns past D being zeros: skipping those past
+  // ceil(D / 16), by a branch or a loop of ceil(D / 16) trips, makes the
+  // compiler merge versions of S with moves, and ptxas then serializes
+  // every wgmma of the kernel (C7515).
+  const auto issue_s = [&](int st) {
+    const unsigned long long qd =
+        wgmma_desc(opaque(q_tile), SWIZZLE_ATOM, SWIZZLE_ATOM);
+    const unsigned long long kd = wgmma_desc(
+        opaque(ring + st * Tile::STAGE), SWIZZLE_ATOM, SWIZZLE_ATOM);
+#pragma unroll
+    for (int kk = 0; kk < DT / 16; ++kk) {
+      const unsigned at = (kk % 4) * 32;
+      wgmma_ss<T>(s, qd + (((kk / 4) * Tile::PANEL_Q + at) >> 4),
+                  kd + (((kk / 4) * Tile::PANEL_KV + at) >> 4), kk > 0);
+    }
+    wgmma_commit();
+  };
+  const auto issue_pv = [&](int st) {
+    const unsigned long long vd = wgmma_desc(
+        opaque(ring + st * Tile::STAGE + Tile::KV_BYTES +
+               (col0 / 64) * Tile::PANEL_KV),
+        Tile::PANEL_KV, SWIZZLE_ATOM);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_rs<T>(o, pa[kk], vd + ((kk * 16 * 128) >> 4));
+    }
+    wgmma_commit();
+  };
+  const auto need_mask = [&](int k0) {
+    return k0 + BK > p.sk || (p.causal && k0 + BK - 1 > first_pos) ||
+           (p.has_window && k0 <= last_pos - p.window);
+  };
+
+  mbar_wait(bars.q(), 0);
+  mbar_wait(bars.full_k(0), 0);
+  wgmma_fence();
+  issue_s(0);
+  wgmma_wait<0>();
+  wgmma_fence_operands(s);
+  if (lane == 0) mbar_arrive(bars.empty_k(0));
+  pf_softmax<BK>(s, m, l, corr, p, kt0 * BK, need_mask(kt0 * BK), qpos, tq);
+  pf_pack<T, BK>(pa, s);
+  for (int i = 1; i < ntiles; ++i) {
+    const int st = i % PF_STAGES, prev = (i - 1) % PF_STAGES;
+    mbar_wait(bars.full_k(st), parity(i));
+    mbar_wait(bars.full_v(prev), parity(i - 1));
+    wgmma_fence_operands(s);
+    wgmma_fence_operands(o);
+    wgmma_fence();
+    issue_s(st);
+    issue_pv(prev);
+    wgmma_wait<1>();  // S_i; P_{i-1} V_{i-1} may still run
+    wgmma_fence_operands(s);
+    if (lane == 0) mbar_arrive(bars.empty_k(st));
+    const int k0 = (kt0 + i) * BK;
+    pf_softmax<BK>(s, m, l, corr, p, k0, need_mask(k0), qpos, tq);
+    wgmma_wait<0>();
+    wgmma_fence_operands(o);
+    if (lane == 0) mbar_arrive(bars.empty_v(prev));
+#pragma unroll
+    for (int j = 0; j < Tile::NCOL / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+    pf_pack<T, BK>(pa, s);
+  }
+  mbar_wait(bars.full_v((ntiles - 1) % PF_STAGES), parity(ntiles - 1));
+  wgmma_fence_operands(o);
+  wgmma_fence();
+  issue_pv((ntiles - 1) % PF_STAGES);
+  wgmma_wait<0>();
+  wgmma_fence_operands(o);
+
+  // O / l rounded once to T, through this warpgroup's rows of Q's tile
+  // (swizzled: the pair writes and the 16-byte reads are free of bank
+  // conflicts), then stored 16 bytes a thread at q's layout
+  float inv_l[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv_l[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+  }
+  // every product that reads the Q rows about to be overwritten is done:
+  // this warpgroup's, or with split columns both consumers'
+  if (Tile::SPLIT_COLS) {
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  } else {
+    consumer_sync(consumer);
+  }
+  const int row_base = Tile::SPLIT_COLS ? 0 : 64 * consumer;
+#pragma unroll
+  for (int j = 0; j < Tile::NCOL / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_base + 16 * warp + lane / 4 + 8 * r;
+      const int col = col0 + 8 * j + 2 * tq;
+      *reinterpret_cast<uint32_t*>(base + (col / 64) * Tile::PANEL_Q +
+                                   swizzled(row, col % 64)) =
+          Mma<T>::pack(o[4 * j + 2 * r] * inv_l[r],
+                       o[4 * j + 2 * r + 1] * inv_l[r]);
+    }
+  }
+  consumer_sync(consumer);
+  T* out = static_cast<T*>(p.o) + b * p.ob + h * p.oh;
+#pragma unroll 4
+  for (int e = tid; e < 64 * (Tile::NCOL / 8); e += 128) {
+    const int r = e / (Tile::NCOL / 8);
+    const int col = col0 + 8 * (e % (Tile::NCOL / 8));
+    const int i = row0 + r;
+    if (i >= p.sq || col >= p.d) continue;
+    const uint4 val = *reinterpret_cast<const uint4*>(
+        base + (col / 64) * Tile::PANEL_Q + swizzled(row_base + r, col % 64));
+    T* dst = out + i * p.os + col;
+    if ((reinterpret_cast<unsigned long long>(dst) & 15) == 0) {
+      *reinterpret_cast<uint4*>(dst) = val;
+    } else {
+      const T* vals = reinterpret_cast<const T*>(&val);
+#pragma unroll
+      for (int x = 0; x < 8; ++x) dst[x] = vals[x];
+    }
+  }
+}
+
+// Block (x, y, z): query rows [128 (X - 1 - x), +128) of query head y of
+// batch z (X = gridDim.x, heaviest tiles first). `tma`: bit 0 where q_map
+// holds Q, bit 1 k_map K, bit 2 v_map V; the producer's threads copy the
+// others.
+template <typename T, int DT>
+__global__ void __launch_bounds__(PF_THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map, const Params p,
+                   int tma) {
+  using Tile = PfTile<DT>;
+  constexpr int BK = Tile::BK;
+  extern __shared__ __align__(16) unsigned char pf_smem[];
+  const unsigned raw = smem_addr(pf_smem);
+  unsigned char* base =
+      pf_smem + (SWIZZLE_ATOM - raw % SWIZZLE_ATOM) % SWIZZLE_ATOM;
+  const unsigned base_addr = smem_addr(base);
+  const PfBars bars{base_addr + Tile::Q_BYTES + PF_STAGES * Tile::STAGE};
+  const int b = blockIdx.z, h = blockIdx.y, kvh = h / p.group;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * Tile::BQ;
+
+  // key tiles to visit; only where every row of the block sees its own
+  // diagonal key (causal, first position >= 0) may tiles be skipped
+  const int off = p.sk - p.sq;
+  const int first_pos = q0 + off;
+  const int last_pos = min(q0 + Tile::BQ, p.sq) - 1 + off;
+  int kt0 = 0;
+  int kt1 = (p.sk + BK - 1) / BK;
+  if (p.causal && first_pos >= 0) {
+    kt1 = min(kt1, last_pos / BK + 1);
+    if (p.has_window && first_pos - p.window + 1 > 0) {
+      kt0 = max(kt0, (first_pos - p.window + 1) / BK);
+    }
+  }
+  if (threadIdx.x == 0) {
+    const unsigned producers = tma == 7 ? 1 : 128;
+    mbar_init(bars.q(), producers);
+    for (int st = 0; st < PF_STAGES; ++st) {
+      mbar_init(bars.full_k(st), producers);
+      mbar_init(bars.full_v(st), producers);
+      mbar_init(bars.empty_k(st), 8);  // the consumers' warps
+      mbar_init(bars.empty_v(st), 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        PF_PRODUCER_REGS));
+    pf_produce<DT>(&q_map, &k_map, &v_map, p, tma, base, base_addr, b, h, kvh,
+                   q0, kt0, kt1 - kt0);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        PF_CONSUMER_REGS));
+    pf_consume<T, DT>(p, base, base_addr, b, h, q0, kt0, kt1 - kt0);
+  }
+}
+
+// A TMA map of one operand over (d, rows, heads, batch), at element
+// strides (rs, hs, bs) and a unit stride along d: boxes of 64 x box_rows,
+// the 128-byte swizzle, zeros past the edges. False where the operand does
+// not qualify (a 16-byte aligned start, strides of whole 16-byte vectors
+// under 2^40 bytes, save for an axis of extent 1, whose stride is never
+// used) or the driver refuses the map.
+template <typename T>
+bool head_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+              long long bs, long long hs, long long rs, int batch, int heads,
+              int rows, int d, int box_rows) {
+  if ((reinterpret_cast<unsigned long long>(ptr) & 15) != 0) return false;
+  const long long elem = static_cast<long long>(sizeof(T));
+  long long bytes[3] = {rs * elem, hs * elem, bs * elem};
+  const int extent[3] = {rows, heads, batch};
+  for (int i = 0; i < 3; ++i) {
+    if (bytes[i] > 0 && bytes[i] % 16 == 0 && bytes[i] < (1ll << 40)) continue;
+    if (extent[i] != 1) return false;
+    bytes[i] = 16;
+  }
+  const cuuint64_t dims[4] = {
+      static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
+      static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(bytes[0]),
+                                 static_cast<cuuint64_t>(bytes[1]),
+                                 static_cast<cuuint64_t>(bytes[2])};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapDataType type = std::is_same<T, __nv_bfloat16>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The operands a prefill call loads by TMA (bit 0 Q, bit 1 K, bit 2 V),
+// their maps filled.
+template <typename T, int DT>
+int pf_tma(EncodeTiled encode, const Params& p, CUtensorMap* q_map,
+           CUtensorMap* k_map, CUtensorMap* v_map) {
+  constexpr int BK = PfTile<DT>::BK;
+  return (head_map<T>(encode, q_map, p.q, p.qb, p.qh, p.qs, p.batch, p.hq,
+                      p.sq, p.d, PfTile<DT>::BQ) ? 1 : 0) |
+         (head_map<T>(encode, k_map, p.k, p.kb, p.kh, p.ks, p.batch, p.hkv,
+                      p.sk, p.d, BK) ? 2 : 0) |
+         (head_map<T>(encode, v_map, p.v, p.vb, p.vh, p.vs, p.batch, p.hkv,
+                      p.sk, p.d, BK) ? 4 : 0);
+}
+
+template <typename T, int DT>
+int launch_prefill(const Params& p, cudaStream_t stream) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap q_map{}, k_map{}, v_map{};
+  const int tma = pf_tma<T, DT>(encode, p, &q_map, &k_map, &v_map);
+  const int smem = static_cast<int>(PfTile<DT>::SMEM);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma_kernel<T, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.sq + PfTile<DT>::BQ - 1) / PfTile<DT>::BQ, p.hq,
+                  p.batch);
+  flash_wgmma_kernel<T, DT><<<grid, PF_THREADS, smem, stream>>>(
+      q_map, k_map, v_map, p, tma);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// bf16 / f16 decode: mma.sync on the packed GQA group
+
+constexpr int MQ = 64;           // packed rows per block, 16 per warp
+constexpr int NK = 64;           // keys per tile
+constexpr int TC_THREADS = 128;  // 4 warps
+// keys per chunk of the decode partial: the unsplit decode's chunk
+// (kernels/flash_attn.py's decode_split), so ranges that start on its
+// multiples give that decode's chunks
+constexpr int DECODE_CHUNK = 128;
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile(
@@ -272,11 +945,9 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * DT + ((c ^ (r & 7)) << 3);
 }
 
-// Block (x, y, z): prefill, query rows [64 (X - 1 - x), +64) of query
-// head y of batch z (X = gridDim.x, heaviest tiles first); decode, key
-// chunk x of kv head y / row_blocks of batch z, packed rows
-// [64 (y % row_blocks), +64) of that head's group (row r is row r % sq
-// of query head kvh * group + r / sq).
+// Block (x, y, z): key chunk x of kv head y / row_blocks of batch z,
+// packed rows [64 (y % row_blocks), +64) of that head's group (row r is
+// row r % sq of query head kvh * group + r / sq).
 template <typename T, int DT>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_tc_kernel(const Params p) {
@@ -291,32 +962,19 @@ flash_tc_kernel(const Params p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
   const int b = blockIdx.z;
-  const bool packed = p.chunk > 0;
-  int kvh, hfix = 0, q0 = 0, rb = 0, key_lo = 0, key_hi = p.sk, chunk = 0;
-  if (packed) {
-    kvh = blockIdx.y / p.row_blocks;
-    rb = blockIdx.y % p.row_blocks;
-    chunk = blockIdx.x;
-    key_lo = chunk * p.chunk;
-    key_hi = min(p.sk, key_lo + p.chunk);
-  } else {
-    hfix = blockIdx.y;
-    kvh = hfix / p.group;
-    q0 = (gridDim.x - 1 - blockIdx.x) * MQ;
-  }
+  const int kvh = blockIdx.y / p.row_blocks;
+  const int rb = blockIdx.y % p.row_blocks;
+  const int chunk = blockIdx.x;
+  const int key_lo = chunk * p.chunk;
+  const int key_hi = min(p.sk, key_lo + p.chunk);
   const int off = p.sk - p.sq;
   const int packed_rows = p.group * p.sq;
   // block row r -> (query head h, query row i); false past the last row
   auto map_row = [&](int r, int& h, int& i) -> bool {
-    if (packed) {
-      const int rr = rb * MQ + r;
-      h = kvh * p.group + rr / p.sq;
-      i = rr % p.sq;
-      return rr < packed_rows;
-    }
-    h = hfix;
-    i = q0 + r;
-    return i < p.sq;
+    const int rr = rb * MQ + r;
+    h = kvh * p.group + rr / p.sq;
+    i = rr % p.sq;
+    return rr < packed_rows;
   };
 
   const T* qg = static_cast<const T*>(p.q) + b * p.qb;
@@ -336,14 +994,8 @@ flash_tc_kernel(const Params p) {
 
   // key tiles to visit; only where every row of the block sees its own
   // diagonal key (causal, first position >= 0) may tiles be skipped
-  int first_pos, last_pos;
-  if (packed) {
-    first_pos = off;
-    last_pos = p.sk - 1;
-  } else {
-    first_pos = q0 + off;
-    last_pos = min(q0 + MQ, p.sq) - 1 + off;
-  }
+  const int first_pos = off;
+  const int last_pos = p.sk - 1;
   int kt0 = key_lo / NK;
   int kt1 = (key_hi + NK - 1) / NK;
   if (p.causal && first_pos >= 0) {
@@ -352,7 +1004,6 @@ flash_tc_kernel(const Params p) {
       kt0 = max(kt0, (first_pos - p.window + 1) / NK);
     }
   }
-
   auto load_kv = [&](int kt, int buf) {
     T* kd = ksm + buf * NK * DT;
     T* vd = vsm + buf * NK * DT;
@@ -513,7 +1164,7 @@ flash_tc_kernel(const Params p) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  const bool split = packed && (p.nchunks > 1 || p.partial);
+  const bool split = p.nchunks > 1 || p.partial;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const bool ok = r == 0 ? okA : okB;
@@ -614,18 +1265,20 @@ int launch_tc(const Params& p, cudaStream_t stream) {
       flash_tc_kernel<T, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid;
-  if (p.chunk > 0) {
-    grid = dim3(p.nchunks, p.hkv * p.row_blocks, p.batch);
-  } else {
-    grid = dim3((p.sq + MQ - 1) / MQ, p.hq, p.batch);
-  }
+  const dim3 grid(p.nchunks, p.hkv * p.row_blocks, p.batch);
   flash_tc_kernel<T, DT><<<grid, TC_THREADS, smem, stream>>>(p);
   return launch_combine<T>(p, stream);
 }
 
+// bf16 and f16: the prefill kernel, or the decode's (chunk > 0), at D
+// padded to 64, 128 or 256.
 template <typename T>
-int launch_tc_d(const Params& p, cudaStream_t stream) {
+int launch_half(const Params& p, cudaStream_t stream) {
+  if (p.chunk <= 0) {
+    if (p.d <= 64) return launch_prefill<T, 64>(p, stream);
+    if (p.d <= 128) return launch_prefill<T, 128>(p, stream);
+    return launch_prefill<T, 256>(p, stream);
+  }
   if (p.d <= 64) return launch_tc<T, 64>(p, stream);
   if (p.d <= 128) return launch_tc<T, 128>(p, stream);
   return launch_tc<T, 256>(p, stream);
@@ -1037,8 +1690,10 @@ int launch_fma_d(const Params& p, cudaStream_t stream) {
 // d <= 256 and a multiple of 8. chunk > 0 selects the packed decode with
 // `nchunks` chunks of `chunk` keys, and part holds nchunks x batch x hq x
 // sq x (d + 2) f32 partials when nchunks > 1; aligned says every operand
-// row lies on 16 bytes. f32 runs the FMA kernel (ROWS packed decode rows
-// a block), bf16 and f16 the tensor-core kernel. Returns the first
+// row lies on 16 bytes (the decode's cp.async copies; the prefill asks
+// of each operand whether TMA takes it). f32 runs the FMA kernel (ROWS
+// packed decode rows a block); bf16 and f16 run flash_wgmma_kernel for a
+// prefill (chunk 0) and flash_tc_kernel for a decode. Returns the first
 // cudaGetLastError() after a launch that is not cudaSuccess, else 0.
 //
 // NAME_partial is the packed decode's first half alone for one query row
@@ -1100,8 +1755,30 @@ int launch_fma_d(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 FLASH_ENTRY(flash_f32, float, F_DECODE_ROWS, launch_fma_d)
-FLASH_ENTRY(flash_bf16, __nv_bfloat16, MQ, launch_tc_d)
-FLASH_ENTRY(flash_f16, __half, MQ, launch_tc_d)
+FLASH_ENTRY(flash_bf16, __nv_bfloat16, MQ, launch_half)
+FLASH_ENTRY(flash_f16, __half, MQ, launch_half)
+
+// Which operands a bf16 or f16 prefill with these arguments loads by TMA:
+// bit 0 Q, bit 1 K, bit 2 V; the producer warpgroup's threads copy the
+// others into the same tiles. 0 where the driver has no
+// cuTensorMapEncodeTiled (and the prefill would not launch).
+int flash_prefill_tma_operands(const __nv_bfloat16* q, long long qb,
+                               long long qh, long long qs,
+                               const __nv_bfloat16* k, long long kb,
+                               long long kh, long long ks,
+                               const __nv_bfloat16* v, long long vb,
+                               long long vh, long long vs, int batch, int hq,
+                               int hkv, int sq, int sk, int d) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return 0;
+  const Params p{q,  qb, qh,      qs,      k,  kb, kh, ks, v, vb, vh, vs,
+                 nullptr, 0, 0, 0, nullptr, batch, hq, hkv, hq / hkv, sq,
+                 sk, d,  0.f, 0, 0, 0, 0, 0, 1, 0, 0};
+  CUtensorMap q_map{}, k_map{}, v_map{};
+  if (d <= 64) return pf_tma<__nv_bfloat16, 64>(encode, p, &q_map, &k_map, &v_map);
+  if (d <= 128) return pf_tma<__nv_bfloat16, 128>(encode, p, &q_map, &k_map, &v_map);
+  return pf_tma<__nv_bfloat16, 256>(encode, p, &q_map, &k_map, &v_map);
+}
 
 const char* spdc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

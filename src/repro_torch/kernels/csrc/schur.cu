@@ -113,11 +113,11 @@
 // over all of K in f64 and rounded to the storage type once, by
 // __double2bfloat16 / __double2half (one rounding, not two through
 // float).
-#include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "precision.cuh"
 
 namespace {
@@ -643,36 +643,8 @@ constexpr int WTHREADS = 256;         // two warpgroups
 constexpr int W_A_BYTES = WM * WK * 2;
 constexpr int W_B_BYTES = WK * WN * 2;
 constexpr int W_STAGE = W_A_BYTES + W_B_BYTES;  // 24 KB
-constexpr int SWIZZLE_ATOM = 1024;    // 8 rows of 128 bytes
 // the ring, slack to align it to the swizzle's 1024 bytes, an mbarrier a stage
 constexpr size_t W_SMEM = WSTAGES * W_STAGE + SWIZZLE_ATOM + WSTAGES * 8;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of element (r, q) in a tile of 64-element (128-byte) rows
-// under the 128-byte swizzle: 16-byte chunk q / 8 of row r sits at chunk
-// (q / 8) ^ (r % 8). TMA's CU_TENSOR_MAP_SWIZZLE_128B writes this layout,
-// and a wgmma descriptor of the 128-byte swizzle reads it, in a tile
-// whose start is SWIZZLE_ATOM-aligned.
-__device__ __forceinline__ int swizzled(int r, int q) {
-  return r * 128 + ((((q >> 3) ^ r) & 7) << 4) + (q & 7) * 2;
-}
-
-// A wgmma shared-memory matrix descriptor for the 128-byte swizzle (layout
-// type 1 in bits 62-63): start address, leading and stride byte offsets,
-// each in 16-byte units. Both tiles pass 1024 for both offsets: the stride
-// from one 8-row (K-major A) or 8-k (N-major B) group to the next; the
-// other offset is not read at these shapes (A's K step of 32 bytes lies
-// inside one swizzled row, B's 64 columns are one swizzle row wide).
-__device__ __forceinline__ unsigned long long wgmma_desc(unsigned addr) {
-  constexpr unsigned long long offsets =
-      (static_cast<unsigned long long>(SWIZZLE_ATOM >> 4) << 16) |
-      (static_cast<unsigned long long>(SWIZZLE_ATOM >> 4) << 32);
-  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) | offsets |
-         (1ull << 62);
-}
 
 #define WGMMA_D                                                              \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
@@ -710,66 +682,6 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
         : WGMMA_D_OPERANDS(d)
         : "l"(da), "l"(db), "r"(1));
   }
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pins the accumulators: the compiler may neither read one before the
-// wgmma that writes it has been waited for nor move one between
-// registers while a wgmma group is in flight.
-__device__ __forceinline__ void wgmma_fence_operands(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-// Wait for the phase of parity `parity` to complete. A slice lands in
-// microseconds; one that has not after 2^26 polls (seconds) never will,
-// and the block traps, so the launch fails instead of hanging the card.
-// ptxas reports a warpgroup wait injected before the trap (C7517): it is
-// on the trap's path alone, the main loop keeps one wgmma group in flight.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  for (unsigned polls = 0; !done; ++polls) {
-    if (polls == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-// A box of a 3-D tensor map at (c0 innermost, c1, c2) into shared memory,
-// completing on the mbarrier `bar` with its bytes.
-__device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map,
-                                         unsigned bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
 }
 
 template <typename T>
@@ -843,7 +755,7 @@ __device__ __forceinline__ void wgmma_load(const WgmmaFeed& f, int s,
   if (!(f.tma & 2)) {
     copy_tile<WK>(sa + W_A_BYTES, f.b, f.br, f.bc, k0, f.k, f.n0, f.n);
   }
-  if (f.tma != 3) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (f.tma != 3) fence_proxy_async();
 }
 
 // The pair (gr, gc), (gr, gc + 1) of a 2-byte operand widened to f32,
@@ -900,7 +812,7 @@ schur_wgmma_kernel(__grid_constant__ const CUtensorMap a_map,
   const int slices = (k + WK - 1) / WK;
   if (threadIdx.x == 0 && feed.tx_bytes != 0) {
     for (int s = 0; s < WSTAGES; ++s) mbar_init(bars + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
   for (int s = 0; s < WAHEAD && s < slices; ++s) {
@@ -933,8 +845,9 @@ schur_wgmma_kernel(__grid_constant__ const CUtensorMap a_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < WK / 16; ++kk) {
-      wgmma_m64n64k16<T>(acc, wgmma_desc(a_tile + 32 * kk),
-                         wgmma_desc(b_tile + 16 * 128 * kk));
+      wgmma_m64n64k16<T>(
+          acc, wgmma_desc(a_tile + 32 * kk, SWIZZLE_ATOM, SWIZZLE_ATOM),
+          wgmma_desc(b_tile + 16 * 128 * kk, SWIZZLE_ATOM, SWIZZLE_ATOM));
     }
     wgmma_commit();
     wgmma_fence_operands(acc);
@@ -979,33 +892,6 @@ schur_wgmma_kernel(__grid_constant__ const CUtensorMap a_map,
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of the driver the runtime loaded; null where the
-// driver has none.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // A TMA map of a 2-byte operand for the wgmma ring: `batch` matrices at

@@ -7,8 +7,13 @@ strides, so (B, S, H, D) projections and KV-cache prefixes need no copy;
 the output is allocated in q's memory layout.
 
 bf16 and f16 run on the tensor cores, f32 on the FMA pipes in exact f32.
-A call with Sq <= DECODE_ROWS packs each kv head's GQA group into
-blocks of PACKED_ROWS[dtype] rows and splits the keys into chunks
+A bf16 or f16 prefill (Sq > DECODE_ROWS) runs `flash_wgmma_kernel`:
+blocks of PREFILL_ROWS[DT] query rows, wgmma products fed by a TMA ring
+of PREFILL_KEYS[DT] keys a tile (DT the head dimension padded to 64, 128
+or 256), one launch (`tma_operands` says which operands TMA loads; the
+kernel copies the others into the same tiles). A call with
+Sq <= DECODE_ROWS packs each kv head's GQA group into blocks of
+PACKED_ROWS[dtype] rows and splits the keys into chunks
 (`decode_split`), then merges the chunks in a second launch; the wrapper
 allocates the chunks' f32 partials.
 
@@ -49,14 +54,23 @@ for _suffix in _SUFFIX.values():
     )
     _SIGNATURES[f"flash_{_suffix}_combine"] = (
         _INT, (_PTR, _PTR, _LL, _LL, _LL, _INT, _INT, _INT, _INT, _INT, _PTR))
+_SIGNATURES["flash_prefill_tma_operands"] = (
+    _INT, (_PTR, _LL, _LL, _LL, _PTR, _LL, _LL, _LL, _PTR, _LL, _LL, _LL,
+           _INT, _INT, _INT, _INT, _INT, _INT))
 _MAX_GRID_YZ = 65535
 #: any window at least this wide masks nothing at a length that fits the
 #: kernel's int positions, so wider ones are passed as this
 _WIDE_WINDOW = 2**30
 #: the largest head dimension the kernel's shared-memory tiles hold
 MAX_HEAD_DIM = 256
-#: query rows per block and keys per tile of the tensor-core kernel
+#: packed rows per block and keys per tile of the bf16/f16 decode kernel
+#: (flash_tc_kernel), on which the decode's chunks rest
 BLOCK_ROWS, KEY_TILE = 64, 64
+#: query rows per block and keys per tile of the bf16/f16 prefill kernel
+#: (flash_wgmma_kernel, csrc/flash_attn.cu's PF_ROWS and PF_KEYS) by the
+#: padded head dimension DT
+PREFILL_ROWS = {64: 128, 128: 128, 256: 64}
+PREFILL_KEYS = {64: 128, 128: 64, 256: 64}
 #: calls with at most this many query rows take the packed decode path
 DECODE_ROWS = 16
 #: packed decode rows a block: the tensor-core kernel's 64, the f32 FMA
@@ -104,6 +118,22 @@ def empty_partial(q: torch.Tensor, chunks: int) -> torch.Tensor:
                        device=q.device)
     part[..., d] = -1e30
     return part
+
+
+def head_tile(d: int) -> int:
+    """The head dimension the kernels pad D to: 64, 128 or 256."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def device_kernel(q: torch.Tensor) -> str:
+    """The bf16/f16 device kernel a call on q runs, as the profiler names
+    it (its template arguments are the type and the padded head dim)."""
+    if q.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"device_kernel names the half routes, got {q.dtype}")
+    name = ("flash_wgmma_kernel" if q.shape[2] > DECODE_ROWS
+            else "flash_tc_kernel")
+    ctype = "__nv_bfloat16" if q.dtype == torch.bfloat16 else "__half"
+    return f"{name}<{ctype}, {head_tile(q.shape[3])}>"
 
 
 def cuda_launches(q: torch.Tensor, k: torch.Tensor) -> int:
@@ -214,6 +244,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         )
     build.check_launch(lib, "flash_attention", code)
     return out
+
+
+def tma_operands(q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> tuple[bool, bool, bool]:
+    """Whether a bf16/f16 prefill on these operands loads q, k and v by
+    TMA (a 16-byte aligned start, (batch, head, seq) strides of whole
+    16-byte vectors) or has the kernel's producer threads copy each into
+    the same tiles. Both give the same bits, so results cannot tell which
+    ran; the card tests ask this. CUDA tensors of a 2-byte dtype."""
+    _check_cuda(q, k, v, None)
+    if q.element_size() != 2:
+        raise ValueError("tma_operands takes bfloat16 or float16 operands")
+    b, hq, sq, d = q.shape
+    lib = build.library("flash_attn", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        mask = lib.flash_prefill_tma_operands(
+            q.data_ptr(), *q.stride()[:3], k.data_ptr(), *k.stride()[:3],
+            v.data_ptr(), *v.stride()[:3], b, hq, k.shape[1], sq, k.shape[2],
+            d)
+    return bool(mask & 1), bool(mask & 2), bool(mask & 4)
 
 
 def flash_decode_partial_cuda(q: torch.Tensor, k: torch.Tensor,

@@ -280,8 +280,12 @@ def _flash_within(got, want, v):
     (1, 2, 2, 65, 65, 256, False, 24),
     (2, 32, 4, 1, 333, 64, True, None),
     (1, 4, 2, 9, 100, 8, True, 8),
+    (2, 8, 2, 17, 17, 64, True, None),
+    (1, 4, 1, 300, 2048, 64, True, None),
+    (1, 4, 2, 40, 100, 8, True, None),
 ], ids=["gqa-causal", "non-causal", "window", "ragged", "fully-masked",
-        "d256-window", "decode", "d8-short"])
+        "d256-window", "decode", "d8-short", "sq17", "chunk-over-prefix",
+        "d8-prefill"])
 def test_flash_kernel_matches_plain(cuda, dtype, b, hq, hkv, sq, sk, d,
                                     causal, window):
     q, k, v = _qkv(cuda, b, hq, hkv, sq, sk, d, dtype, seed=sq + d)
@@ -670,11 +674,14 @@ def test_trsm_ragged_leaves_and_batches(cuda, n, m, batch, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_kernel_rows_off_16_bytes(cuda, dtype):
+@pytest.mark.parametrize("sq,d", [(40, 64), (300, 80), (300, 256)])
+def test_flash_kernel_rows_off_16_bytes(cuda, dtype, sq, d):
     """Operands whose rows do not start on 16 bytes (an odd element
-    offset and odd strides) copy element by element (f32: 4-byte
-    cp.async copies) instead of 16 bytes at a time, with the same
-    result."""
+    offset and odd strides) copy element by element (the bf16 prefill's
+    producer threads into the TMA route's tiles; the decode's and f32's
+    copies element by element or 4 bytes at a time) instead of 16 bytes
+    at a time, with the same result: prefills over three 128-row blocks at
+    D = 80 and 256 as well as one short block, and a decode."""
     rng = np.random.default_rng(12)
 
     def odd(b, h, s, d):
@@ -682,9 +689,88 @@ def test_flash_kernel_rows_off_16_bytes(cuda, dtype):
         flat = flat.to(cuda, dtype)
         return flat[1:].view(b, h, s, d + 1)[..., :d]
 
-    q, k, v = odd(2, 8, 40, 64), odd(2, 2, 90, 64), odd(2, 2, 90, 64)
+    q, k, v = odd(2, 8, sq, d), odd(2, 2, sq + 50, d), odd(2, 2, sq + 50, d)
     _flash_close(q, k, v, causal=True)
     _flash_close(q[:, :, :1], k, v, causal=True)
+
+
+# --- the bf16/f16 prefill kernel (flash_wgmma_kernel) ---------------------
+
+#: the prefill routes of the model families, at small sizes: causal GQA
+#: (tinyllama), the window at D = 256 (gemma3), the chunk fold at D = 128
+#: (llama4, chunks as the batch) and non-causal at D = 80 (hubert)
+PREFILL_ROUTES = {
+    "causal": ((2, 8, 2, 300, 300, 64), {"causal": True}),
+    "window": ((2, 4, 1, 600, 600, 256), {"causal": True, "window": 256}),
+    "chunk-fold": ((2, 5, 1, 512, 512, 128), {"causal": True}),
+    "non-causal": ((2, 4, 4, 300, 300, 80), {"causal": False}),
+}
+
+
+def _profiled_kernel_names(fn) -> set:
+    """Names of the device kernels two calls of fn put on the card, by
+    torch.profiler, after 64 one-element fills that the profiler's cold
+    start may miss instead of fn's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    pad = torch.empty(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(64):
+            pad.fill_(0.0)
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+    cuda_type = torch.autograd.DeviceType.CUDA
+    return {e.name for e in prof.events() if e.device_type == cuda_type}
+
+
+@pytest.mark.parametrize("route", sorted(PREFILL_ROUTES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_prefill_routes_run_the_wgmma_kernel(cuda, route, dtype):
+    """Every bf16/f16 prefill route is one launch of flash_wgmma_kernel,
+    within the flash tolerance of the plain version; the decode kernel
+    (flash_tc_kernel) never runs a prefill."""
+    from repro_torch.kernels import flash_attn
+
+    shape, kw = PREFILL_ROUTES[route]
+    q, k, v = _qkv(cuda, *shape, dtype, seed=len(route), layout="bshd")
+    _flash_close(q, k, v, **kw)
+    call = lambda: ops.flash_attention(q, k, v, **kw)
+    assert _profiled_launches(call) == 1
+    names = _profiled_kernel_names(call)
+    assert any(flash_attn.device_kernel(q) in n for n in names), names
+    assert not any("flash_tc_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 256])
+def test_flash_prefill_tma_and_copy_routes_bit_equal(cuda, dtype, d):
+    """Aligned operands go in by TMA; the same values one element off
+    alignment are copied by the kernel's producer threads into the same
+    swizzled tiles, and give the same bits."""
+    from repro_torch.kernels import flash_attn
+
+    q, k, v = _qkv(cuda, 2, 4, 2, 300, 333, d, dtype, seed=d)
+    assert flash_attn.tma_operands(q, k, v) == (True, True, True)
+    odd = [torch.empty(t.numel() + 1, dtype=dtype, device=cuda)[1:]
+           .view(t.shape).copy_(t) for t in (q, k, v)]
+    assert flash_attn.tma_operands(*odd) == (False, False, False)
+    for kw in ({"causal": True}, {"causal": False}, {"window": 100}):
+        got = _flash_close(q, k, v, **kw)
+        assert torch.equal(got, ops.flash_attention(*odd, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_prefill_same_bits_run_to_run(cuda, dtype):
+    """No split keys and no atomics: a prefill's bits are the same on
+    every call."""
+    q, k, v = _qkv(cuda, 4, 32, 4, 2048, 2048, 64, dtype, seed=13,
+                   layout="bshd")
+    first = ops.flash_attention(q, k, v, causal=True)
+    for _ in range(3):
+        assert torch.equal(ops.flash_attention(q, k, v, causal=True), first)
 
 
 # --------------------------------------- the panel kernels' two routes

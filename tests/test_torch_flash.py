@@ -316,3 +316,159 @@ def test_decode_partial_chunk_is_the_decodes():
     src = (Path(flash_attn.__file__).parent / "csrc" / "flash_attn.cu").read_text()
     found = re.findall(r"constexpr int DECODE_CHUNK = (\d+);", src)
     assert [int(c) for c in found] == [flash_attn.decode_split(1)[0]]
+
+
+# --- the bf16/f16 prefill's tiling (flash_wgmma_kernel), emulated in plain
+# PyTorch -------------------------------------------------------------------
+
+def _tiled_prefill(q, k, v, *, causal=True, window=None,
+                   dtype=torch.float32):
+    """The bf16/f16 prefill kernel's arithmetic, as only the tests use it:
+    blocks of flash_attn.PREFILL_ROWS[DT] query rows; in each, the key tiles of
+    PREFILL_KEYS[DT] keys that the kernel's tile-skip rule visits (only
+    where every row of the block sees its own diagonal key); scores in
+    base 2 (scale · log2 e), masked ones the −1e30 sentinel (keys past Sk
+    add nothing); per tile the running max m, p = exp2(s − m) in f32, the
+    row sum l of the f32 p, and P rounded to `dtype` against that tile's
+    running max before P·V; at the end O / l (l = 0 read as 1), rounded to
+    `dtype`. q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D): f32 tensors holding
+    values of `dtype`; returns f32."""
+    from repro_torch.kernels import flash_attn
+
+    _, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rows = flash_attn.PREFILL_ROWS[flash_attn.head_tile(d)]
+    bk = flash_attn.PREFILL_KEYS[flash_attn.head_tile(d)]
+    kk = k.repeat_interleave(hq // hkv, dim=1)
+    vv = v.repeat_interleave(hq // hkv, dim=1)
+    scale2 = d ** -0.5 * np.log2(np.e)
+    off = sk - sq
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, rows):
+        q1 = min(q0 + rows, sq)
+        first, last = q0 + off, q1 - 1 + off
+        kt0, kt1 = 0, -(-sk // bk)
+        if causal and first >= 0:
+            kt1 = min(kt1, last // bk + 1)
+            if window is not None and first - window + 1 > 0:
+                kt0 = max(kt0, (first - window + 1) // bk)
+        qpos = torch.arange(q0, q1)[:, None] + off
+        m = torch.full((*q.shape[:2], q1 - q0, 1), -1e30)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((*q.shape[:2], q1 - q0, d))
+        for kt in range(kt0, kt1):
+            k0, k1 = kt * bk, min(kt * bk + bk, sk)
+            s = q[:, :, q0:q1] @ kk[:, :, k0:k1].transpose(-1, -2) * scale2
+            kpos = torch.arange(k0, k1)[None, :]
+            mask = torch.ones(q1 - q0, k1 - k0, dtype=torch.bool)
+            if causal:
+                mask &= kpos <= qpos
+            if window is not None:
+                mask &= kpos > qpos - window
+            s = s.masked_fill(~mask, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + p.to(dtype).float() @ vv[:, :, k0:k1]
+            m = m_new
+        out[:, :, q0:q1] = acc / torch.where(l == 0, 1.0, l)
+    return out.to(dtype).float()
+
+
+#: (B, Hq, Hkv, Sq, Sk, D, causal, window) of the prefill cases: GQA
+#: causal over three 128-row blocks, the last ragged; Sq 17, the
+#: shortest prefill; a 300-row chunk against 700 keys; a window of 40
+#: that crosses key tiles (whole tiles skipped); non-causal; D = 8 (one
+#: k-step, the rest zero), 80 (5 k-steps, P·V at DT = 128) and 256 (64-key
+#: tiles); causal Sq 77 over Sk 50, whose first 27 rows see no key
+PREFILL_CASES = {
+    "gqa-causal": (1, 4, 2, 300, 300, 16, True, None),
+    "sq17": (2, 4, 2, 17, 17, 16, True, None),
+    "300-over-700": (1, 2, 1, 300, 700, 16, True, None),
+    "window-40": (1, 2, 1, 300, 300, 16, True, 40),
+    "non-causal": (1, 2, 2, 200, 200, 16, False, None),
+    "d8": (1, 2, 1, 150, 150, 8, True, None),
+    "d80": (1, 2, 1, 150, 190, 80, True, None),
+    "d256": (1, 2, 1, 150, 150, 256, True, None),
+    "fully-masked": (1, 2, 1, 77, 50, 16, True, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_tiled_prefill_matches_pallas_and_plain(case, dtype):
+    """The prefill kernel's tiling and rounding points, emulated, against
+    the Pallas kernel in interpret mode and the port's plain version, at
+    the file's tolerance for the dtype."""
+    b, hq, hkv, sq, sk, d, causal, window = PREFILL_CASES[case]
+    q, k, v = _inputs(b, hq, hkv, sq, sk, d, seed=sq + d)
+    kw = {"causal": causal, "window": window}
+    tdtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    got = _tiled_prefill(*(torch.from_numpy(x).to(tdtype).float()
+                           for x in (q, k, v)), dtype=tdtype, **kw).numpy()
+    np.testing.assert_allclose(got, _pallas(q, k, v, dtype, **kw),
+                               atol=TOL[dtype])
+    np.testing.assert_allclose(got, _port(q, k, v, dtype, **kw),
+                               atol=TOL[dtype])
+    if case == "fully-masked":
+        mean = v.astype(np.float32).mean(axis=2, keepdims=True)
+        mean = np.repeat(mean, hq // hkv, axis=1)
+        np.testing.assert_allclose(got[:, :, :sq - sk],
+                                   np.broadcast_to(mean, (b, hq, sq - sk, d)),
+                                   atol=TOL[dtype])
+
+
+def _constexprs(pattern):
+    """The integers a regex finds in csrc/flash_attn.cu."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import flash_attn
+
+    src = (Path(flash_attn.__file__).parent / "csrc" / "flash_attn.cu").read_text()
+    return [tuple(int(x) for x in found) if isinstance(found, tuple)
+            else int(found) for found in re.findall(pattern, src)]
+
+
+def test_prefill_tile_constants_are_the_sources():
+    """The wrapper's prefill constants (which _tiled_prefill emulates) are
+    the kernel's: PF_ROWS query rows a block and PF_KEYS keys a tile at
+    DT = 64, 128, 256."""
+    from repro_torch.kernels import flash_attn
+
+    for name, table in (("PF_ROWS", flash_attn.PREFILL_ROWS),
+                        ("PF_KEYS", flash_attn.PREFILL_KEYS)):
+        found = _constexprs(rf"constexpr int {name}\[3\] = "
+                            r"\{(\d+), (\d+), (\d+)\};")
+        assert found == [tuple(table[dt] for dt in (64, 128, 256))]
+    assert [flash_attn.head_tile(d) for d in (8, 64, 72, 128, 136, 256)] == [
+        64, 64, 128, 128, 256, 256]
+
+
+def test_decode_constants_unchanged():
+    """The decode's constants, on which its chunks and the mesh decode's
+    bit-equality rest, are those of the decode kernel: 64 packed rows and
+    64-key tiles, two tiles a 128-key chunk, Sq <= 16."""
+    from repro_torch.kernels import flash_attn
+
+    assert (flash_attn.BLOCK_ROWS, flash_attn.KEY_TILE, flash_attn.CHUNK_TILES,
+            flash_attn.DECODE_ROWS) == (64, 64, 2, 16)
+    assert flash_attn.decode_split(2048) == (128, 16)
+    assert _constexprs(r"constexpr int MQ = (\d+);") == [flash_attn.BLOCK_ROWS]
+    assert _constexprs(r"constexpr int NK = (\d+);") == [flash_attn.KEY_TILE]
+    assert _constexprs(r"constexpr int DECODE_CHUNK = (\d+);") == [
+        flash_attn.CHUNK_TILES * flash_attn.KEY_TILE]
+
+
+@pytest.mark.parametrize("dtype,sq,d,want", [
+    (torch.bfloat16, 2048, 64, "flash_wgmma_kernel<__nv_bfloat16, 64>"),
+    (torch.float16, 17, 80, "flash_wgmma_kernel<__half, 128>"),
+    (torch.bfloat16, 16, 256, "flash_tc_kernel<__nv_bfloat16, 256>"),
+])
+def test_device_kernel_names_the_route(dtype, sq, d, want):
+    """A bf16/f16 call with Sq > 16 runs the wgmma prefill kernel, a
+    shorter one the decode kernel, at D padded to 64, 128 or 256."""
+    from repro_torch.kernels import flash_attn
+
+    assert flash_attn.device_kernel(torch.zeros(1, 2, sq, d, dtype=dtype)) == want
