@@ -236,7 +236,7 @@ adjoint solve and inverse against torch.linalg at the reference tests'
 1e-9, with one factorization, every op verified and each round's
 residual under its tolerance; each trisolve leg launched (24 wrapper
 calls over the three rounds); the inverse round under torch.profiler:
-8 wrapper calls of 2⌈4096/64⌉ − 1 = 127 CUDA launches each and no trsm
+8 wrapper calls of 2⌈4096/128⌉ − 1 = 63 CUDA launches each and no trsm
 kernel of a library; its four chunks bit-equal to one wide call of the
 same legs; server 1's block tamper of its strip and its chunk healed,
 the inverse bit-equal to the honest one; the inverse through the thread
@@ -748,12 +748,13 @@ def timed_device_events(everything) -> tuple[list, int, list]:
 
 
 #: windows profiled before one that lost events, or kept none, is used
-#: as it is (and an empty one fails the run). PROFILE_WINDOWS counts the
-#: timings profiled, those that needed more than one window
-#: (kernels_line names their rows) and the windows that lost events, and
-#: keeps the least and largest time from a launch to its event's start,
-#: for the run line.
-PROFILE_ATTEMPTS = 3
+#: as it is (and an empty one fails the run); three windows of one row in
+#: a row have each lost two thirds of their events on an H100, so six.
+#: PROFILE_WINDOWS counts the timings profiled, those that needed more
+#: than one window (kernels_line names their rows) and the windows that
+#: lost events, and keeps the least and largest time from a launch to its
+#: event's start, for the run line.
+PROFILE_ATTEMPTS = 6
 PROFILE_WINDOWS = {"timings": 0, "retried": 0, "retried_rows": [],
                    "windows_losing_events": 0, "launch_to_start_us": []}
 #: the host's CUDA runtime and driver calls that put work on the card,
@@ -4378,7 +4379,8 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         note="launches: wrapper calls on the single phase (strip_case's "
              "launches_per_single_call strips, the rest Algorithm-3 "
              "blocks); each call put cuda_launches_per_call kernels on the "
-             "stream (leaves and DMMA updates), counted by the profiler")
+             "stream (leaves and the recursion's products), counted by the "
+             "profiler")
     row("trsm_upper_right", "trsm.cu", "src/repro/kernels/trsm.py:114",
         [b, b, b], lambda: ops.trsm_upper_right(ut, rhs),
         lambda: ref.trsm_upper_right_ref(ut, rhs),

@@ -8,17 +8,18 @@ on one NVIDIA GPU.
 Each tree's run is a process of its own with that tree's `src` on its
 path, so two checkouts of `repro_torch` never share one; each builds its
 own kernels. A run times, by torch.profiler's device events (the mean
-over REPS calls after a warm-up), the Schur update in f32, bf16 and f16
-at lu_blocked's two shapes, the trailing 1024³ update and the inner
+over REPS calls after a warm-up), the Schur update in f64, f32, bf16 and
+f16 at lu_blocked's two shapes, the trailing 1024³ update and the inner
 992 × 32 × 992 update (a view of a 1024² tile against fresh strips),
 beside `torch.addmm` on the same operands (TF32 off); then
-`lu_blocked(x, 1024)` on an n = 4096 dominant matrix in f32, bf16 and
-f16 (and bf16 with acc_dtype=float32): the Schur kernels' device ms in
+`lu_blocked(x, 1024)` on an n = 4096 dominant matrix in f64, f32, bf16
+and f16 (and bf16 with acc_dtype=float32): the Schur kernels' device ms in
 one profiled call, their launches, the call's device ms and the median
 warm wall of WALLS calls. It prints one JSON line. The trees run in the
-order A B B A in every round, so that a drift of the card's clock over
-the call weighs on both. The last line gives, for each measurement, the
-median of the runs by tree and the second tree's over the first's.
+order A B B A in every round (A B C C B A for three), so that a drift of
+the card's clock over the call weighs on all. The last line gives, for
+each measurement, the median of the runs by tree and each later tree's
+over the first's.
 """
 from __future__ import annotations
 
@@ -67,8 +68,8 @@ def child(src: str, seed: int) -> dict:
         return torch.from_numpy(rng.standard_normal(shape)).to(dev, dtype)
 
     out = {"src": src, "card": torch.cuda.get_device_name(0)}
-    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16),
-                        ("f16", torch.float16)):
+    for name, dtype in (("f64", torch.float64), ("f32", torch.float32),
+                        ("bf16", torch.bfloat16), ("f16", torch.float16)):
         tile = draw((BLOCK, BLOCK), dtype)
         w = BLOCK - INNER
         shapes = {"1024^3": [draw((BLOCK, BLOCK), dtype) for _ in range(3)],
@@ -104,11 +105,12 @@ def child(src: str, seed: int) -> dict:
 
 
 def main(child=child, script: str = __file__, doc: str = __doc__) -> int:
-    """Run `script`'s `child` in each of two trees, A B B A a round, and
-    print the runs and their summary (flash_ab.py passes its own)."""
+    """Run `script`'s `child` in each tree, A B B A a round (A B C C B A
+    for three), and print the runs and their summary (flash_ab.py and
+    trsm_ab.py pass their own)."""
     ap = argparse.ArgumentParser(description=doc.splitlines()[0])
     ap.add_argument("--tree", action="append", default=[],
-                    help="NAME=PATH of a tree's src directory; give two")
+                    help="NAME=PATH of a tree's src directory; give two or more")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--child", metavar="SRC", help=argparse.SUPPRESS)
@@ -122,29 +124,34 @@ def main(child=child, script: str = __file__, doc: str = __doc__) -> int:
         print(f"{Path(script).stem}: no CUDA device", file=sys.stderr)
         return 2
     trees = dict(t.split("=", 1) for t in args.tree)
-    if len(trees) != 2:
-        ap.error("give two --tree NAME=PATH")
-    (a, a_src), (b, b_src) = trees.items()
-    runs: dict[str, list[dict]] = {a: [], b: []}
+    if len(trees) < 2:
+        ap.error("give two or more --tree NAME=PATH")
+    order = [*trees.items(), *reversed(trees.items())]
+    runs: dict[str, list[dict]] = {name: [] for name in trees}
     for _ in range(args.rounds):
-        for name, src in ((a, a_src), (b, b_src), (b, b_src), (a, a_src)):
+        for name, src in order:
             proc = subprocess.run(
                 [sys.executable, script, "--child", str(ROOT / src),
                  "--seed", str(args.seed)],
-                capture_output=True, text=True, timeout=600)
+                capture_output=True, text=True, timeout=900)
             if proc.returncode != 0:
                 print(proc.stderr[-4000:], file=sys.stderr)
                 return 1
             line = json.loads(proc.stdout.strip().splitlines()[-1])
             runs[name].append(line)
             print(json.dumps({"tree": name, **line}), flush=True)
+    first, *others = trees
     summary = {}
-    for key in runs[a][0]:
+    keys = dict.fromkeys(k for r in runs.values() for line in r for k in line)
+    for key in keys:
         if key in ("src", "card"):
             continue
-        med = {name: statistics.median(r[key] for r in runs[name])
-               for name in (a, b)}
-        summary[key] = {**med, f"{b}/{a}": med[b] / med[a] if med[a] else None}
+        med = {name: statistics.median(line[key] for line in runs[name])
+               for name in trees
+               if all(line.get(key) is not None for line in runs[name])}
+        summary[key] = {**med, **{
+            f"{b}/{first}": med[b] / med[first] if med.get(first) else None
+            for b in others if b in med}}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()

@@ -113,198 +113,22 @@
 // over all of K in f64 and rounded to the storage type once, by
 // __double2bfloat16 / __double2half (one rounding, not two through
 // float).
+// The DMMA and FMA rings (their copies, schedule and slice products) are
+// ring.cuh's, shared with the products of trsm.cu's recursive solve.
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
 #include "hopper.cuh"
 #include "precision.cuh"
+#include "ring.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- f64 DMMA
-constexpr int DM = 128;            // rows of OUT per block
-constexpr int DN = 64;             // columns of OUT per block
-constexpr int DK = 32;             // depth of one pipeline stage
-constexpr int STAGES = 3;          // K slices in flight
-constexpr int DTHREADS = 256;      // 8 warps: 4 (rows) x 2 (columns)
-
-// The ring's layout for operands stored as TS (double, or float, bfloat16
-// or half on the mixed routes): row strides in elements chosen so the
-// fragment reads below hit distinct banks (doubles: the 16 lanes of a
-// half warp; floats: all 32 lanes, rows g apart by 4 banks in A and
-// columns t apart by 8 in B; 2-byte types: rows g apart by 20 banks in A
-// and columns t apart by 4 in B, lanes 2 t and 2 t + 1 sharing a word)
-// and a whole number of 16-byte vectors, so every row of a stage starts
-// 16-byte aligned; VEC elements make one 16-byte copy.
-template <typename TS>
-struct Ring {
-  static constexpr int A_LD = DK + (sizeof(TS) == 2 ? 8 : 4);
-  static constexpr int B_LD = DN + (sizeof(TS) == 8 ? 4 : 8);
-  static constexpr int STAGE = DM * A_LD + DK * B_LD;
-  static constexpr int VEC = 16 / static_cast<int>(sizeof(TS));
-  static constexpr size_t SMEM = STAGES * STAGE * sizeof(TS);
-};
-
-// A warp's 32 x 32 tile as four 8-row groups r by four 8-column groups
-// ni: acc[r][ni][e] is row 8 r + g, column 8 ni + 2 t + e (g = lane / 4,
-// t = lane % 4). Fragments of one k-step of 4: fa[r] = A[8 r + g][t],
-// fb[ni] = B[t][8 ni + g] — the PTX layout of m16n8k4, whose rows are the
-// groups 2 mi and 2 mi + 1.
-__device__ __forceinline__ void dmma(double (&acc)[4][4][2],
-                                     const double (&fa)[4],
-                                     const double (&fb)[4]) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
-          "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-          : "+d"(acc[2 * mi][ni][0]), "+d"(acc[2 * mi][ni][1]),
-            "+d"(acc[2 * mi + 1][ni][0]), "+d"(acc[2 * mi + 1][ni][1])
-          : "d"(fa[2 * mi]), "d"(fa[2 * mi + 1]), "d"(fb[ni]));
-    }
-  }
-}
-
-// One element of BYTES (4 or 8), read where pred holds and zero-filled
-// otherwise; legal at any element offset.
-template <int BYTES>
-__device__ __forceinline__ void cp_async_elem(void* s, const void* g,
-                                              bool pred) {
-  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(sa),
-               "l"(g), "n"(BYTES), "r"(pred ? BYTES : 0));
-}
-
-// 16 bytes, of which `bytes` (a multiple of the element size, at most 16)
-// are read and the rest zero-filled; L2 only (.cg), and both addresses
-// 16-byte aligned.
-__device__ __forceinline__ void cp_async16(void* s, const void* g,
-                                           int bytes) {
-  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
-               "l"(g), "r"(bytes));
-}
-
-// One element of BYTES, zero-filled where pred fails: cp.async for 4 and
-// 8 bytes; a 2-byte element, below cp.async's smallest copy, by a plain
-// load and store (its stage is read only after the barrier that follows
-// the wait on this slice, so the ring's order holds).
-template <int BYTES>
-__device__ __forceinline__ void copy_elem(void* s, const void* g, bool pred) {
-  if constexpr (BYTES == 2) {
-    *static_cast<unsigned short*>(s) =
-        pred ? *static_cast<const unsigned short*>(g) : 0;
-  } else {
-    cp_async_elem<BYTES>(s, g, pred);
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// True where an operand can be staged 16 bytes at a time: unit stride
-// along the staged axis (A's k, B's n), a row stride a whole number of
-// 16-byte vectors and a 16-byte aligned start, as every block of
-// lu_blocked's 4096 x 4096 matrix has.
-template <typename TS>
-__device__ __forceinline__ bool pairs(const TS* p, long long rows,
-                                      long long unit) {
-  return unit == 1 && rows % Ring<TS>::VEC == 0 &&
-         (reinterpret_cast<unsigned long long>(p) & 15) == 0;
-}
-
-// Issue the copies of K slice [k0, k0 + DK): A rows [m0, m0 + DM) into
-// sa[r * A_LD + q], B columns [n0, n0 + DN) into sb[q * B_LD + s]; zeros
-// past m, n and k (the masked copies read nothing, from a valid address).
-// An operand that `pairs` goes VEC elements a copy; any other, strided,
-// transposed or at an odd offset, one element a copy (cp.async.ca, legal
-// at any element offset), consecutive threads along its unit-stride axis.
-template <typename TS>
-__device__ __forceinline__ void load_slice(
-    TS* sa, TS* sb, const TS* a, long long ar, long long ac, bool a_pairs,
-    const TS* b, long long br, long long bc, bool b_pairs, int m0, int n0,
-    int k0, int m, int n, int k) {
-  constexpr int A_LD = Ring<TS>::A_LD, B_LD = Ring<TS>::B_LD;
-  constexpr int VEC = Ring<TS>::VEC, SIZE = static_cast<int>(sizeof(TS));
-  const int tid = threadIdx.x;
-  static_assert(SIZE == 2 || SIZE == 4 || SIZE == 8, "element size");
-  if (a_pairs) {
-#pragma unroll
-    for (int j = 0; j < DM * DK / VEC / DTHREADS; ++j) {
-      const int e = tid + j * DTHREADS;
-      const int r = e / (DK / VEC), q = VEC * (e % (DK / VEC));
-      const bool ok = m0 + r < m && k0 + q < k;
-      cp_async16(sa + r * A_LD + q, ok ? a + (m0 + r) * ar + k0 + q : a,
-                 ok ? min(VEC, k - k0 - q) * SIZE : 0);
-    }
-  } else {
-    const bool along_k = ac == 1 || ar != 1;
-#pragma unroll
-    for (int j = 0; j < DM * DK / DTHREADS; ++j) {
-      const int e = tid + j * DTHREADS;
-      const int r = along_k ? e / DK : e % DM;
-      const int q = along_k ? e % DK : e / DM;
-      const bool ok = m0 + r < m && k0 + q < k;
-      copy_elem<SIZE>(sa + r * A_LD + q,
-                      ok ? a + (m0 + r) * ar + (k0 + q) * ac : a, ok);
-    }
-  }
-  if (b_pairs) {
-#pragma unroll
-    for (int j = 0; j < DK * DN / VEC / DTHREADS; ++j) {
-      const int e = tid + j * DTHREADS;
-      const int q = e / (DN / VEC), c = VEC * (e % (DN / VEC));
-      const bool ok = k0 + q < k && n0 + c < n;
-      cp_async16(sb + q * B_LD + c, ok ? b + (k0 + q) * br + n0 + c : b,
-                 ok ? min(VEC, n - n0 - c) * SIZE : 0);
-    }
-  } else {
-    const bool along_n = bc == 1 || br != 1;
-#pragma unroll
-    for (int j = 0; j < DK * DN / DTHREADS; ++j) {
-      const int e = tid + j * DTHREADS;
-      const int q = along_n ? e / DN : e % DK;
-      const int c = along_n ? e % DN : e / DK;
-      const bool ok = k0 + q < k && n0 + c < n;
-      copy_elem<SIZE>(sb + q * B_LD + c,
-                      ok ? b + (k0 + q) * br + (n0 + c) * bc : b, ok);
-    }
-  }
-}
-
-// The warp's 32 x 32 tile gains the product of one K slice in shared
-// memory, four k at a time, k ascending; fragments are widened to f64 as
-// they are read.
-template <typename TS>
-__device__ __forceinline__ void slice_product(const TS* sa, const TS* sb,
-                                              double (&acc)[4][4][2]) {
-  constexpr int A_LD = Ring<TS>::A_LD, B_LD = Ring<TS>::B_LD;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const TS* arow = sa + (32 * (warp >> 1) + g) * A_LD + t;
-  const TS* bcol = sb + t * B_LD + 32 * (warp & 1) + g;
-#pragma unroll
-  for (int kk = 0; kk < DK; kk += 4) {
-    double fa[4], fb[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      fa[r] = widen<TS, double>(arow[8 * r * A_LD + kk]);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      fb[ni] = widen<TS, double>(bcol[kk * B_LD + 8 * ni]);
-    }
-    dmma(acc, fa, fb);
-  }
-}
+// (ring.cuh: the ring, its copies and the DMMA fragment)
+constexpr int DM = 128;        // rows of OUT per block
+constexpr int DTHREADS = 256;  // 8 warps: 4 (rows) x 2 (columns)
 
 // Block (x, y, z) computes OUT[z][128 y : 128 y + 128, 64 x : 64 x + 64]
 // from operands stored as TS, summed in f64 and stored as TS.
@@ -316,58 +140,45 @@ schur_dmma_kernel(const TS* __restrict__ c, long long cb, long long cr,
                   long long bb, long long br, long long bc,
                   TS* __restrict__ out, long long ob, long long orr,
                   long long oc, int m, int n, int k) {
-  constexpr int A_LD = Ring<TS>::A_LD, STAGE = Ring<TS>::STAGE;
+  using R = Ring<TS, TS, DM>;
+  static_assert(R::THREADS == DTHREADS, "block shape");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  TS* ring = reinterpret_cast<TS*>(smem_raw);
   c += blockIdx.z * cb;
-  a += blockIdx.z * ab;
-  b += blockIdx.z * bb;
   out += blockIdx.z * ob;
-  const bool a_pairs = pairs(a, ar, ac), b_pairs = pairs(b, br, bc);
+  const Feed<TS> fa = feed(a + blockIdx.z * ab, ar, ac);
+  const Feed<TS> fb = feed(b + blockIdx.z * bb, br, bc);
   const int m0 = blockIdx.y * DM;
   const int n0 = blockIdx.x * DN;
-  const int slices = (k + DK - 1) / DK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < slices) {
-      TS* stage = ring + s * STAGE;
-      load_slice(stage, stage + DM * A_LD, a, ar, ac, a_pairs, b, br, bc,
-                 b_pairs, m0, n0, s * DK, m, n, k);
-    }
-    cp_async_commit();
-  }
-  // this thread's elements of C, fetched while the product runs
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = m0 + 32 * (warp >> 1) + (lane >> 2);
   const int col0 = n0 + 32 * (warp & 1) + 2 * (lane & 3);
   double cv[4][4][2], acc[4][4][2];
+  run_ring<STAGES>(
+      (k + DK - 1) / DK,
+      [&](int s) {
+        load_slice<TS, TS, DM>(smem_raw + (s % STAGES) * R::STAGE, fa, fb,
+                               m0, n0, s * DK, m, n, k);
+      },
+      [&] {  // this thread's elements of C, fetched while the product runs
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int gr = row0 + 8 * r;
+        for (int r = 0; r < 4; ++r) {
+          const int gr = row0 + 8 * r;
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
+          for (int ni = 0; ni < 4; ++ni) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int gc = col0 + 8 * ni + e;
-        cv[r][ni][e] =
-            (gr < m && gc < n) ? widen<TS, double>(c[gr * cr + gc * cc]) : 0.0;
-        acc[r][ni][e] = 0.0;
-      }
-    }
-  }
-  for (int kt = 0; kt < slices; ++kt) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of slice kt landed
-    __syncthreads();  // everyone's have, and slice kt - 1 is read
-    const int next = kt + STAGES - 1;
-    if (next < slices) {
-      TS* stage = ring + (next % STAGES) * STAGE;
-      load_slice(stage, stage + DM * A_LD, a, ar, ac, a_pairs, b, br, bc,
-                 b_pairs, m0, n0, next * DK, m, n, k);
-    }
-    cp_async_commit();
-    const TS* stage = ring + (kt % STAGES) * STAGE;
-    slice_product(stage, stage + DM * A_LD, acc);
-  }
+            for (int e = 0; e < 2; ++e) {
+              const int gc = col0 + 8 * ni + e;
+              cv[r][ni][e] = (gr < m && gc < n)
+                                 ? widen<TS, double>(c[gr * cr + gc * cc])
+                                 : 0.0;
+              acc[r][ni][e] = 0.0;
+            }
+          }
+        }
+      },
+      [&](int kt) {
+        slice_product<TS, TS, DM>(smem_raw + (kt % STAGES) * R::STAGE, acc);
+      });
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int gr = row0 + 8 * r;
@@ -392,7 +203,7 @@ int launch_dmma(const TS* c, long long cb, long long cr, long long cc,
                 const TS* b, long long bb, long long br, long long bc,
                 TS* out, long long ob, long long orr, long long oc,
                 int batch, int m, int n, int k, cudaStream_t stream) {
-  constexpr size_t SMEM = Ring<TS>::SMEM;
+  constexpr size_t SMEM = Ring<TS, TS, DM>::SMEM;
   const cudaError_t err = cudaFuncSetAttribute(
       schur_dmma_kernel<TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(SMEM));
@@ -405,116 +216,7 @@ int launch_dmma(const TS* c, long long cb, long long cr, long long cc,
 }
 
 // ------------------------------------------------------------- f32 on FMA
-constexpr int FM = 128;        // rows of OUT per block
-constexpr int FN = 64;         // columns of OUT per block
-constexpr int FK = 32;         // depth of one pipeline stage
-constexpr int FSTAGES = 3;     // K slices in flight
-constexpr int FTHREADS = 256;  // 16 x 16, each thread 8 rows x 4 columns
-// A slice as A[r][q], 36 floats a row, and B as B[q][s], 68 a row: whole
-// 16-byte vectors, and 4 mod 32 banks apart, so that neither the copies'
-// writes nor the fragment reads below collide on a bank
-constexpr int FA_LD = FK + 4;
-constexpr int FB_LD = FN + 4;
-constexpr int F_STAGE = FM * FA_LD + FK * FB_LD;  // floats
-constexpr size_t F_SMEM = FSTAGES * F_STAGE * sizeof(float);
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
-}
-
-// Issue the copies of an O x I block of an f32 operand into
-// tile[o * LD + i]: element (o, i) at p[(o0 + o) * os + (i0 + i) * is],
-// zeros where o0 + o >= on or i0 + i >= in. `vec` (unit stride along i, a
-// row stride of whole 16-byte vectors, a 16-byte aligned start): four
-// elements a 16-byte copy. Otherwise one element a 4-byte copy, legal at
-// any offset: consecutive threads along i where its stride is 1, else a
-// warp takes 8 consecutive o by 4 i, so that a unit stride along o (a
-// transposed operand) reads 32-byte runs, and with LD = 4 mod 32 the
-// warp's 32 writes land on 32 banks.
-template <int O, int I, int LD>
-__device__ __forceinline__ void stage_f32(float* tile, const float* p,
-                                          long long os, long long is,
-                                          bool vec, int o0, int on, int i0,
-                                          int in) {
-  static_assert(LD % 32 == 4 && O % 8 == 0 && I % 4 == 0, "f32 tile shape");
-  const int tid = threadIdx.x;
-  if (vec) {
-#pragma unroll
-    for (int j = 0; j < O * I / 4 / FTHREADS; ++j) {
-      const int e = tid + j * FTHREADS;
-      const int o = e / (I / 4), i = 4 * (e % (I / 4));
-      const bool ok = o0 + o < on && i0 + i < in;
-      cp_async16(tile + o * LD + i, ok ? p + (o0 + o) * os + i0 + i : p,
-                 ok ? min(4, in - i0 - i) * 4 : 0);
-    }
-  } else if (is == 1) {
-#pragma unroll
-    for (int j = 0; j < O * I / FTHREADS; ++j) {
-      const int e = tid + j * FTHREADS;
-      const int o = e / I, i = e % I;
-      const bool ok = o0 + o < on && i0 + i < in;
-      cp_async_elem<4>(tile + o * LD + i, ok ? p + (o0 + o) * os + i0 + i : p,
-                       ok);
-    }
-  } else {
-    const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-    for (int j = 0; j < O * I / FTHREADS; ++j) {
-      const int blk = warp + FTHREADS / 32 * j;
-      const int o = 8 * (blk % (O / 8)) + (lane & 7);
-      const int i = 4 * (blk / (O / 8)) + (lane >> 3);
-      const bool ok = o0 + o < on && i0 + i < in;
-      cp_async_elem<4>(tile + o * LD + i,
-                       ok ? p + (o0 + o) * os + (i0 + i) * is : p, ok);
-    }
-  }
-}
-
-// Row i (of 8) of a thread's tile: 4 ty + i for i < 4, 64 + 4 ty + i - 4
-// after, so that the two float4 reads of a k group stay 16 banks apart.
-__device__ __forceinline__ int f_row(int i) { return i < 4 ? i : 60 + i; }
-
-// The thread's 8 x 4 tile gains one K slice in shared memory, k ascending:
-// per four k, eight float4s of A (its rows, four k each) and four of B
-// (a k each, its four columns).
-__device__ __forceinline__ void fma_slice(const float* sa, const float* sb,
-                                          float (&acc)[8][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* arow = sa + 4 * ty * FA_LD;
-  const float* bcol = sb + 4 * tx;
-#pragma unroll
-  for (int kk = 0; kk < FK; kk += 4) {
-    float av[8][4], bv[4][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(arow + f_row(i) * FA_LD + kk);
-      av[i][0] = v.x;
-      av[i][1] = v.y;
-      av[i][2] = v.z;
-      av[i][3] = v.w;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(bcol + (kk + u) * FB_LD);
-      bv[u][0] = v.x;
-      bv[u][1] = v.y;
-      bv[u][2] = v.z;
-      bv[u][3] = v.w;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j] = fmaf(av[i][u], bv[u][j], acc[i][j]);
-        }
-      }
-    }
-  }
-}
+// (ring.cuh: the ring's f32 tiles, their copies and the FMA step)
 
 // Four neighbours (gr, gc .. gc + 3) of a row, zeros outside m x n: one
 // 16-byte load where unit-strided, aligned and whole.
@@ -578,36 +280,29 @@ schur_fma_kernel(const T* __restrict__ c, long long cb, long long cr,
   const bool b_vec = bc == 1 && br % 4 == 0 && aligned16(b);
   const int m0 = blockIdx.y * FM;
   const int n0 = blockIdx.x * FN;
-  const int slices = (k + FK - 1) / FK;
   const auto load = [&](int s) {
     float* sa = ring + (s % FSTAGES) * F_STAGE;
     stage_f32<FM, FK, FA_LD>(sa, a, ar, ac, a_vec, m0, m, s * FK, k);
     stage_f32<FK, FN, FB_LD>(sa + FM * FA_LD, b, br, bc, b_vec, s * FK, k,
                              n0, n);
   };
-#pragma unroll
-  for (int s = 0; s < FSTAGES - 1; ++s) {
-    if (s < slices) load(s);
-    cp_async_commit();
-  }
-  // this thread's elements of C, fetched while the product runs
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int row0 = m0 + 4 * ty, col0 = n0 + 4 * tx;
   float cv[8][4], acc[8][4];
+  run_ring<FSTAGES>(
+      (k + FK - 1) / FK, load,
+      [&] {  // this thread's elements of C, fetched while the product runs
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    load_row4(c, cr, cc, row0 + f_row(i), col0, m, n, cv[i]);
+        for (int i = 0; i < 8; ++i) {
+          load_row4(c, cr, cc, row0 + f_row(i), col0, m, n, cv[i]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  }
-  for (int kt = 0; kt < slices; ++kt) {
-    cp_async_wait<FSTAGES - 2>();  // this thread's copies of slice kt landed
-    __syncthreads();  // everyone's have, and slice kt - 1 is read
-    if (kt + FSTAGES - 1 < slices) load(kt + FSTAGES - 1);
-    cp_async_commit();
-    const float* sa = ring + (kt % FSTAGES) * F_STAGE;
-    fma_slice(sa, sa + FM * FA_LD, acc);
-  }
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+        }
+      },
+      [&](int kt) {
+        const float* sa = ring + (kt % FSTAGES) * F_STAGE;
+        fma_slice(sa, sa + FM * FA_LD, acc);
+      });
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     float v[4];

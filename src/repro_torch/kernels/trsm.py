@@ -9,13 +9,14 @@ so U goes over with a pointer to its last element and both strides
 negated, B and X with pointers to their last rows and negated row
 strides. Every operand goes with its strides, so strided and reversed
 views need no copy. One wrapper call puts `cuda_launches(n)` kernels on
-the stream: a 64-row leaf solve per leaf and a trailing update between
-consecutive leaves. `acc_dtype` (trsm_lower_cuda, trsm_upper_right_cuda)
-selects the mixed variant (the reference's acc_dtype, routes.ROUTES):
-the solve runs in the wider type, its intermediate rows kept in a
-workspace of that type, and the result is stored at B's type. Without
-it, bfloat16 and float16 solve in their own type, every operation
-rounded to it.
+the stream, in the order `plan(n)` lists: a recursive blocked solve of
+128-row leaves with a product between each two, which takes the rows
+just solved from every row below them in its half of the recursion.
+`acc_dtype` (trsm_lower_cuda, trsm_upper_right_cuda) selects the mixed
+variant (the reference's acc_dtype, routes.ROUTES): the solve runs in
+the wider type, its intermediate rows kept in a workspace of that type,
+and the result is stored at B's type. Without it, bfloat16 and float16
+solve in their own type, every operation rounded to it.
 """
 from __future__ import annotations
 
@@ -35,14 +36,31 @@ _SIGNATURES = {
     for suffix in set(routes.ROUTES["trsm_lower"].values())
 }
 _MAX_GRID_Z = 65535
-#: rows of one leaf of csrc/trsm.cu's blocked solve
-LEAF = 64
+#: rows of one leaf of csrc/trsm.cu's recursive solve
+LEAF = 128
+
+
+def plan(n: int, r0: int = 0) -> list[tuple]:
+    """The launches of one wrapper call on rows [r0, r0 + n) of a
+    triangle, in stream order, as csrc/trsm.cu's Solver::solve issues
+    them: ("leaf", r0, rows) solves a diagonal tile of at most LEAF rows;
+    ("product", r0, k, rows) takes T[r0 + k : r0 + k + rows, r0 : r0 + k]
+    times the solved rows [r0, r0 + k) from the rows below them. The
+    split n1 = LEAF · ⌈leaves / 2⌉ depends on n alone."""
+    if n <= 0:
+        return []
+    if n <= LEAF:
+        return [("leaf", r0, n)]
+    n1 = LEAF * ((-(-n // LEAF) + 1) // 2)
+    return [*plan(n1, r0), ("product", r0, n1, n - n1),
+            *plan(n - n1, r0 + n1)]
 
 
 def cuda_launches(n: int) -> int:
     """CUDA launches of one wrapper call on an n-row triangle: a leaf
-    solve per LEAF rows and an update between each two."""
-    return 2 * -(-n // LEAF) - 1 if n > 0 else 0
+    solve per LEAF rows and a product between each two, 2⌈n / LEAF⌉ − 1
+    (1 up to 128 rows, 15 at 1024, 63 at 4096)."""
+    return len(plan(n))
 
 
 def _check(kernel: str, tri: torch.Tensor, rhs: torch.Tensor,

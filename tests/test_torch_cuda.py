@@ -659,8 +659,8 @@ def test_trsm_columns_bit_equal_across_splits_and_strides(cuda, n, m):
 @pytest.mark.parametrize("n,m,batch", [(100, 50, None), (200, 130, 3),
                                         (65, 64, 2), (129, 1, 4)])
 def test_trsm_ragged_leaves_and_batches(cuda, n, m, batch, dtype):
-    """n not a multiple of the 64-row leaf, and stacks of several
-    matrices; f32 updates run on the FMA pipes, in f32."""
+    """n not a multiple of the leaf's rows, and stacks of several
+    matrices; f32 products run on the FMA pipes, in f32."""
     lead = () if batch is None else (batch,)
     l, u = (torch.from_numpy(t).to(cuda, dtype) for t in _triangles(lead, n, 7))
     b = torch.from_numpy(_rand((*lead, n, m), 8)).to(cuda, dtype)
@@ -671,6 +671,49 @@ def test_trsm_ragged_leaves_and_batches(cuda, n, m, batch, dtype):
     if batch:
         one = ops.trsm_lower(l[1], b[1])
         assert torch.equal(ops.trsm_lower(l, b)[1], one)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [63, 64, 65, 127, 128, 129, 1000, 1025])
+def test_trsm_recursion_edges_match_plain(cuda, n, dtype):
+    """The recursive solve around its leaves and splits: the edges of the
+    64- and 128-row leaf kernels (63, 64, 65), one leaf short of and past
+    a split (127, 128, 129, the last ending on a one-row leaf), three and
+    four levels of products (1000, 1025); B3 and B4 against their plain
+    versions."""
+    m = 150
+    l, u = (torch.from_numpy(t).to(cuda, dtype) for t in _triangles((), n, 31))
+    b = torch.from_numpy(_rand((n, m), 32)).to(cuda, dtype)
+    b2 = torch.from_numpy(_rand((m, n), 33)).to(cuda, dtype)
+    rtol = RTOL if dtype == torch.float64 else 1e-5
+    _close(ops.trsm_lower(l, b), ref.trsm_lower_ref(l, b), rtol)
+    _close(ops.trsm_upper_right(u, b2), ref.trsm_upper_right_ref(u, b2), rtol)
+
+
+def test_trsm_block_row_solve_bit_equal_to_its_column_blocks(cuda):
+    """The pipeline's block-row solve, L 1024² against a (1024, 4096) row:
+    one call equals four (1024, 1024) calls over its column blocks, bit for
+    bit, and its plain version within RTOL."""
+    l, _ = (torch.from_numpy(t).to(cuda) for t in _triangles((), 1024, 34))
+    row = torch.from_numpy(_rand((1024, 4096), 35)).to(cuda)
+    whole = ops.trsm_lower(l, row)
+    parts = [ops.trsm_lower(l, row[:, c:c + 1024]) for c in range(0, 4096, 1024)]
+    assert torch.equal(whole, torch.cat(parts, dim=1))
+    _close(whole, ref.trsm_lower_ref(l, row))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_trsm_batch_of_three_bit_equal_to_each_alone(cuda, dtype):
+    """A stack of three on grid z: each matrix's solve is the one it gets
+    alone, bit for bit, at a ragged n five levels deep."""
+    n, m = 1025, 130
+    l, u = (torch.from_numpy(t).to(cuda, dtype) for t in _triangles((3,), n, 36))
+    b = torch.from_numpy(_rand((3, n, m), 37)).to(cuda, dtype)
+    b2 = torch.from_numpy(_rand((3, m, n), 38)).to(cuda, dtype)
+    lower, upper = ops.trsm_lower(l, b), ops.trsm_upper_right(u, b2)
+    for i in range(3):
+        assert torch.equal(lower[i], ops.trsm_lower(l[i], b[i]))
+        assert torch.equal(upper[i], ops.trsm_upper_right(u[i], b2[i]))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -973,6 +1016,21 @@ def test_trsm_mixed_match_plain(cuda, st, acc, n, m, batch):
                 ref.trsm_upper_right_ref(u, b2, acc), st)
 
 
+@pytest.mark.parametrize("st,acc", MIXED, ids=MIXED_IDS)
+def test_trsm_mixed_three_levels_deep(cuda, st, acc):
+    """Every mixed route at n = 333 (six leaves, products three levels
+    deep, a 13-row last leaf), a batch of two, against its plain version
+    within 4 storage ulps."""
+    n, m = 333, 100
+    l, u = (torch.from_numpy(t).to(cuda, st) for t in _triangles((2,), n, 39))
+    b = torch.from_numpy(_rand((2, n, m), 40)).to(cuda, st)
+    b2 = torch.from_numpy(_rand((2, m, n), 41)).to(cuda, st)
+    _close_ulps(ops.trsm_lower(l, b, acc_dtype=acc),
+                ref.trsm_lower_ref(l, b, acc), st)
+    _close_ulps(ops.trsm_upper_right(u, b2, acc_dtype=acc),
+                ref.trsm_upper_right_ref(u, b2, acc), st)
+
+
 def test_trsm_mixed_columns_bit_equal_across_splits(cuda):
     """The mixed route keeps the split property: a call over m columns
     equals calls over its halves, bit for bit."""
@@ -1044,7 +1102,7 @@ def test_lu_panel_narrow_bit_equal_to_plain(cuda, dtype, shape):
 
 @pytest.mark.parametrize("dtype", HALVES)
 @pytest.mark.parametrize("n,m,batch", [(1024, 1024, None), (32, 992, None),
-                                        (100, 70, 3)])
+                                        (100, 70, 3), (1000, 300, None)])
 def test_trsm_narrow_bit_equal_to_plain(cuda, dtype, n, m, batch):
     lead = () if batch is None else (batch,)
     l, u = (torch.from_numpy(t).to(cuda, dtype) for t in _triangles(lead, n, 5))
@@ -1231,6 +1289,27 @@ def test_trsm_left_columns_bit_equal_across_splits(cuda, leg, n, m):
         parts = [ops.trsm_left(t, b[:, c0:c1], upper=upper, transpose_t=trans)
                  for c0, c1 in zip(cuts, cuts[1:])]
         assert torch.equal(whole, torch.cat(parts, dim=1))
+
+
+@pytest.mark.parametrize("leg", list(LEGS))
+def test_trsm_left_leg_shape_bit_equal_split_and_reversed(cuda, leg):
+    """At the inverse round's chunk shape, 4096² against 4096 × 1024: one
+    call equals four calls over column quarters, and the reversed legs
+    the lower solve of flipped contiguous copies, bit for bit."""
+    upper, trans = LEGS[leg]
+    l, u, b = _leg_operands(cuda, 4096, 1024, 42)
+    t = u if upper else l
+    whole = ops.trsm_left(t, b, upper=upper, transpose_t=trans)
+    parts = [ops.trsm_left(t, b[:, c:c + 256], upper=upper, transpose_t=trans)
+             for c in range(0, 1024, 256)]
+    assert torch.equal(whole, torch.cat(parts, dim=1))
+    op_t = (t.t() if trans else t).contiguous()
+    if upper != trans:
+        flipped = ops.trsm_left(op_t.flip(0, 1).contiguous(),
+                                b.flip(0).contiguous(), upper=False)
+        assert torch.equal(whole, flipped.flip(0))
+    else:
+        assert torch.equal(whole, ops.trsm_left(op_t, b, upper=False))
 
 
 def test_trsm_left_counts_legs_and_launches(cuda):

@@ -277,11 +277,13 @@ def test_schur_grid_refuses_what_the_card_would_refuse(dtype):
 def test_schur_device_kernels_are_the_sources_templates():
     """Every route's device kernel in schur.KERNELS is a __global__
     template of csrc/schur.cu, launched by that route's entry point with
-    the table's template arguments, and its row tile is the source's:
+    the table's template arguments, and its row tile is the source's
+    (schur.cu's, or that of ring.cuh, the header it shares with trsm.cu):
     chip_smoke.py checks the profiler's kernel names against this table."""
     import re
 
     src = (build.CSRC / "schur.cu").read_text()
+    src += (build.CSRC / "ring.cuh").read_text()
     assert set(schur.KERNELS) == set(routes.ROUTES["schur_update"].values())
     tile = {"schur_dmma_kernel": "DM", "schur_fma_kernel": "FM",
             "schur_wgmma_kernel": "WM"}
@@ -330,13 +332,93 @@ def test_flash_decode_split_covers_the_keys_and_fills_the_card(
             assert blocks >= 132
 
 
-@pytest.mark.parametrize("n,launches", [(32, 1), (64, 1), (65, 3), (256, 7),
-                                        (1024, 31), (0, 0)])
+@pytest.mark.parametrize("n,launches", [(32, 1), (128, 1), (129, 3), (256, 3),
+                                        (1024, 15), (0, 0)])
 def test_trsm_launches_per_call(n, launches):
-    """One leaf solve per 64 rows and one update between each two."""
+    """One leaf solve per 128 rows and one product between each two."""
     from repro_torch.kernels import trsm
 
     assert trsm.cuda_launches(n) == launches
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 333, 1000, 1025,
+                               4096])
+def test_trsm_plan_hands_each_row_its_terms_in_order(n):
+    """csrc/trsm.cu's recursion as trsm.plan lists it: cuda_launches(n)
+    launches; leaves of at most LEAF rows in row order; each product's K a
+    multiple of LEAF whose rows lie just below the rows it takes; and each
+    row gets every term k below its own once, in ascending k (what keeps
+    the narrow routes bit-equal to the plain substitution)."""
+    from repro_torch.kernels import trsm
+
+    steps = trsm.plan(n)
+    assert len(steps) == trsm.cuda_launches(n)
+    solved, got = 0, [0] * n  # rows solved; the next term each row takes
+    for step in steps:
+        if step[0] == "leaf":
+            _, r0, rows = step
+            assert r0 == solved and 0 < rows <= trsm.LEAF
+            assert all(got[i] == r0 for i in range(r0, r0 + rows))
+            solved += rows
+        else:
+            _, r0, k, rows = step
+            assert k % trsm.LEAF == 0 and r0 + k == solved and rows > 0
+            assert all(got[i] == r0 for i in range(r0 + k, r0 + k + rows))
+            got[r0 + k:r0 + k + rows] = [r0 + k] * rows
+    assert solved == n
+
+
+def test_trsm_plan_splits_as_the_source():
+    """trsm.plan mirrors csrc/trsm.cu's Solver::solve: the same leaf rows,
+    and the split at LEAF · ⌈leaves / 2⌉."""
+    import re
+
+    from repro_torch.kernels import trsm
+
+    src = (build.CSRC / "trsm.cu").read_text()
+    assert int(re.search(r"constexpr int LEAF = (\d+);", src).group(1)) == trsm.LEAF
+    assert "const int n1 = LEAF * ((leaves + 1) / 2);" in src
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("unit", [True, False])
+def test_trsm_plan_solves_as_the_plain_substitution(dtype, unit):
+    """The plan run with PyTorch's operators, as the kernels compute it
+    (a leaf's substitution; a product's sum subtracted once in f64, term
+    by term in the half types, each product and difference rounded):
+    bit-equal to the plain version in bfloat16 and float16, within RTOL
+    in f64."""
+    from repro_torch.kernels import trsm
+
+    n, m = 333, 5
+    t = torch.from_numpy(np.tril(_rand((n, n), 41), -1) / n
+                         + (1.0 if unit else n) * np.eye(n)).to(dtype)
+    b = torch.from_numpy(_rand((n, m), 42)).to(dtype)
+    w = b.clone()
+    for step in trsm.plan(n):
+        if step[0] == "leaf":
+            _, r0, rows = step
+            for k in range(r0, r0 + rows):
+                if not unit:
+                    w[k] = w[k] / t[k, k]
+                w[k + 1:r0 + rows] -= t[k + 1:r0 + rows, k, None] * w[k]
+            continue
+        _, r0, k, rows = step
+        below = slice(r0 + k, r0 + k + rows)
+        if dtype == torch.float64:
+            w[below] -= t[below, r0:r0 + k] @ w[r0:r0 + k]
+        else:
+            for q in range(r0, r0 + k):
+                w[below] -= t[below, q, None] * w[q]
+    if unit:
+        want = ref.trsm_lower_ref(t, b)
+    else:
+        want = ref.trsm_left_ref(t, b, upper=False)
+    if dtype == torch.float64:
+        scale = float(want.abs().max())
+        assert float((w - want).abs().max()) <= RTOL * scale
+    else:
+        assert torch.equal(w, want)
 
 
 def test_flash_launches_per_call_on_cpu_shapes():
