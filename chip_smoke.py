@@ -30,7 +30,7 @@ Phases, each printed as one JSON line:
    manual relay through `EdgeServer`s, `collect`, then the thread pool —
    factors bit-equal to the inline sweep's, launches equal to its
    launches; then a 16 × 1024 stack through the thread pool;
-10. worker processes (`MultiprocessTransport`) on the card, n = 4096,
+10. worker processes (`MultiprocessTransport`) on the card, n = 1024,
    N = 4: verified, factors bit-equal to the inline sweep's, the spawn
    and first sweep timed apart from a warm run;
 11. faults: a block tamper by server 1 through the thread pool (q3) and
@@ -43,7 +43,9 @@ Phases, each printed as one JSON line:
    path's prefill, q (4, 32, 2048, 64) and kv (4, 4, 2048, 64) as
    (B, S, H, D) views, causal, and its decode, q (4, 32, 1, 64) over a
    2048-long cache prefix, in bf16 and f32 (decode packs each GQA group
-   into one block and splits the keys into chunks, then merges them),
+   into a block and splits the keys into chunks; in bf16 one launch,
+   whose thread block cluster merges the chunks, in f32 a second launch
+   merges them),
    decode with a 40-key window inside the last chunk in both, gemma3's
    sliding prefill (q (4, 4, 2048, 256), window 1024) in f32, then small
    window, non-causal, ragged (50 / 77) and fully-masked (Sq > Sk) cases:
@@ -69,10 +71,9 @@ Phases, each printed as one JSON line:
    at 4 layers, qwen2-vl at 2 layers, hubert-xlarge), counts set to 0
    before each: prefill of 4 × 2048 (llama4: 1 × 16384, two chunks
    folded into the batch) with a flash launch per attention layer, one
-   profiled; decode against prefill in bf16 (gemma3 over RING_LEN
-   tokens, past its window, so its rings wrap) and in f32 (windows cut
-   to F32_WINDOW), on the dense MoE; the f32 card prefill against the
-   CPU's; greedy generation for the token decoders; the flash launches
+   profiled; decode against prefill in bf16 and in f32 (local windows
+   cut to F32_WINDOW, so gemma3's rings wrap), on the dense MoE; the
+   f32 card prefill against the CPU's; greedy generation for the token decoders; the flash launches
    by route (FlashRoutes), and the kernel against its plain version at
    the families' shapes (models_vs_plain).
 
@@ -271,10 +272,12 @@ are the f32 route's on phase 13, no run of which has that shape), then
 each route over phase 13's family runs (each bf16 prefill row, and the
 flash_attention row, names its device kernel by the profiler,
 device_kernels, and the run fails unless that is flash_wgmma_kernel
-alone), and "flash_attention:decode_partial"
+alone; the bf16 decode rows, the flash_attention row's decode_case,
+":ring_decode" and ":decode_partial", likewise hold their one launch
+to flash_decode_kernel alone), and "flash_attention:decode_partial"
 and ":combine" (the split decode's halves at half the bf16 decode case's
 keys and at both halves' chunks, launches from phase 15's decode under
-the mesh). Each timing names the
+the mesh; the merge's device kernel is flash_combine_kernel). Each timing names the
 profiler windows it took (profile_windows); the run line counts the
 timings that needed more than one and names their rows, counts the
 windows that lost a device event (each profiled again), and gives the
@@ -314,6 +317,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -396,13 +400,12 @@ SERVE_TOL_BF16 = {"mamba2-370m": 1e-1}
 SERVE_MODELS = (("gemma3-1b", None), ("granite-moe-1b-a400m", None),
                 ("mamba2-370m", None), ("llama4-scout-17b-a16e", 4),
                 ("qwen2-vl-72b", 2), ("hubert-xlarge", None))
-#: gemma3's bf16 decode against prefill runs this many tokens, past its
-#: 1024-token window, so its sliding layers' rings wrap
-RING_LEN = 1088
-#: the window the f32 decode against prefill (CONSISTENCY_LEN tokens) and
-#: the card-against-CPU prefill (CPU_CHECK_LEN tokens) cut local layers
-#: to, so that both run the local prefill and wrap the rings; llama4's
-#: bf16 run cuts its 8192-token chunks to F32_WINDOW too
+#: the window the decode against prefill in bf16 and f32 (CONSISTENCY_LEN
+#: tokens) and the card-against-CPU prefill (CPU_CHECK_LEN tokens) cut
+#: local layers to, so that each runs the local prefill and wraps the
+#: rings (gemma3 at its own 1024-token window needed 1088 decode steps,
+#: about 70 s of the run; the ring decode at 1024 slots is the kernels
+#: line's ring_decode row); llama4's 8192-token chunks are cut the same
 F32_WINDOW, CPU_WINDOW = 64, 16
 #: a prefill of one row past llama4's 8192-token chunk: two chunks,
 #: folded into the batch
@@ -512,6 +515,9 @@ REPORTED_TAMPER_KW = {"server": 2, "mode": "block", "magnitude": 0.3}
 #: the recovery phase's worker-process case: n (the honest relay through
 #: four worker processes takes seconds a pass at n = 4096)
 MP_RECOVERY_N = 1024
+#: the multiprocess phase's n: each task and result crosses a pipe as
+#: wire frames, so n = 4096 spent about 90 s of the run on pipe trips
+MP_N = 1024
 #: the rateless phase's stacks of BATCH_N matrices: the stack run in
 #: lanes, and the reference's acceptance case (tests/test_rateless.py
 #: runs it on 5 x 32)
@@ -570,12 +576,24 @@ PIPELINE_PROGRAMS = ("baseline", "exact", "stream")
 PIPELINE_RTOL = 1e-10
 PIPELINE_BUDGET_S = 60.0
 
+#: calls a timing of a plain triangular solve takes: each is a loop of
+#: one to four thousand steps, whose launches the profiler records one
+#: by one (seconds a window at 2 or 3 calls)
+SOLVE_PLAIN_REPS = 1
 #: device_events' padding before a timed loop: launches and seconds
 WARM_LAUNCHES, WARM_PAUSE_S = 64, 0.01
 TIMED_RANGE = "chip_smoke.timed"
 
 
+#: perf_counter at the start of main(); each phase line carries its
+#: seconds since then as "at_s", so a run cut at its time limit still
+#: says where its time went
+STARTED = [time.perf_counter()]
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - STARTED[0]}
     print(json.dumps(obj), flush=True)
 
 
@@ -648,12 +666,22 @@ def kernel_names(fn) -> list:
 def prefill_kernels(fn, q) -> list:
     """The device kernels of one bf16/f16 prefill call, held to the
     wgmma prefill kernel the wrapper names for q (flash_wgmma_kernel)
-    alone: never the decode's flash_tc_kernel."""
+    alone: never the decode's flash_decode_kernel."""
     from repro_torch.kernels import flash_attn
 
     names = kernel_names(fn)
     check(names == [flash_attn.device_kernel(q)],
           f"a prefill ran {names}, not {flash_attn.device_kernel(q)}")
+    return names
+
+
+def decode_kernels(fn, want: str) -> list:
+    """The device kernels of one bf16/f16 decode call (or one of its
+    halves), held to `want` alone: the decode kernel the wrapper names
+    (flash_decode_kernel, which merges its chunks in the same launch),
+    or the split decode's merge, flash_combine_kernel."""
+    names = kernel_names(fn)
+    check(names == [want], f"a decode ran {names}, not {want}")
     return names
 
 
@@ -726,7 +754,48 @@ def profiled(fn, reps: int, trace: Path | None = None):
             host_s = time.perf_counter() - t0
     if trace is not None:
         prof.export_chrome_trace(str(trace))
-    return prof.events(), host_s
+    return window_events(prof), host_s
+
+
+class WindowEvent(NamedTuple):
+    """What this script reads of a profiler event: its name (demangled,
+    as prof.events() gives it), device type, correlation id, time range
+    (µs from the trace's start) and stream (device_resource_id)."""
+    name: str
+    device_type: object
+    id: int
+    time_range: object
+    device_resource_id: int
+
+
+def window_events(prof) -> list:
+    """The events of a finished profile that this script reads, as
+    WindowEvents: every device event and every host event but PyTorch's
+    operators (aten::, which nothing here reads; the launch calls and the
+    record_function ranges stay), read straight from the profiler's
+    results, with the names prof.events() drops left out. prof.events()
+    builds every event's full record and a tree of them first, which
+    for a plain version's loop of small launches took seconds a window
+    (profile_parse_probe.py)."""
+    from torch.autograd.profiler_util import Interval, StringTable, _filter_name
+
+    cuda = torch.autograd.DeviceType.CUDA
+    result = prof.profiler.kineto_results
+    start = result.trace_start_ns()
+    names = StringTable()
+    out = []
+    for e in result.events():
+        name = e.name()
+        if name.startswith("aten::") and e.device_type() != cuda:
+            continue
+        hidden = getattr(e, "is_hidden_event", lambda: False)()
+        if _filter_name(name) or hidden:
+            continue
+        out.append(WindowEvent(
+            names[name], e.device_type(), e.correlation_id(),
+            Interval((e.start_ns() - start) / 1e3, (e.end_ns() - start) / 1e3),
+            e.device_resource_id()))
+    return out
 
 
 def timed_device_events(everything) -> tuple[list, int, list]:
@@ -1360,7 +1429,9 @@ def phase_multiprocess(rng, dev, rng_new) -> tuple[dict, dict]:
                                  MultiprocessTransport, SPDCClient)
     from repro_torch.kernels import ops
 
-    m = dominant(rng, (SINGLE_N, SINGLE_N))
+    # drawn at SINGLE_N, so the later phases keep their inputs; its
+    # leading MP_N block is as dominant
+    m = np.ascontiguousarray(dominant(rng, (SINGLE_N, SINGLE_N))[:MP_N, :MP_N])
     client = SPDCClient()
     session, pmop = run_counted(ops, lambda: client.open_session(m, N_SERVERS))
     inline = InlineTransport().sweep(session.x_aug, N_SERVERS)
@@ -1388,7 +1459,7 @@ def phase_multiprocess(rng, dev, rng_new) -> tuple[dict, dict]:
         check(N_SERVERS in mp.workers, f"no standby process: {mp.workers}")
         recovery.update(n=MP_RECOVERY_N, wall_s=healed_s,
                         workers=list(mp.workers))
-    emit({"phase": "multiprocess", "n": SINGLE_N, "servers": N_SERVERS,
+    emit({"phase": "multiprocess", "n": MP_N, "servers": N_SERVERS,
           "dtype": "float64", "verified": out.verified,
           "bit_equal_to_inline": True, "max_abs_diff": diff,
           "spawn_and_first_sweep_s": first_s, "warm_wall_s": warm_s,
@@ -3621,12 +3692,10 @@ def serve_model(arch: str, layers: int | None, dev, seed: int) -> dict:
                                                   for k, v in top}}}
     gate = replace(cfg, moe_impl="dense") if cfg.num_experts else cfg
     if cfg.causal:
-        # gemma3 at its own window over RING_LEN tokens; llama4's chunks
-        # cut to F32_WINDOW, or 128 tokens would stay inside one
-        length = (RING_LEN if cfg.window and cfg.window < RING_LEN
-                  else CONSISTENCY_LEN)
-        bf16_cfg = replace(gate, window=F32_WINDOW) if chunked else gate
-        long = model_inputs(cfg, dev, PREFILL_BATCH, length, seed, 1)
+        # local windows and llama4's chunks cut to F32_WINDOW, or 128
+        # tokens would stay inside one
+        bf16_cfg = replace(gate, window=F32_WINDOW) if cfg.window else gate
+        long = model_inputs(cfg, dev, PREFILL_BATCH, CONSISTENCY_LEN, seed, 1)
         bf16 = decode_vs_prefill(ops, model, bf16_cfg, long)
         bf16["window"] = bf16_cfg.window
         # one expert a token: a routing tie broken the other way by bf16
@@ -4312,6 +4381,7 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
             **case(kernel, plain, library, reps, plain_reps, nbytes,
                    ops_count, dtype, expect_launches, peak),
             **extra,
+            "at_s": time.perf_counter() - STARTED[0],
         })
 
     m = torch.from_numpy(rng.standard_normal((n, n))).to(dev)
@@ -4374,7 +4444,8 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         lambda: ops.trsm_lower(lt, rhs), lambda: ref.trsm_lower_ref(lt, rhs),
         lambda: torch.linalg.solve_triangular(lt, rhs, upper=False,
                                               unitriangular=True),
-        10, 3, (b * (b - 1) / 2 + 2 * b * b) * 8, b * (b - 1) * b,
+        10, SOLVE_PLAIN_REPS, (b * (b - 1) / 2 + 2 * b * b) * 8,
+        b * (b - 1) * b,
         expect_launches=trsm.cuda_launches(b), strip_case=strip_lower,
         note="launches: wrapper calls on the single phase (strip_case's "
              "launches_per_single_call strips, the rest Algorithm-3 "
@@ -4385,7 +4456,7 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         [b, b, b], lambda: ops.trsm_upper_right(ut, rhs),
         lambda: ref.trsm_upper_right_ref(ut, rhs),
         lambda: torch.linalg.solve_triangular(ut, rhs, upper=True, left=False),
-        10, 3, (b * (b + 1) / 2 + 2 * b * b) * 8, b * b * b,
+        10, SOLVE_PLAIN_REPS, (b * (b + 1) / 2 + 2 * b * b) * 8, b * b * b,
         expect_launches=trsm.cuda_launches(b), strip_case=strip_upper,
         note="the lower solver on the transposed problem (trsm.cu)")
     # the pipeline's block-row solve (L_ii against the server's whole
@@ -4397,7 +4468,8 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         lambda: ref.trsm_lower_ref(lii, srow),
         lambda: torch.linalg.solve_triangular(lii, srow, upper=False,
                                               unitriangular=True),
-        10, 2, (rb * (rb - 1) / 2 + 2 * rb * rn) * 8, rb * (rb - 1) * rn,
+        10, SOLVE_PLAIN_REPS, (rb * (rb - 1) / 2 + 2 * rb * rn) * 8,
+        rb * (rb - 1) * rn,
         expect_launches=trsm.cuda_launches(rb),
         note="the pipeline's row solve (distributed=True): each server "
              "solves L_ii against its whole (b, n) Schur-updated row on its "
@@ -4419,7 +4491,8 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
                 t, rhs_f, upper=upper, transpose_t=trans),
             lambda t=t, upper=upper, trans=trans: torch.linalg.solve_triangular(
                 t.T if trans else t, rhs_f, upper=upper != trans),
-            10, 2, (nn * (nn + 1) / 2 + 2 * nn * mm) * 8, nn * nn * mm,
+            10, SOLVE_PLAIN_REPS, (nn * (nn + 1) / 2 + 2 * nn * mm) * 8,
+            nn * nn * mm,
             expect_launches=trsm.cuda_launches(nn),
             note="a left solve of a trisolve chunk (ops.trsm_left), timed "
                  "at the inverse round's chunk shape: launches are wrapper "
@@ -4477,6 +4550,8 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         lambda: sdpa(qd, kd, vd, enable_gqa=True), 50, 10,
         2 * (2 * fb * hq * d + 2 * fb * hkv * s * d), 4 * fb * hq * s * d,
         bf16, expect_launches=flash_attn.cuda_launches(qd, kd))
+    decode_case["device_kernels"] = decode_kernels(
+        lambda: ops.flash_attention(qd, kd, vd), flash_attn.device_kernel(qd))
     row("flash_attention", "flash_attn.cu", "src/repro/kernels/flash_attn.py:79",
         [fb, hq, s, d], lambda: ops.flash_attention(q, k, v, causal=True),
         lambda: ref.flash_attention_ref(q, k, v, causal=True),
@@ -4496,9 +4571,12 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
              "a step, under autograd; autograd_case: the forward kernel and "
              "the plain backward at the prefill shape); causal prefill counted at half "
              "of 4·B·Hq·S²·D; bf16 prefill on wgmma fed by a TMA ring "
-             "(device_kernels, by the profiler), decode on mma.sync packs "
-             "each GQA group and splits the keys, then merges the chunks "
-             "(decode_case's cuda_launches_per_call); the library call "
+             "(device_kernels, by the profiler), decode in one launch of "
+             "flash_decode_kernel (decode_case's device_kernels and "
+             "cuda_launches_per_call): each GQA group packed into a block, "
+             "four warps splitting each 128-key chunk, a TMA ring fed by a "
+             "producer warp, the chunks merged by a thread block cluster; "
+             "the library call "
              "(scaled_dot_product_attention) is a yardstick the port never "
              "calls")
     # the same shapes in f32 (the FMA kernel, one launch a call), which
@@ -4526,8 +4604,9 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
              "prefill over 128 tokens, and the f32 card prefill); f32 on "
              "the FMA pipes (flash_fma32_kernel): prefill 128 query rows "
              "a block, 8 x 4 a thread, a cp.async ring; decode packs each "
-             "GQA group, splits the keys and merges the chunks "
-             "(decode_case's cuda_launches_per_call); the bound at the f32 "
+             "GQA group, splits the keys and merges the chunks in a second "
+             "launch, flash_combine_kernel (decode_case's "
+             "cuda_launches_per_call); the bound at the f32 "
              "rate")
     # the split decode's halves (decode under a mesh), bf16: the partial
     # over the first of two ranks' halves of the decode case's keys, and
@@ -4544,10 +4623,14 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         2 * (fb * hq * d + 2 * fb * hkv * half * d)
         + 4 * per_half * fb * hq * (d + 2),
         4 * fb * hq * half * d, bf16, expect_launches=1,
+        device_kernels=decode_kernels(
+            lambda: ops.flash_decode_partial(qd, kh, vh, chunks=per_half),
+            flash_attn.device_kernel(qd)),
         kv_range=[fb, hkv, half, d], partials=[per_half, fb, hq, 1, d + 2],
         note="launches from the mesh phase's decode under the (1, 1) mesh "
              "(22 layers x 16 greedy steps); the split decode's first "
-             "half alone (flash_tc_kernel with every chunk's f32 partial "
+             "half alone (flash_decode_kernel, a block a chunk and no "
+             "cluster, every chunk's f32 partial "
              "left in the caller's buffer), over one of two ranks' key "
              "ranges; bytes: q, the range's K and V once, the partials "
              "written once; no library call computes a partial")
@@ -4561,8 +4644,12 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         lambda: ref.flash_combine_ref(part, bf16), None, 50, 10,
         4 * part.numel() + 2 * fb * hq * d, 2 * part.numel(), f32,
         expect_launches=1, out_dtype="bfloat16",
+        device_kernels=decode_kernels(
+            lambda: ops.flash_combine(part, bf16),
+            "flash_combine_kernel<__nv_bfloat16, 2>"),
         note="launches from the mesh phase's decode under the (1, 1) mesh; "
-             "the split decode's second half alone (flash_combine_kernel) "
+             "the split decode's second half alone (flash_combine_kernel, "
+             "merge_row: the decode cluster's own merge) "
              "over two ranges' 16 chunks of f32 partials into the bf16 "
              "output; bytes: the partials read once, the output written "
              "once; the bound at the f32 rate; no library call merges "
@@ -4621,9 +4708,14 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         2 * (2 * fb * 4 * 256 + 2 * fb * w * 256), 4 * fb * 4 * w * 256,
         dtype=bf16, kv_shape=[fb, 1, w, 256],
         expect_launches=flash_attn.cuda_launches(q, k),
+        device_kernels=decode_kernels(lambda: ops.flash_attention(q, k, v),
+                                      flash_attn.device_kernel(q)),
         note="gemma3-1b's sliding layers in decode, over a wrapped ring "
-             "of 1024 slots (every slot attended): the decode route "
-             "(packed GQA group, keys split into chunks, then merged)")
+             "of 1024 slots (every slot attended): the decode route, one "
+             "launch of flash_decode_kernel at D = 256 (packed GQA group, "
+             "keys split into 8 chunks, the chunks merged by the 8-block "
+             "cluster); the library call is SDPA with K and V repeated to "
+             "the query heads")
     del q, k, v, kr, vr
     cw, heads, kvh, d2 = 8192, 40, 8, 128
     q, k, v = flash_inputs(rng, dev, bf16, 2, heads, kvh, cw, cw, d2)
@@ -4732,7 +4824,8 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
                               ops_of(INNER, w), arith,
                               expect_launches=trsm.cuda_launches(INNER))
             row(f"{kernel}:{route}", "trsm.cu", source, [b, b, b],
-                call(tri, rhs), plain(tri, rhs), lib(tri, rhs), 10, 3,
+                call(tri, rhs), plain(tri, rhs), lib(tri, rhs), 10,
+                SOLVE_PLAIN_REPS,
                 (tri_bytes(b) + 2 * b * b) * size, ops_of(b, b), arith,
                 expect_launches=trsm.cuda_launches(b),
                 strip_case={"shape": [INNER, INNER, w], **strip_case},
@@ -4789,7 +4882,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     import repro_torch  # noqa: F401 — fails outside a checkout of the repo
 
-    started = time.perf_counter()
+    started = STARTED[0] = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(args.seed)

@@ -69,10 +69,11 @@ def target(name: str) -> Path:
 
 def build(names=SOURCES) -> dict[str, float]:
     """Compile every named source whose library is missing, one nvcc
-    each, all at once. Returns {name: seconds} for what it compiled;
-    raises with the compiler's output if any compile fails. The ptxas
-    report (registers, shared memory, spills) is kept beside each
-    library as `<library>.log`."""
+    each, all at once. Returns {name: seconds} for what it compiled,
+    each from the start to that nvcc's own exit; raises with the
+    compiler's output if any compile fails. The ptxas report (registers,
+    shared memory, spills) is kept beside each library as
+    `<library>.log`."""
     with _BUILD_LOCK:
         return _build(names)
 
@@ -81,27 +82,41 @@ def _build(names) -> dict[str, float]:
     compiler = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
-    for name in names:
-        out = target(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        started[name] = (proc, tmp, out, time.perf_counter())
-    seconds, failed = {}, []
     try:
-        for name, (proc, tmp, out, t0) in started.items():
-            log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
-            seconds[name] = time.perf_counter() - t0
-            Path(f"{out}.log").write_text(log)
-            if proc.returncode != 0:
-                failed.append(f"{name}.cu (exit {proc.returncode}):\n{log}")
-            else:
-                os.replace(tmp, out)
+        for name in names:
+            out = target(name)
+            if out.exists():
+                continue
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            log = Path(f"{out}.log")
+            cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            # the compiler's output goes to its log file, not a pipe that
+            # could fill while the others are waited for
+            with log.open("w") as sink:
+                proc = subprocess.Popen(cmd, stdout=sink,
+                                        stderr=subprocess.STDOUT)
+            started[name] = (proc, tmp, out, log, time.perf_counter())
+        seconds, failed = {}, []
+        deadline = time.perf_counter() + NVCC_TIMEOUT_S
+        while len(seconds) < len(started):
+            for name, (proc, tmp, out, log, t0) in started.items():
+                if name in seconds or proc.poll() is None:
+                    continue
+                seconds[name] = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    failed.append(f"{name}.cu (exit {proc.returncode}):\n"
+                                  f"{log.read_text()}")
+                else:
+                    os.replace(tmp, out)
+            if len(seconds) < len(started):
+                if time.perf_counter() > deadline:
+                    late = sorted(set(started) - set(seconds))
+                    raise RuntimeError(f"nvcc took over {NVCC_TIMEOUT_S} s "
+                                       f"for {', '.join(late)}")
+                time.sleep(0.05)
     finally:
-        for proc, _, _, _ in started.values():
+        for proc, *_ in started.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()

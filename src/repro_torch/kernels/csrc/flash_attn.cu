@@ -35,8 +35,12 @@
 // B Hq S (S + 1) / 2 = 268.6 M exp2f there take about as long again on
 // the SFUs (16 a clock an SM, ~3.9 T/s): run after the products instead of
 // under them, they would double that floor. For decode (Sq = 1 over a
-// cache prefix), bytes: 8.4 MB of cache at 2048 keys is 2.5 us, the
-// arithmetic a thousandth of that.
+// cache prefix), bytes: 8.4 MB of cache at 2048 keys is 2.5 us, and
+// gemma3's ring of 1024 slots at D = 256 and batch 4 is 4.2 MB, 1.26 us;
+// the products are about 16 operations a byte at D = 256, 60 times below
+// the tensor cores' line. What limits a decode is the bytes in flight on
+// each SM (about 25 KB by Little's law to feed 3.35 TB/s) and the
+// launches.
 //
 // bf16 and f16 prefill (Sq > 16), flash_wgmma_kernel<T, DT>: Hopper's
 // instructions, designed for this card rather than carried over:
@@ -84,25 +88,45 @@
 // Every configuration runs in registers alone: on this toolkit ptxas
 // gives the pipelined consumer about 168 registers whatever setmaxnreg
 // grants, and a thread's O, S and P (64 + 32 + 16 at DT = 128) fit that.
-// Decode (Sq <= 16), flash_tc_kernel<T, DT>: one block serves one (batch,
-// kv head) and packs the rows of every query head of its GQA group
-// (tinyllama: 8 heads x 1 row), so a kv head's prefix is read once, not
-// once per query head. Both products on mma.sync m16n8k16 with f32
-// accumulators, operands fetched from shared memory by ldmatrix (K plain,
-// V transposed); a block is 4 warps and 64 packed rows, 16 a warp, Q in
-// registers as A fragments (D <= 128); K and V tiles of 64 keys, rows
-// XOR-swizzled by 16-byte chunk, double-buffered with cp.async (operands
-// whose rows do not start on 16 bytes copied element by element). The
-// keys are split into chunks of a fixed 128 keys across blocks (at
-// tinyllama's 4 x 4 kv heads over 2048 keys, 256 blocks for the 132 SMs);
-// each block leaves its partial (m, l, unnormalised accumulator) in f32
-// scratch, and flash_combine_kernel merges the chunks of each row in a
-// fixed order (no atomics). A row's arithmetic depends on Sk alone, not
-// on the batch, the head count or the card, so its output is the same from
-// run to run and at any batch size (the wrapper picks the chunks). A
-// fully masked row has m = -1e30 in every chunk, so the combine weights
-// the chunks by their l alone and returns the mean of V over all Sk keys.
-// One call is one launch, or two when the keys are split.
+// bf16 and f16 decode (Sq <= 16), flash_decode_kernel<T, DT>, one launch:
+//  * the keys are split into chunks of a fixed 128 keys (the wrapper's
+//    decode_split: a row's arithmetic depends on Sk alone, not on the
+//    batch, the head count or the card, so its output is the same from run
+//    to run and at any batch size). A block serves one (batch, kv head)
+//    and 16 packed rows of its GQA group (row r is row r % sq of query
+//    head kvh * group + r / sq; at Sq = 1 the whole group of every
+//    configuration, tinyllama's 8, nemotron's 12), so a kv head's keys
+//    are read once, not once per query head;
+//  * warps split the keys, not the rows: four consumer warps each take 32
+//    keys of a chunk and keep their own max, sum and f32 accumulator of
+//    the block's 16 rows, both products on mma.sync m16n8k16 (Q staged
+//    once in shared memory, zeros past the group's rows, its A fragments
+//    by ldmatrix and held in registers up to D = 128; K by ldmatrix, V by
+//    ldmatrix.trans). At the chunk's end the warps' partials merge
+//    through shared memory in warp order into the chunk's (acc, m, l). A
+//    warp none of whose keys exist (a ragged last chunk) leaves acc = l =
+//    0 and m at the sentinel, and weighs nothing;
+//  * a producer warp feeds them by TMA: each warp's 32 K rows and 32 V
+//    rows are one box of 32 rows by 64 columns a 64-column panel (the
+//    host encodes a 4-D tensor map of K and of V a call, as the prefill
+//    does), onto an mbarrier that expects the bytes, into a ring of whole
+//    chunks (two stages up to D = 128, one at 256: 64 to 128 KB in flight
+//    a block), under the 128-byte swizzle so that ldmatrix reads no bank
+//    twice; a warp's slot is refilled once it has released it. One copy a
+//    key row (cp.async.bulk, no tensor map) ran 1.8 times slower than
+//    these boxes at D = 64: the copy engine's rate a request, not the
+//    bytes, bounded it (PERF.md). An operand TMA cannot take is copied by
+//    the producer's lanes into the same swizzled rows against the same
+//    barriers, with the same bits;
+//  * the blocks over the chunks of one (batch, kv head, row block) are a
+//    thread block cluster of min(chunks, 8): block x computes chunks x, x
+//    + 8, ..., leaves each chunk's partial in f32 scratch, and after the
+//    cluster's barrier (release, acquire) the cluster merges them, each
+//    row by one warp in chunk order (merge_row, the same arithmetic as
+//    flash_combine_kernel's, every rounding explicit). One chunk needs no
+//    cluster and no merge. A fully masked row has m = -1e30 in every chunk
+//    and warp, so the merges weight them by their l alone and return the
+//    mean of V over all Sk keys.
 //
 // f32 (flash_fma32_kernel) stays in exact f32 on the FMA pipes: TF32's
 // 10-bit mantissa would not meet the f32 gates. Its bound at the serving
@@ -141,23 +165,26 @@
 // The split decode's two halves are entry points of their own as well,
 // for a decode whose keys lie on several ranks (models/attention.py's
 // decode under a mesh: each rank holds a slice of the cache's slots):
-//  * flash_<dtype>_partial runs the chunk kernel alone for one query row
-//    over one key range and leaves every chunk's f32 partial (acc, m, l)
-//    in a buffer the caller owns, in the decode's own 128-key chunks;
-//    chunks past the range's keys leave acc = 0, l = 0, m = -1e30, which
-//    weigh nothing in a merge. Bound: bytes, the range's K and V rows and q read once, the
-//    partials written once (at 2048 bf16 keys of tinyllama's 4 x 4 kv
-//    heads, 8.4 MB: 2.5 us).
+//  * flash_<dtype>_partial runs the decode's chunks alone for one query
+//    row over one key range, a block a chunk and no cluster, and leaves
+//    every chunk's f32 partial (acc, m, l) in a buffer the caller owns,
+//    in the decode's own 128-key chunks; chunks past the range's keys
+//    leave acc = 0, l = 0, m = -1e30, which weigh nothing in a merge.
+//    Bound: bytes, the range's K and V rows and q read once, the partials
+//    written once (at 1024 bf16 keys of tinyllama's 4 x 4 kv heads, 4.5
+//    MB: 1.3 us).
 //  * flash_<dtype>_combine runs flash_combine_kernel alone over a
-//    (chunks, rows, d + 2) partial buffer, merging the chunks in order.
-//    Bound: bytes, the partials read once and the output written once.
+//    (chunks, rows, d + 2) partial buffer, merging the chunks in order by
+//    merge_row. Bound: bytes, the partials read once and the output
+//    written once.
 // Partial then combine over one range is the decode entry's arithmetic;
 // over ranges that start on multiples of the chunk, laid end to end, it
-// is that of the decode over their union, bit for bit. The partial takes
-// one query row only: its row sees every key of its range, so ranges
-// merge into the decode over their union. (Rows right-aligned to each
-// range's own keys would not: every range but the last would mask keys
-// that lie in the past of every row.)
+// is that of the decode over their union, bit for bit (the chunks' code
+// and the merge are the decode's). The partial takes one query row only:
+// its row sees every key of its range, so ranges merge into the decode
+// over their union. (Rows right-aligned to each range's own keys would
+// not: every range but the last would mask keys that lie in the past of
+// every row.)
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -882,26 +909,58 @@ int launch_prefill(const Params& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 / f16 decode: mma.sync on the packed GQA group
+// bf16 / f16 decode: warps split each chunk's keys, a producer warp's TMA
+// boxes feed them, and the chunks' blocks merge as one cluster
 
-constexpr int MQ = 64;           // packed rows per block, 16 per warp
-constexpr int NK = 64;           // keys per tile
-constexpr int TC_THREADS = 128;  // 4 warps
+constexpr int DC_ROWS = 16;   // packed rows a block: one m16 tile
+constexpr int DC_KEYS = 32;   // keys of a chunk that one consumer warp takes
+constexpr int DC_WARPS = 4;   // consumer warps; warp DC_WARPS is the producer
+constexpr int DC_THREADS = 32 * (DC_WARPS + 1);
 // keys per chunk of the decode partial: the unsplit decode's chunk
 // (kernels/flash_attn.py's decode_split), so ranges that start on its
 // multiples give that decode's chunks
 constexpr int DECODE_CHUNK = 128;
+static_assert(DECODE_CHUNK == DC_KEYS * DC_WARPS, "a warp's keys a chunk");
+// blocks a decode's cluster has at most: the portable cluster size (16,
+// the non-portable one, ran slower on the H100, PERF.md)
+constexpr int DECODE_CLUSTER = 8;
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+// One configuration at DT = 64, 128 or 256. Shared memory, after up to
+// SWIZZLE_ATOM bytes of slack that align it to the swizzle: the ring's
+// stages, each one chunk: for each consumer warp its K rows, then its V
+// rows, DC_KEYS of each as DT / 64 panels of 128-byte rows under the
+// 128-byte swizzle that TMA writes (so the 8 rows an ldmatrix reads fall
+// on distinct banks); the block's 16 Q rows in the same layout; then the
+// warps' partials of the chunk (f32 rows ACC_LD apart), their m and l,
+// and the mbarriers, full then empty, one of each a stage and warp. Two
+// stages up to DT = 128 (two blocks an SM at 64), one at 256, where one
+// chunk's 128 KB is what fits beside the partials.
+template <int DT>
+struct DcTile {
+  static constexpr int PANEL = DC_KEYS * 128;  // 64 columns of DC_KEYS rows
+  static constexpr int SUB = DT / 64 * PANEL;  // one warp's K (or V) rows
+  static constexpr int SLOT = 2 * SUB;
+  static constexpr int STAGE = DC_WARPS * SLOT;
+  static constexpr int STAGES = DT == 256 ? 1 : 2;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int Q = DT / 64 * DC_ROWS * 128;  // the block's Q rows
+  static constexpr int ACC_LD = DT + 8;
+  static constexpr int ACC = DC_WARPS * DC_ROWS * ACC_LD * 4;
+  static constexpr int M = RING + Q + ACC;  // m of each warp's rows
+  static constexpr int L = M + 4 * DC_WARPS * DC_ROWS;  // their l
+  static constexpr int BARS = L + 4 * DC_WARPS * DC_ROWS;
+  static constexpr size_t SMEM =
+      SWIZZLE_ATOM + BARS + 8 * 2 * STAGES * DC_WARPS;
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned s) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(s));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], unsigned s) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -918,337 +977,500 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copy 8 elements (16 bytes) from g to shared s, or zeros when !pred.
-// aligned: cp.async, asynchronous; otherwise element by element.
-template <typename T>
-__device__ __forceinline__ void copy16(T* s, const T* g, bool pred,
-                                       bool aligned) {
-  if (aligned) {
-    const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
-    const int n = pred ? 16 : 0;
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
-                 "l"(g), "r"(n));
-  } else {
-    T tmp[8];
+// The merge of n chunk partials of one output row by one warp, the one
+// arithmetic of the decode's cluster and of flash_combine_kernel: chunk
+// c's partial at src + c * stride holds d accumulator columns, then m
+// (base 2) and l. M = max_c m_c, w_c = exp2f(m_c - M); l = sum_c l_c w_c
+// and each column's o = sum_c acc_c w_c, both in chunk order, every term
+// one rounded fused multiply-add; dst[col] = o / l (l = 0 read as 1). A
+// chunk with no key (acc = l = 0, m = -1e30) adds exactly zero beside any
+// chunk with one. A lane holds columns col0 + lane + 32 j, j < NCOL (the
+// warp's columns [col0, col0 + 32 NCOL), as many of them as are below d).
+// The lanes load BATCH chunks' columns, m and l at once, the first batch
+// while M is found, and each lane weighs the chunks itself: a row costs a
+// few trips to memory, not one a chunk.
+template <typename T, int NCOL>
+__device__ __forceinline__ void merge_row(const float* src, long long stride,
+                                          int n, int d, int col0, int lane,
+                                          T* dst) {
+  constexpr int BATCH = NCOL <= 2 ? 16 : 8;  // chunks loaded at once
+  const int col = col0 + lane;
+  float v[BATCH][NCOL], mv[BATCH], lv[BATCH];
+  const auto load = [&](int c0) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) tmp[j] = pred ? g[j] : T(0.f);
+    for (int t = 0; t < BATCH; ++t) {
+      const float* row = src + (c0 + t) * stride;
+      const bool ok = c0 + t < n;
+      mv[t] = ok ? row[d] : 0.f;
+      lv[t] = ok ? row[d + 1] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j] = tmp[j];
+      for (int j = 0; j < NCOL; ++j) {
+        v[t][j] = ok && col + 32 * j < d ? row[col + 32 * j] : 0.f;
+      }
+    }
+  };
+  load(0);  // in flight while M is found
+  float mmax = -INFINITY;
+#pragma unroll 1
+  for (int c = lane; c < n; c += 32) mmax = fmaxf(mmax, src[c * stride + d]);
+#pragma unroll
+  for (int x = 16; x > 0; x /= 2) {
+    mmax = fmaxf(mmax, __shfl_xor_sync(0xffffffffu, mmax, x));
+  }
+  float lsum = 0.f;
+  float o[NCOL];
+#pragma unroll
+  for (int j = 0; j < NCOL; ++j) o[j] = 0.f;
+#pragma unroll 1
+  for (int c0 = 0; c0 < n; c0 += BATCH) {
+    if (c0 > 0) load(c0);
+#pragma unroll
+    for (int t = 0; t < BATCH; ++t) {
+      if (c0 + t < n) {
+        const float w = exp2f(mv[t] - mmax);
+        lsum = __fmaf_rn(lv[t], w, lsum);
+#pragma unroll
+        for (int j = 0; j < NCOL; ++j) o[j] = __fmaf_rn(v[t][j], w, o[j]);
+      }
+    }
+  }
+  const float inv_l = __fdiv_rn(1.f, lsum == 0.f ? 1.f : lsum);
+#pragma unroll
+  for (int j = 0; j < NCOL; ++j) {
+    if (col + 32 * j < d) dst[col + 32 * j] = narrow<T>(__fmul_rn(o[j], inv_l));
   }
 }
 
-// Element offset of 16-byte chunk c of row r in a [rows][DT] tile whose
-// chunks are XOR-swizzled by the row, so the 8 rows an ldmatrix reads
-// fall in 8 different bank groups.
-template <int DT>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * DT + ((c ^ (r & 7)) << 3);
-}
-
-// Block (x, y, z): key chunk x of kv head y / row_blocks of batch z,
-// packed rows [64 (y % row_blocks), +64) of that head's group (row r is
-// row r % sq of query head kvh * group + r / sq).
+// Block (x, y, z) of a grid X wide: chunks x, x + X, ... of kv head
+// y / row_blocks of batch z, packed rows [16 (y % row_blocks), +16) of
+// that head's group (row r is row r % sq of query head kvh * group +
+// r / sq). X is 1 for one chunk; p.nchunks for the partial, which leaves
+// every chunk's partial in p.part; otherwise min(nchunks,
+// DECODE_CLUSTER), the X blocks of a (batch, kv head, row block) being
+// one cluster that merges the chunks' partials from p.part into p.o.
+// Warp DC_WARPS produces: for each chunk and consumer warp w, the K and
+// V rows of keys [chunk + 32 w, +32), one TMA box of 32 rows by 64
+// columns a panel (zeros past Sk and past d), onto that stage and warp's
+// full barrier; an operand TMA does not take (`tma` bit 0 K, bit 1 V
+// clear) its lanes copy into the same swizzled rows, zeros past the
+// warp's keys and past d, against the same barrier. It refills a slot
+// once its warp released it. Consumer warp w computes those keys' partial
+// of the block's rows alone (S = Q K^T and O = P V on mma.sync m16n8k16,
+// Q's A fragments by ldmatrix, K by ldmatrix, V by ldmatrix.trans;
+// the softmax against its own max m_w, p = exp2(s - m_w) in f32, P
+// rounded to T). The four warps' partials then merge through shared
+// memory in warp order, in merge_row's arithmetic: M = max_w m_w, w_w =
+// exp2f(m_w - M), l = sum_w l_w w_w and acc = sum_w acc_w w_w, w = 0..3,
+// each term one rounded fused multiply-add.
 template <typename T, int DT>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_tc_kernel(const Params p) {
-  constexpr bool QREG = DT <= 128;  // Q fragments held in registers
-  constexpr int KS = DT / 16;       // 16-wide steps along D
-  constexpr int CH = DT / 8;        // 16-byte chunks per row
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* qsm = reinterpret_cast<T*>(smem_raw);
-  T* ksm = qsm + MQ * DT;  // [2][NK][DT]
-  T* vsm = ksm + 2 * NK * DT;
+__global__ void __launch_bounds__(DC_THREADS, 1)
+flash_decode_kernel(const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, const Params p,
+                    int tma) {
+  using Tile = DcTile<DT>;
+  constexpr int KS = DT / 16;  // 16-wide steps along D
+  constexpr bool QREG = DT <= 128;  // Q fragments held across chunks
+  constexpr int STAGES = Tile::STAGES;
+  extern __shared__ __align__(16) unsigned char dc_raw[];
+  const unsigned raw = smem_addr(dc_raw);
+  unsigned char* dc_smem =
+      dc_raw + (SWIZZLE_ATOM - raw % SWIZZLE_ATOM) % SWIZZLE_ATOM;
+  const unsigned base = smem_addr(dc_smem);
+  float* acc_s = reinterpret_cast<float*>(dc_smem + Tile::RING + Tile::Q);
+  float* m_s = reinterpret_cast<float*>(dc_smem + Tile::M);
+  float* l_s = reinterpret_cast<float*>(dc_smem + Tile::L);
+  const auto full = [&](int st, int w) {
+    return base + Tile::BARS + 8 * (st * DC_WARPS + w);
+  };
+  const auto empty = [&](int st, int w) {
+    return full(st, w) + 8 * STAGES * DC_WARPS;
+  };
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tq = lane & 3;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int b = blockIdx.z;
-  const int kvh = blockIdx.y / p.row_blocks;
-  const int rb = blockIdx.y % p.row_blocks;
-  const int chunk = blockIdx.x;
-  const int key_lo = chunk * p.chunk;
-  const int key_hi = min(p.sk, key_lo + p.chunk);
+  const int kvh = blockIdx.y / p.row_blocks, rb = blockIdx.y % p.row_blocks;
+  const int rank = blockIdx.x, ctas = gridDim.x;
+  const int nlocal = rank < p.nchunks ? (p.nchunks - 1 - rank) / ctas + 1 : 0;
   const int off = p.sk - p.sq;
   const int packed_rows = p.group * p.sq;
-  // block row r -> (query head h, query row i); false past the last row
-  auto map_row = [&](int r, int& h, int& i) -> bool {
-    const int rr = rb * MQ + r;
-    h = kvh * p.group + rr / p.sq;
-    i = rr % p.sq;
-    return rr < packed_rows;
+  // keys before this are masked for every row: where every row sees its
+  // own diagonal key (causal, first position >= 0), the window's start
+  // for the block's first row
+  const int before =
+      p.causal && off >= 0 && p.has_window ? off - p.window + 1 : 0;
+  // keys [lo, lo + n) that warp w takes of chunk c; none past Sk, past
+  // the chunk or wholly before every row's window
+  const auto sub_keys = [&](int c, int w, int& lo) {
+    lo = c * p.chunk + w * DC_KEYS;
+    const int hi = min(min(lo + DC_KEYS, (c + 1) * p.chunk), p.sk);
+    return hi <= lo || hi <= before ? 0 : hi - lo;
   };
 
-  const T* qg = static_cast<const T*>(p.q) + b * p.qb;
-  const T* kg = static_cast<const T*>(p.k) + b * p.kb + kvh * p.kh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.vb + kvh * p.vh;
-  const bool aligned = p.aligned != 0;
-
-  // Q tile, zero past the last row and past d
-  for (int e = tid; e < MQ * CH; e += TC_THREADS) {
-    const int r = e / CH, c = e % CH;
-    int h, i;
-    const bool ok = map_row(r, h, i) && c * 8 < p.d;
-    const T* src = ok ? qg + h * p.qh + i * p.qs + c * 8 : qg;
-    copy16(qsm + swz<DT>(r, c), src, ok, aligned);
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      for (int w = 0; w < DC_WARPS; ++w) {
+        // the producer's lane 0, or all its lanes where they copy
+        mbar_init(full(st, w), tma == 3 ? 1 : 32);
+        mbar_init(empty(st, w), 1);  // the consumer warp's lane 0
+      }
+    }
+    mbar_init_fence();
   }
-  cp_async_commit();
-
-  // key tiles to visit; only where every row of the block sees its own
-  // diagonal key (causal, first position >= 0) may tiles be skipped
-  const int first_pos = off;
-  const int last_pos = p.sk - 1;
-  int kt0 = key_lo / NK;
-  int kt1 = (key_hi + NK - 1) / NK;
-  if (p.causal && first_pos >= 0) {
-    kt1 = min(kt1, last_pos / NK + 1);
-    if (p.has_window && first_pos - p.window + 1 > 0) {
-      kt0 = max(kt0, (first_pos - p.window + 1) / NK);
+  if (tid == 32 * DC_WARPS) {  // the producer's lane 0: the maps' first read
+    if (tma & 1) tma_prefetch(&k_map);
+    if (tma & 2) tma_prefetch(&v_map);
+  }
+  // the panels past d, which no copy writes: zeros, so that the products
+  // may run over all DT columns
+  const int panels = (p.d + 63) / 64;
+  if (panels < DT / 64) {
+#pragma unroll 1
+    for (int e = tid; e < STAGES * DC_WARPS * 2 * (DT / 64 - panels) *
+                              (Tile::PANEL / 16);
+         e += DC_THREADS) {
+      const int sub = e / ((DT / 64 - panels) * (Tile::PANEL / 16));
+      const int at = e % ((DT / 64 - panels) * (Tile::PANEL / 16));
+      *reinterpret_cast<uint4*>(dc_smem + sub * Tile::SUB +
+                                panels * Tile::PANEL + 16 * at) =
+          make_uint4(0, 0, 0, 0);
     }
   }
-  auto load_kv = [&](int kt, int buf) {
-    T* kd = ksm + buf * NK * DT;
-    T* vd = vsm + buf * NK * DT;
-    const int k0 = kt * NK;
-    for (int e = tid; e < NK * CH; e += TC_THREADS) {
-      const int r = e / CH, c = e % CH;
-      const bool ok = k0 + r >= key_lo && k0 + r < key_hi && c * 8 < p.d;
-      const long long row = ok ? k0 + r : 0;
-      copy16(kd + swz<DT>(r, c), ok ? kg + row * p.ks + c * 8 : kg, ok,
-             aligned);
-      copy16(vd + swz<DT>(r, c), ok ? vg + row * p.vs + c * 8 : vg, ok,
-             aligned);
-    }
-    cp_async_commit();
-  };
-
-  const int wr = warp * 16;  // this warp's first block row
-  int hA, iA, hB, iB;
-  const bool okA = map_row(wr + g, hA, iA);
-  const bool okB = map_row(wr + g + 8, hB, iB);
-  int h0, i0;
-  const bool warp_live = map_row(wr, h0, i0);
-  const int qposA = iA + off, qposB = iB + off;
-
-  float m[2] = {-1e30f, -1e30f};  // running max, base-2 domain
-  float l[2] = {0.f, 0.f};        // this lane's share of the row sums
-  float acc[DT / 8][4];
-#pragma unroll
-  for (int j = 0; j < DT / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  uint32_t qf[QREG ? KS : 1][4];
-  if (kt0 < kt1) load_kv(kt0, 0);
-  cp_async_wait<1>();  // Q has landed (the first tile may still fly)
   __syncthreads();
-  if (QREG) {
-#pragma unroll
-    for (int s = 0; s < (QREG ? KS : 1); ++s) {
-      const int mi = lane >> 3;
-      ldsm_x4(qf[s], qsm + swz<DT>(wr + (lane & 7) + (mi & 1) * 8,
-                                   2 * s + (mi >> 1)));
-    }
-  }
 
-  for (int kt = kt0; kt < kt1; ++kt) {
-    const int buf = (kt - kt0) & 1;
-    if (kt + 1 < kt1) {
-      load_kv(kt + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (warp_live) {
-      const T* kt_s = ksm + buf * NK * DT;
-      const T* vt_s = vsm + buf * NK * DT;
-      const int k0 = kt * NK;
-      // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-      float s[NK / 8][4];
-#pragma unroll
-      for (int j = 0; j < NK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t a[4];
-        if (QREG) {
-#pragma unroll
-          for (int x = 0; x < 4; ++x) a[x] = qf[QREG ? ks : 0][x];
-        } else {
-          const int mi = lane >> 3;
-          ldsm_x4(a, qsm + swz<DT>(wr + (lane & 7) + (mi & 1) * 8,
-                                   2 * ks + (mi >> 1)));
-        }
-#pragma unroll
-        for (int np = 0; np < NK / 16; ++np) {
-          uint32_t bk[4];
-          const int mi = lane >> 3;
-          ldsm_x4(bk, kt_s + swz<DT>(16 * np + (lane & 7) + (mi >> 1) * 8,
-                                     2 * ks + (mi & 1)));
-          Mma<T>::run(s[2 * np], a[0], a[1], a[2], a[3], bk[0], bk[1]);
-          Mma<T>::run(s[2 * np + 1], a[0], a[1], a[2], a[3], bk[2], bk[3]);
-        }
+  if (warp == DC_WARPS) {
+    // the producer
+    const unsigned short* kg =
+        static_cast<const unsigned short*>(p.k) + b * p.kb + kvh * p.kh;
+    const unsigned short* vg =
+        static_cast<const unsigned short*>(p.v) + b * p.vb + kvh * p.vh;
+    // rows [0, n) of keys from lo of an operand into a sub-tile's
+    // swizzled panels, zeros in its other rows and past d
+    const auto copy = [&](unsigned char* dst, const unsigned short* g,
+                          long long rs, int lo, int n) {
+#pragma unroll 1
+      for (int e = lane; e < DC_KEYS * 64 * panels; e += 32) {
+        const int r = e / (64 * panels), col = e % (64 * panels);
+        const bool ok = r < n && col < p.d;
+        *reinterpret_cast<unsigned short*>(
+            dst + (col / 64) * Tile::PANEL + swizzled(r, col % 64)) =
+            ok ? g[(lo + r) * rs + col] : 0;
       }
-      // scale, mask, online softmax (rows A = g and B = g + 8)
-      const bool need_mask =
-          k0 < key_lo || k0 + NK > key_hi ||
-          (p.causal && k0 + NK - 1 > first_pos) ||
-          (p.has_window && k0 <= last_pos - p.window);
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < NK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float val = s[j][e] * p.scale2;
-          if (need_mask) {
-            const int kpos = k0 + 8 * j + 2 * tq + (e & 1);
-            const int qpos = e < 2 ? qposA : qposB;
-            if ((p.causal && kpos > qpos) ||
-                (p.has_window && kpos <= qpos - p.window)) {
-              val = -1e30f;
+    };
+    for (int j = 0; j < nlocal; ++j) {
+      const int c = rank + j * ctas, st = j % STAGES;
+      for (int w = 0; w < DC_WARPS; ++w) {
+        if (j >= STAGES) mbar_wait(empty(st, w), (j / STAGES - 1) & 1);
+        int lo;
+        const int n = sub_keys(c, w, lo);
+        const int kd = st * Tile::STAGE + w * Tile::SLOT, vd = kd + Tile::SUB;
+        if (n > 0 && tma != 3) {
+          if (!(tma & 1)) copy(dc_smem + kd, kg, p.ks, lo, n);
+          if (!(tma & 2)) copy(dc_smem + vd, vg, p.vs, lo, n);
+          fence_proxy_async();  // before a later TMA write of these rows
+        }
+        if (lane == 0) {
+          const unsigned bytes =
+              n > 0 ? ((tma & 1) + (tma >> 1)) * panels * Tile::PANEL : 0;
+          mbar_expect_tx(full(st, w), bytes);
+          for (int x = 0; x < panels && n > 0; ++x) {
+            if (tma & 1) {
+              tma_load_4d(base + kd + x * Tile::PANEL, &k_map, full(st, w),
+                          64 * x, lo, kvh, b);
             }
-            // beyond Sk, or another chunk's: not a key of this block
-            if (kpos < key_lo || kpos >= key_hi) val = -INFINITY;
+            if (tma & 2) {
+              tma_load_4d(base + vd + x * Tile::PANEL, &v_map, full(st, w),
+                          64 * x, lo, kvh, b);
+            }
           }
-          s[j][e] = val;
-          mx[e >> 1] = fmaxf(mx[e >> 1], val);
-        }
-      }
-      float corr[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        corr[r] = exp2f(m[r] - m_new);
-        m[r] = m_new;
-        l[r] *= corr[r];
-      }
-#pragma unroll
-      for (int j = 0; j < DT / 8; ++j) {
-        acc[j][0] *= corr[0];
-        acc[j][1] *= corr[0];
-        acc[j][2] *= corr[1];
-        acc[j][3] *= corr[1];
-      }
-#pragma unroll
-      for (int j = 0; j < NK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float pe = exp2f(s[j][e] - m[e >> 1]);
-          l[e >> 1] += pe;
-          s[j][e] = pe;
-        }
-      }
-      // O += P V, P rounded to V's dtype as the A operand
-#pragma unroll
-      for (int kk = 0; kk < NK / 16; ++kk) {
-        const uint32_t a0 = Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-        const uint32_t a1 = Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-        const uint32_t a2 = Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        const uint32_t a3 = Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int dp = 0; dp < DT / 16; ++dp) {
-          uint32_t bv[4];
-          const int mi = lane >> 3;
-          ldsm_x4_t(bv, vt_s + swz<DT>(16 * kk + (lane & 7) + (mi & 1) * 8,
-                                       2 * dp + (mi >> 1)));
-          Mma<T>::run(acc[2 * dp], a0, a1, a2, a3, bv[0], bv[1]);
-          Mma<T>::run(acc[2 * dp + 1], a0, a1, a2, a3, bv[2], bv[3]);
+        } else if (tma != 3) {
+          mbar_arrive(full(st, w));
         }
       }
     }
-    __syncthreads();  // this tile's buffers are free for the next copy
-  }
-  cp_async_wait<0>();  // nothing left in flight, even with no tile visited
+  } else {
+    // the block's Q rows into shared memory, zeros past the group's rows
+    // and past d: 16 bytes a thread where the rows lie on 16 bytes
+    const unsigned short* qg =
+        static_cast<const unsigned short*>(p.q) + b * p.qb;
+    const auto q_row = [&](int r) {
+      const int rr = rb * DC_ROWS + r;
+      return qg + (kvh * p.group + rr / p.sq) * p.qh + (rr % p.sq) * p.qs;
+    };
+    const auto q_at = [&](int r, int col) {
+      return dc_smem + Tile::RING + (col / 64) * (DC_ROWS * 128) +
+             swizzled(r, col % 64);
+    };
+    if (p.aligned) {
+      constexpr int CH = DT / 8;  // 16-byte pieces a row
+#pragma unroll
+      for (int it = 0; it < DC_ROWS * CH / (32 * DC_WARPS); ++it) {
+        const int e = tid + 32 * DC_WARPS * it, r = e / CH, col = 8 * (e % CH);
+        const bool ok = rb * DC_ROWS + r < packed_rows && col < p.d;
+        *reinterpret_cast<uint4*>(q_at(r, col)) =
+            ok ? *reinterpret_cast<const uint4*>(q_row(r) + col)
+               : make_uint4(0, 0, 0, 0);
+      }
+    } else {
+#pragma unroll 1
+      for (int e = tid; e < DC_ROWS * DT; e += 32 * DC_WARPS) {
+        const int r = e / DT, col = e % DT;
+        const bool ok = rb * DC_ROWS + r < packed_rows && col < p.d;
+        *reinterpret_cast<unsigned short*>(q_at(r, col)) =
+            ok ? q_row(r)[col] : 0;
+      }
+    }
+    consumer_sync(0);
+    // a consumer warp: rows A = g and B = g + 8 of the block in its lane
+    const int g = lane / 4, tq = lane % 4, mi = lane / 8;
+    int ir[2];
+    for (int r = 0; r < 2; ++r) ir[r] = (rb * DC_ROWS + g + 8 * r) % p.sq;
+    const auto q_frag = [&](int ks, uint32_t (&a)[4]) {
+      const int col = 16 * ks + 8 * (mi >> 1);
+      ldsm_x4(a, base + Tile::RING + (col / 64) * (DC_ROWS * 128) +
+                     swizzled((lane & 7) + (mi & 1) * 8, col % 64));
+    };
+    uint32_t qf[QREG ? KS : 1][4];
+    if constexpr (QREG) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) q_frag(ks, qf[ks]);
+    }
+    const int qpos[2] = {ir[0] + off, ir[1] + off};
+    const bool split = p.partial || p.nchunks > 1;
 
-  if (!warp_live) return;
+    for (int j = 0; j < nlocal; ++j) {
+      const int c = rank + j * ctas, st = j % STAGES;
+      int lo;
+      const int n = sub_keys(c, warp, lo);
+      float m[2] = {-1e30f, -1e30f};  // this warp's max, base-2 domain
+      float l[2] = {0.f, 0.f};        // this lane's share of the row sums
+      float* my = acc_s + warp * DC_ROWS * Tile::ACC_LD;
+      mbar_wait(full(st, warp), (j / STAGES) & 1);
+      if (n > 0) {
+        const unsigned kt = base + st * Tile::STAGE + warp * Tile::SLOT;
+        const unsigned vt = kt + Tile::SUB;
+        // S = Q K^T for the block's 16 rows and this warp's 32 keys
+        float s[DC_KEYS / 8][4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  const bool split = p.nchunks > 1 || p.partial;
+        for (int i = 0; i < DC_KEYS / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool ok = r == 0 ? okA : okB;
-    if (!ok) continue;
-    const int h = r == 0 ? hA : hB;
-    const int i = r == 0 ? iA : iB;
-    if (split) {
-      // partial of row (b, h, i) for this chunk: acc, then m and l
-      const long long row =
-          ((static_cast<long long>(chunk) * p.batch + b) * p.hq + h) * p.sq + i;
-      float* dst = p.part + row * (p.d + 2);
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t a[4];
+          if constexpr (QREG) {
 #pragma unroll
-      for (int j = 0; j < DT / 8; ++j) {
-        const int c = 8 * j + 2 * tq;
-        if (c < p.d) {
-          dst[c] = acc[j][2 * r];
-          dst[c + 1] = acc[j][2 * r + 1];
+            for (int x = 0; x < 4; ++x) a[x] = qf[ks][x];
+          } else {
+            q_frag(ks, a);
+          }
+#pragma unroll
+          for (int np = 0; np < DC_KEYS / 16; ++np) {
+            uint32_t bk[4];
+            const int col = 16 * ks + 8 * (mi & 1);
+            ldsm_x4(bk, kt + (col / 64) * Tile::PANEL +
+                            swizzled(16 * np + (lane & 7) + (mi >> 1) * 8,
+                                     col % 64));
+            Mma<T>::run(s[2 * np], a[0], a[1], a[2], a[3], bk[0], bk[1]);
+            Mma<T>::run(s[2 * np + 1], a[0], a[1], a[2], a[3], bk[2], bk[3]);
+          }
+        }
+        // scale, mask, softmax against this warp's max
+        const bool need_mask = n < DC_KEYS ||
+                               (p.causal && lo + DC_KEYS - 1 > off) ||
+                               (p.has_window && lo <= p.sk - 1 - p.window);
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int i = 0; i < DC_KEYS / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float val = s[i][e] * p.scale2;
+            if (need_mask) {
+              const int kpos = lo + 8 * i + 2 * tq + (e & 1);
+              const int qp = qpos[e >> 1];
+              if ((p.causal && kpos > qp) ||
+                  (p.has_window && kpos <= qp - p.window)) {
+                val = -1e30f;
+              }
+              if (kpos >= lo + n) val = -INFINITY;  // not a key of this warp
+            }
+            s[i][e] = val;
+            mx[e >> 1] = fmaxf(mx[e >> 1], val);
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          m[r] = fmaxf(m[r], mx[r]);
+        }
+        // P = exp2(S - m) rounded to T as the A fragments of P V
+        uint32_t pa[DC_KEYS / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < DC_KEYS / 16; ++kk) {
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int i = 2 * kk + (x >> 1), e = 2 * (x & 1);
+            const float p0 = fast_exp2(s[i][e] - m[x & 1]);
+            const float p1 = fast_exp2(s[i][e + 1] - m[x & 1]);
+            l[x & 1] += p0 + p1;
+            pa[kk][x] = Mma<T>::pack(p0, p1);
+          }
+        }
+        // O = P V, then this warp's partial to shared memory unscaled
+        float acc[DT / 8][4];
+#pragma unroll
+        for (int i = 0; i < DT / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < DC_KEYS / 16; ++kk) {
+#pragma unroll
+          for (int dp = 0; dp < DT / 16; ++dp) {
+            uint32_t bv[4];
+            const int col = 16 * dp + 8 * (mi >> 1);
+            ldsm_x4_t(bv, vt + (col / 64) * Tile::PANEL +
+                              swizzled(16 * kk + (lane & 7) + (mi & 1) * 8,
+                                       col % 64));
+            Mma<T>::run(acc[2 * dp], pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3],
+                        bv[0], bv[1]);
+            Mma<T>::run(acc[2 * dp + 1], pa[kk][0], pa[kk][1], pa[kk][2],
+                        pa[kk][3], bv[2], bv[3]);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(st, warp));  // the slot may refill
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        }
+        // every thread is done with the last chunk's partials
+        consumer_sync(0);
+#pragma unroll
+        for (int i = 0; i < DT / 8; ++i) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            *reinterpret_cast<float2*>(my + (g + 8 * r) * Tile::ACC_LD +
+                                       8 * i + 2 * tq) =
+                make_float2(acc[i][2 * r], acc[i][2 * r + 1]);
+          }
+        }
+      } else {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(st, warp));
+        consumer_sync(0);
+#pragma unroll 1
+        for (int r = 0; r < DC_ROWS; ++r) {
+#pragma unroll 1
+          for (int col = lane; col < p.d; col += 32) my[r * Tile::ACC_LD + col] = 0.f;
         }
       }
       if (tq == 0) {
-        dst[p.d] = m[r];
-        dst[p.d + 1] = l[r];
-      }
-    } else {
-      const float inv_l = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-      T* dst = static_cast<T*>(p.o) + b * p.ob + h * p.oh + i * p.os;
 #pragma unroll
-      for (int j = 0; j < DT / 8; ++j) {
-        const int c = 8 * j + 2 * tq;
-        if (c < p.d) {
-          dst[c] = narrow<T>(acc[j][2 * r] * inv_l);
-          dst[c + 1] = narrow<T>(acc[j][2 * r + 1] * inv_l);
+        for (int r = 0; r < 2; ++r) {
+          m_s[warp * DC_ROWS + g + 8 * r] = m[r];
+          l_s[warp * DC_ROWS + g + 8 * r] = l[r];
+        }
+      }
+      consumer_sync(0);
+      // the chunk's partial of each row, a warp a row and lanes along d:
+      // M, the warps' weights and l, then acc; left in p.part (split), or
+      // O / l in p.o for a one-chunk decode
+#pragma unroll 1
+      for (int k = 0; k < DC_ROWS / DC_WARPS; ++k) {
+        const int r = warp + DC_WARPS * k;
+        const int rr = rb * DC_ROWS + r;
+        if (rr >= packed_rows) continue;
+        const int h = kvh * p.group + rr / p.sq, i = rr % p.sq;
+        float top = -INFINITY;
+#pragma unroll
+        for (int w = 0; w < DC_WARPS; ++w) top = fmaxf(top, m_s[w * DC_ROWS + r]);
+        float wt[DC_WARPS], lc = 0.f;
+#pragma unroll
+        for (int w = 0; w < DC_WARPS; ++w) {
+          wt[w] = exp2f(m_s[w * DC_ROWS + r] - top);
+          lc = __fmaf_rn(l_s[w * DC_ROWS + r], wt[w], lc);
+        }
+        float* part = p.part + (((static_cast<long long>(c) * p.batch + b) *
+                                     p.hq + h) * p.sq + i) * (p.d + 2);
+        T* out = static_cast<T*>(p.o) + b * p.ob + h * p.oh + i * p.os;
+        const float inv_l = split ? 0.f : __fdiv_rn(1.f, lc == 0.f ? 1.f : lc);
+#pragma unroll 1
+        for (int col = lane; col < p.d; col += 32) {
+          float o = 0.f;
+#pragma unroll
+          for (int w = 0; w < DC_WARPS; ++w) {
+            o = __fmaf_rn(acc_s[(w * DC_ROWS + r) * Tile::ACC_LD + col], wt[w], o);
+          }
+          if (split) {
+            part[col] = o;
+          } else {
+            out[col] = narrow<T>(__fmul_rn(o, inv_l));
+          }
+        }
+        if (split && lane == 0) {
+          part[p.d] = top;
+          part[p.d + 1] = lc;
         }
       }
     }
   }
+
+  if (!p.partial && p.nchunks > 1) {
+    // every chunk's partial is in p.part (the cluster barrier's release
+    // and acquire make the blocks' stores visible to each other): the
+    // cluster merges them, a warp each row's 32-column group, block x
+    // taking groups x, x + X, ...
+    cluster_sync();
+    const long long stride =
+        static_cast<long long>(p.batch) * p.hq * p.sq * (p.d + 2);
+    const int groups = (p.d + 31) / 32;
+#pragma unroll 1
+    for (int e = rank + ctas * warp; e < DC_ROWS * groups;
+         e += ctas * (DC_WARPS + 1)) {
+      const int r = e / groups, col0 = 32 * (e % groups);
+      const int rr = rb * DC_ROWS + r;
+      if (rr >= packed_rows) break;
+      const int h = kvh * p.group + rr / p.sq, i = rr % p.sq;
+      merge_row<T, 1>(
+          p.part + ((static_cast<long long>(b) * p.hq + h) * p.sq + i) *
+                       (p.d + 2),
+          stride, p.nchunks, p.d, col0, lane,
+          static_cast<T*>(p.o) + b * p.ob + h * p.oh + i * p.os);
+    }
+  }
 }
 
-// Merge the key chunks of each row: one warp a row (b, h, i), lanes over
-// D. M = max of the chunks' m; each chunk weighs exp2(m_c - M); the sums
-// run over the chunks in order, so the result is the same on every run.
-// A chunk with no key (acc = l = 0, m = -1e30) adds exactly zero beside
-// any chunk with one.
-template <typename T>
+// Merge the key chunks of each row: one warp a row (b, h, i), by
+// merge_row, the decode cluster's own merge (d <= 32 NCOL).
+template <typename T, int NCOL>
 __global__ void __launch_bounds__(128)
 flash_combine_kernel(const Params p) {
-  const int lane = threadIdx.x & 31;
   const long long rows = static_cast<long long>(p.batch) * p.hq * p.sq;
   const long long row = blockIdx.x * 4ll + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const long long stride = rows * (p.d + 2);
-  const float* src = p.part + row * (p.d + 2);
-  float mmax = -INFINITY;
-  for (int c = 0; c < p.nchunks; ++c) mmax = fmaxf(mmax, src[c * stride + p.d]);
-  float lsum = 0.f;
-  for (int c = 0; c < p.nchunks; ++c) {
-    lsum += src[c * stride + p.d + 1] * exp2f(src[c * stride + p.d] - mmax);
-  }
-  const float inv_l = 1.f / (lsum == 0.f ? 1.f : lsum);
   const int i = static_cast<int>(row % p.sq);
   const int h = static_cast<int>((row / p.sq) % p.hq);
   const int b = static_cast<int>(row / (static_cast<long long>(p.sq) * p.hq));
-  T* dst = static_cast<T*>(p.o) + b * p.ob + h * p.oh + i * p.os;
-  for (int col = lane; col < p.d; col += 32) {
-    float o = 0.f;
-    for (int c = 0; c < p.nchunks; ++c) {
-      o += src[c * stride + col] * exp2f(src[c * stride + p.d] - mmax);
-    }
-    dst[col] = narrow<T>(o * inv_l);
-  }
+  merge_row<T, NCOL>(p.part + row * (p.d + 2), rows * (p.d + 2), p.nchunks,
+                     p.d, 0, threadIdx.x & 31,
+                     static_cast<T*>(p.o) + b * p.ob + h * p.oh + i * p.os);
 }
 
 // The merge of p.nchunks chunks' partials into p.o, and its error.
 template <typename T>
 int launch_merge(const Params& p, cudaStream_t stream) {
   const long long rows = static_cast<long long>(p.batch) * p.hq * p.sq;
-  flash_combine_kernel<T><<<static_cast<unsigned>((rows + 3) / 4), 128, 0,
-                            stream>>>(p);
+  const unsigned blocks = static_cast<unsigned>((rows + 3) / 4);
+  if (p.d <= 64) {
+    flash_combine_kernel<T, 2><<<blocks, 128, 0, stream>>>(p);
+  } else if (p.d <= 128) {
+    flash_combine_kernel<T, 4><<<blocks, 128, 0, stream>>>(p);
+  } else {
+    flash_combine_kernel<T, 8><<<blocks, 128, 0, stream>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// After a decode's chunks: cudaGetLastError() of their launch, then, when
-// the keys were split and the caller asked for the output, the merge's
-// launch and its error.
+// After the f32 decode's chunks: cudaGetLastError() of their launch,
+// then, when the keys were split and the caller asked for the output,
+// the merge's launch and its error.
 template <typename T>
 int launch_combine(const Params& p, cudaStream_t stream) {
   const cudaError_t err = cudaGetLastError();
@@ -1258,16 +1480,45 @@ int launch_combine(const Params& p, cudaStream_t stream) {
   return launch_merge<T>(p, stream);
 }
 
+// The bf16/f16 decode, one launch: one block for one chunk, p.nchunks
+// blocks for the partial, else a cluster of min(nchunks, DECODE_CLUSTER)
+// blocks a (batch, kv head, row block). K and V by TMA where head_map
+// takes them, boxes of DC_KEYS rows.
 template <typename T, int DT>
-int launch_tc(const Params& p, cudaStream_t stream) {
-  const int smem = static_cast<int>((MQ + 4 * NK) * DT * sizeof(T));
+int launch_decode(const Params& p, cudaStream_t stream) {
+  if (p.chunk > DECODE_CHUNK) return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap k_map{}, v_map{};
+  const int tma = (head_map<T>(encode, &k_map, p.k, p.kb, p.kh, p.ks, p.batch,
+                               p.hkv, p.sk, p.d, DC_KEYS) ? 1 : 0) |
+                  (head_map<T>(encode, &v_map, p.v, p.vb, p.vh, p.vs, p.batch,
+                               p.hkv, p.sk, p.d, DC_KEYS) ? 2 : 0);
+  const int smem = static_cast<int>(DcTile<DT>::SMEM);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_tc_kernel<T, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_decode_kernel<T, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.nchunks, p.hkv * p.row_blocks, p.batch);
-  flash_tc_kernel<T, DT><<<grid, TC_THREADS, smem, stream>>>(p);
-  return launch_combine<T>(p, stream);
+  const bool merge = !p.partial && p.nchunks > 1;
+  const int ctas = p.partial ? p.nchunks
+                   : merge   ? min(p.nchunks, DECODE_CLUSTER)
+                             : 1;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = ctas;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(ctas, p.hkv * p.row_blocks, p.batch);
+  cfg.blockDim = dim3(DC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = cluster;
+  cfg.numAttrs = merge ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, flash_decode_kernel<T, DT>, k_map, v_map, p,
+                           tma);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // bf16 and f16: the prefill kernel, or the decode's (chunk > 0), at D
@@ -1279,9 +1530,9 @@ int launch_half(const Params& p, cudaStream_t stream) {
     if (p.d <= 128) return launch_prefill<T, 128>(p, stream);
     return launch_prefill<T, 256>(p, stream);
   }
-  if (p.d <= 64) return launch_tc<T, 64>(p, stream);
-  if (p.d <= 128) return launch_tc<T, 128>(p, stream);
-  return launch_tc<T, 256>(p, stream);
+  if (p.d <= 64) return launch_decode<T, 64>(p, stream);
+  if (p.d <= 128) return launch_decode<T, 128>(p, stream);
+  return launch_decode<T, 256>(p, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1351,7 +1602,7 @@ __device__ __forceinline__ void float4_to(float (&a)[4], const float* p) {
 // Block (x, y, z): prefill, query rows [BQ (X - 1 - x), +BQ) of query head
 // y of batch z (X = gridDim.x, heaviest tiles first); decode, key chunk x
 // of kv head y / row_blocks of batch z, packed rows [BQ (y % row_blocks),
-// +BQ) of that head's group, as in flash_tc_kernel. Thread (ty, tx) =
+// +BQ) of that head's group, as in flash_decode_kernel. Thread (ty, tx) =
 // (tid / 16, tid % 16) owns block rows fma_row(ty, i), i < RS: in S the
 // keys tx + 16 j of each tile (j < CK), in O the columns 64 g + 4 tx + e
 // (e < 4, g < CD / 4). A row's 16 threads are one half-warp, so its
@@ -1690,18 +1941,19 @@ int launch_fma_d(const Params& p, cudaStream_t stream) {
 // d <= 256 and a multiple of 8. chunk > 0 selects the packed decode with
 // `nchunks` chunks of `chunk` keys, and part holds nchunks x batch x hq x
 // sq x (d + 2) f32 partials when nchunks > 1; aligned says every operand
-// row lies on 16 bytes (the decode's cp.async copies; the prefill asks
-// of each operand whether TMA takes it). f32 runs the FMA kernel (ROWS
-// packed decode rows a block); bf16 and f16 run flash_wgmma_kernel for a
-// prefill (chunk 0) and flash_tc_kernel for a decode. Returns the first
-// cudaGetLastError() after a launch that is not cudaSuccess, else 0.
+// row lies on 16 bytes (the decode's bulk and cp.async copies; the
+// prefill asks of each operand whether TMA takes it). f32 runs the FMA
+// kernel and, for split keys, flash_combine_kernel; bf16 and f16 run
+// flash_wgmma_kernel for a prefill (chunk 0) and flash_decode_kernel,
+// one launch, for a decode (ROWS packed decode rows a block either way).
+// Returns the first error of a launch that is not cudaSuccess, else 0.
 //
 // NAME_partial is the packed decode's first half alone for one query row
 // (sq == 1, sk >= 1, else cudaErrorInvalidValue; no mask, no window), in
 // chunks of DECODE_CHUNK keys: every one of the nchunks chunks leaves its
 // partial in part, which is nchunks x batch x hq x (d + 2) f32: the
 // unnormalised accumulator, then m (base 2) and l. A chunk wholly past sk
-// visits no tile and leaves acc = 0, l = 0 and m at the -1e30 sentinel,
+// reads no key and leaves acc = 0, l = 0 and m at the -1e30 sentinel,
 // so it weighs nothing in a merge with any chunk that holds a key. One
 // launch. Its bound is bytes: the sk keys' K and V rows and q read once,
 // the partials written once.
@@ -1755,8 +2007,8 @@ int launch_fma_d(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 FLASH_ENTRY(flash_f32, float, F_DECODE_ROWS, launch_fma_d)
-FLASH_ENTRY(flash_bf16, __nv_bfloat16, MQ, launch_half)
-FLASH_ENTRY(flash_f16, __half, MQ, launch_half)
+FLASH_ENTRY(flash_bf16, __nv_bfloat16, DC_ROWS, launch_half)
+FLASH_ENTRY(flash_f16, __half, DC_ROWS, launch_half)
 
 // Which operands a bf16 or f16 prefill with these arguments loads by TMA:
 // bit 0 Q, bit 1 K, bit 2 V; the producer warpgroup's threads copy the

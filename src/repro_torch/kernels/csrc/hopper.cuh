@@ -1,10 +1,11 @@
 // Hopper's building blocks for the kernels that run on wgmma and TMA
-// (schur.cu's schur_wgmma_kernel, flash_attn.cu's flash_wgmma_kernel):
-// the 128-byte swizzled tile layout and the wgmma shared-memory
-// descriptor that reads it, wgmma's fence, commit and wait, the mbarrier
-// operations a TMA ring runs on, TMA loads of 3-D and 4-D tensor maps,
-// and the driver's cuTensorMapEncodeTiled, reached through the runtime
-// so that no library links -lcuda. sm_90a only.
+// (schur.cu's schur_wgmma_kernel, flash_attn.cu's flash_wgmma_kernel and
+// flash_decode_kernel): the 128-byte swizzled tile layout and the wgmma
+// shared-memory descriptor that reads it, wgmma's fence, commit and wait,
+// the mbarrier operations a TMA ring runs on, TMA loads of 3-D and 4-D
+// tensor maps, the thread block cluster's barrier, and the driver's
+// cuTensorMapEncodeTiled, reached through the runtime so that no library
+// links -lcuda. sm_90a only.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; no driver call is linked
@@ -107,6 +108,13 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Fetch a tensor map into the TMA unit's cache ahead of its first copy.
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<unsigned long long>(map))
+               : "memory");
+}
+
 // A box of a 3-D tensor map at (c0 innermost, c1, c2) into shared memory,
 // completing on the mbarrier `bar` with its bytes.
 __device__ __forceinline__ void tma_load(unsigned dst, const CUtensorMap* map,
@@ -130,6 +138,14 @@ __device__ __forceinline__ void tma_load_4d(unsigned dst,
       "l"(reinterpret_cast<unsigned long long>(map)), "r"(bar), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Every thread of every block of the cluster arrives, then waits for all:
+// what each wrote before (after a __threadfence(), in global memory too)
+// is visible to all after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,

@@ -14,8 +14,12 @@ or 256), one launch (`tma_operands` says which operands TMA loads; the
 kernel copies the others into the same tiles). A call with
 Sq <= DECODE_ROWS packs each kv head's GQA group into blocks of
 PACKED_ROWS[dtype] rows and splits the keys into chunks
-(`decode_split`), then merges the chunks in a second launch; the wrapper
-allocates the chunks' f32 partials.
+(`decode_split`), which the wrapper gives f32 scratch for. In bf16 and
+f16 that is one launch of `flash_decode_kernel`: in each chunk
+CHUNK_TILES consumer warps take KEY_TILE keys each, fed row by row by a
+producer warp's bulk copies, and the blocks over a row block's chunks, at
+most DECODE_CLUSTER of them, are one thread block cluster that merges the
+chunks. In f32 the chunks and their merge are two launches.
 
 The two halves of that decode are wrappers of their own, for keys that
 lie on several ranks: `flash_decode_partial_cuda` leaves the chunks' f32
@@ -63,9 +67,14 @@ _MAX_GRID_YZ = 65535
 _WIDE_WINDOW = 2**30
 #: the largest head dimension the kernel's shared-memory tiles hold
 MAX_HEAD_DIM = 256
-#: packed rows per block and keys per tile of the bf16/f16 decode kernel
-#: (flash_tc_kernel), on which the decode's chunks rest
-BLOCK_ROWS, KEY_TILE = 64, 64
+#: packed rows a block of the bf16/f16 decode kernel (flash_decode_kernel,
+#: csrc/flash_attn.cu's DC_ROWS: one m16 tile), keys of a chunk that one
+#: of its consumer warps takes (DC_KEYS), and its consumer warps (DC_WARPS),
+#: on which the decode's chunks rest
+BLOCK_ROWS, KEY_TILE, CHUNK_TILES = 16, 32, 4
+#: blocks of one bf16/f16 decode cluster at most (DECODE_CLUSTER): a
+#: decode over n > 1 chunks runs min(n, DECODE_CLUSTER) blocks a row block
+DECODE_CLUSTER = 8
 #: query rows per block and keys per tile of the bf16/f16 prefill kernel
 #: (flash_wgmma_kernel, csrc/flash_attn.cu's PF_ROWS and PF_KEYS) by the
 #: padded head dimension DT
@@ -73,19 +82,17 @@ PREFILL_ROWS = {64: 128, 128: 128, 256: 64}
 PREFILL_KEYS = {64: 128, 128: 64, 256: 64}
 #: calls with at most this many query rows take the packed decode path
 DECODE_ROWS = 16
-#: packed decode rows a block: the tensor-core kernel's 64, the f32 FMA
+#: packed decode rows a block: the decode kernel's 16, and the f32 FMA
 #: kernel's 16 (one a thread row)
 PACKED_ROWS = {torch.float32: 16, torch.bfloat16: BLOCK_ROWS,
                torch.float16: BLOCK_ROWS}
-#: key tiles of one decode chunk: at tinyllama's batch 4 x 4 kv heads
-#: over 2048 keys, 16 chunks a row make 256 blocks for the H100's 132 SMs
-CHUNK_TILES = 2
 
 
 def decode_split(sk: int) -> tuple[int, int]:
-    """(keys per chunk, chunks) of the packed decode: CHUNK_TILES key
-    tiles a chunk. The split depends on Sk alone, so a row's arithmetic
-    is the same at any batch size, head count and card."""
+    """(keys per chunk, chunks) of the packed decode: CHUNK_TILES warps'
+    KEY_TILE keys a chunk, 128. The split depends on Sk alone, so a
+    row's arithmetic is the same at any batch size, head count and
+    card."""
     chunk = CHUNK_TILES * KEY_TILE
     return chunk, -(-sk // chunk)
 
@@ -131,22 +138,24 @@ def device_kernel(q: torch.Tensor) -> str:
     if q.dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"device_kernel names the half routes, got {q.dtype}")
     name = ("flash_wgmma_kernel" if q.shape[2] > DECODE_ROWS
-            else "flash_tc_kernel")
+            else "flash_decode_kernel")
     ctype = "__nv_bfloat16" if q.dtype == torch.bfloat16 else "__half"
     return f"{name}<{ctype}, {head_tile(q.shape[3])}>"
 
 
 def cuda_launches(q: torch.Tensor, k: torch.Tensor) -> int:
-    """CUDA launches one call makes: two for a decode whose keys are
-    split (the chunks, then their merge), else one."""
-    if q.shape[2] > DECODE_ROWS:
+    """CUDA launches one call makes: two for an f32 decode whose keys are
+    split (the chunks, then their merge), else one (a bf16/f16 decode
+    merges its chunks in the same launch)."""
+    if q.shape[2] > DECODE_ROWS or q.dtype != torch.float32:
         return 1
     return 1 + (decode_split(k.shape[2])[1] > 1)
 
 
 def _aligned(*tensors: torch.Tensor) -> bool:
-    """Every row of every operand starts on 16 bytes, so 16-byte chunks
-    (8 half or 4 f32 elements) copy as one cp.async each."""
+    """Every row of every operand starts on 16 bytes, so the bf16/f16
+    decode loads Q 16 bytes a thread and the f32 kernel copies 4 elements
+    as one cp.async."""
     return all(t.data_ptr() % 16 == 0
                and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3])
                for t in tensors)

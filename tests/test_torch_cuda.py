@@ -364,19 +364,61 @@ def _bf16_close_to_mean(got, v, rows, group):
                  * float(v.float().abs().max())).all()), float(err.max())
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 @pytest.mark.parametrize("b,hq,hkv,sq,sk", [
     (4, 32, 4, 1, 2048),
     (2, 8, 8, 1, 500),
     (2, 16, 2, 16, 700),
 ], ids=["group8-full-width", "group1", "group8-16-rows"])
 def test_flash_decode_packs_gqa_groups(cuda, dtype, b, hq, hkv, sq, sk):
+    """Split keys: one launch in bf16/f16 (the chunks' cluster merges
+    them), two in f32 (the chunks, then the merge)."""
     from repro_torch.kernels import flash_attn
 
     q, k, v = _qkv(cuda, b, hq, hkv, sq, sk, 64, dtype, seed=sk,
                    layout="bshd")
     _flash_close(q, k, v, causal=True)
-    assert flash_attn.cuda_launches(q, k) == 2  # split keys, then merge
+    assert flash_attn.cuda_launches(q, k) == (2 if dtype == torch.float32
+                                              else 1)
+
+
+#: bf16/f16 decodes of flash_decode_kernel's edges: 64 chunks, eight a
+#: block of the 8-block cluster (Sk 8192); one chunk (no cluster, no
+#: merge); ragged last chunks whose warps 1-3 or 2-3 hold no key; gemma3's
+#: ring, (4, 4, 1, 256) over 1024 slots; nemotron's D = 192 with a group
+#: of 12; tinyllama's 16-token prompt, 128 packed rows in 8 row blocks,
+#: alone and over a 700-key cache
+DECODE_EDGES = {
+    "sk8192": ((4, 32, 4, 1, 8192, 64), {"causal": True}),
+    "one-chunk": ((2, 32, 4, 1, 100, 64), {"causal": True}),
+    "ragged-one-warp": ((2, 8, 2, 1, 3 * 128 + 20, 64), {"causal": True}),
+    "ragged-two-warps": ((2, 8, 2, 1, 128 + 40, 128), {"causal": True}),
+    "gemma3-ring": ((4, 4, 1, 1, 1024, 256), {"causal": True}),
+    "nemotron-d192": ((2, 24, 2, 1, 700, 192), {"causal": True}),
+    "prompt-16": ((4, 32, 4, 16, 16, 64), {"causal": True}),
+    "rows-128-split": ((4, 32, 4, 16, 700, 64), {"causal": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_EDGES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_decode_edges_run_one_decode_kernel(cuda, case, dtype):
+    """Each edge within the flash tolerance of the plain version, and one
+    device kernel a call, named as device_kernel says (the decode kernel,
+    never flash_tc_kernel's two launches)."""
+    from repro_torch.kernels import flash_attn
+
+    shape, kw = DECODE_EDGES[case]
+    q, k, v = _qkv(cuda, *shape, dtype, seed=len(case), layout="bshd")
+    _flash_close(q, k, v, **kw)
+    call = lambda: ops.flash_attention(q, k, v, **kw)
+    assert flash_attn.cuda_launches(q, k) == 1
+    assert _profiled_launches(call) == 1
+    names = _profiled_kernel_names(call)
+    flash = [n for n in names if "flash" in n]
+    assert flash and all(flash_attn.device_kernel(q) in n for n in flash), names
+    assert not any("flash_tc_kernel" in n for n in names), names
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -444,7 +486,8 @@ def test_flash_f32_full_width_within_tolerance(cuda):
     _flash_close(q[:, :, -1:], k, v, causal=True)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 def test_flash_decode_same_bits_run_to_run(cuda, dtype):
     """The chunks merge in a fixed order: two calls give the same bits."""
     q, k, v = _qkv(cuda, 4, 32, 4, 1, 2048, 64, dtype, seed=9,
@@ -454,7 +497,8 @@ def test_flash_decode_same_bits_run_to_run(cuda, dtype):
         assert torch.equal(ops.flash_attention(q, k, v, causal=True), first)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 def test_flash_decode_rows_same_bits_at_any_batch(cuda, dtype):
     """The key chunks depend on Sk alone: a batch element's decode rows
     have the same bits alone as in a batch of four."""
@@ -585,7 +629,8 @@ def test_decode_partial_and_combine_match_plain(cuda, dtype, cuts):
         assert torch.equal(got, ops.flash_attention(q, k, v, causal=True))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 def test_decode_partial_of_an_empty_range(cuda, dtype):
     """A range with no key launches no kernel and gives the empty
     partial (acc = l = 0, m = −1e30); merged beside a range with keys it
@@ -605,7 +650,8 @@ def test_decode_partial_of_an_empty_range(cuda, dtype):
         assert torch.equal(ops.flash_combine(torch.cat(parts), dtype), want)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 def test_decode_halves_launch_one_kernel_each(cuda, dtype):
     """The profiler sees one device kernel a partial (keys present) and
     one a merge."""
@@ -774,7 +820,7 @@ def _profiled_kernel_names(fn) -> set:
 def test_flash_prefill_routes_run_the_wgmma_kernel(cuda, route, dtype):
     """Every bf16/f16 prefill route is one launch of flash_wgmma_kernel,
     within the flash tolerance of the plain version; the decode kernel
-    (flash_tc_kernel) never runs a prefill."""
+    (flash_decode_kernel) never runs a prefill."""
     from repro_torch.kernels import flash_attn
 
     shape, kw = PREFILL_ROUTES[route]
@@ -784,7 +830,7 @@ def test_flash_prefill_routes_run_the_wgmma_kernel(cuda, route, dtype):
     assert _profiled_launches(call) == 1
     names = _profiled_kernel_names(call)
     assert any(flash_attn.device_kernel(q) in n for n in names), names
-    assert not any("flash_tc_kernel" in n for n in names), names
+    assert not any("flash_decode_kernel" in n for n in names), names
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -803,6 +849,28 @@ def test_flash_prefill_tma_and_copy_routes_bit_equal(cuda, dtype, d):
     for kw in ({"causal": True}, {"causal": False}, {"window": 100}):
         got = _flash_close(q, k, v, **kw)
         assert torch.equal(got, ops.flash_attention(*odd, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [16, 64, 80, 192, 256])
+def test_flash_decode_tma_and_copy_routes_bit_equal(cuda, dtype, d):
+    """The decode kernel loads aligned K and V by TMA; the same values
+    one element off alignment its producer's lanes copy into the same
+    swizzled rows, with the same bits: the decode over 333 keys (a ragged
+    last chunk), its 16-row form and the partial."""
+    from repro_torch.kernels import flash_attn
+
+    q, k, v = _qkv(cuda, 2, 8, 2, 16, 333, d, dtype, seed=d)
+    assert flash_attn.tma_operands(q, k, v) == (True, True, True)
+    odd = [torch.empty(t.numel() + 1, dtype=dtype, device=cuda)[1:]
+           .view(t.shape).copy_(t) for t in (q, k, v)]
+    assert flash_attn.tma_operands(*odd) == (False, False, False)
+    for rows in (1, 16):
+        got = _flash_close(q[:, :, :rows], k, v, causal=True)
+        assert torch.equal(got, ops.flash_attention(odd[0][:, :, :rows],
+                                                    *odd[1:], causal=True))
+    assert torch.equal(ops.flash_decode_partial(q[:, :, :1], k, v),
+                       ops.flash_decode_partial(odd[0][:, :, :1], *odd[1:]))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

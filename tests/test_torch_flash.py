@@ -141,19 +141,32 @@ def test_refuses_what_the_kernel_does_not_take(kwargs, exc):
 
 # --- the packed split decode (Sq <= 16), emulated in plain PyTorch -----------
 
+def _merge(parts):
+    """(m, l, acc) of partials [(m_i, l_i, acc_i), ...] merged in order,
+    as the kernel merges a chunk's warps and a row's chunks: M = max m_i,
+    w_i = exp2(m_i − M), l = Σ l_i w_i and acc = Σ acc_i w_i."""
+    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    weights = [torch.exp2(m - top) for m, _, _ in parts]
+    return (top, sum(l * w for (_, l, _), w in zip(parts, weights)),
+            sum(a * w for (_, _, a), w in zip(parts, weights)))
+
+
 def _split_decode(q, k, v, *, causal=True, window=None, split=None):
     """The split decode's arithmetic, as the CUDA kernels do it and only
     the tests use it: scores in base 2 (scale · log2 e), masked ones the
-    −1e30 sentinel; per chunk of keys (flash_attn.decode_split(Sk), or
-    `split`) its max m, sum l and unnormalised acc; then
-    flash_combine_kernel's merge, the chunks weighted by exp2(m_c − M) in
-    chunk order, divided by the weighted l. q (B, Hq, Sq, D), k and v
-    (B, Hkv, Sk, D), f32 tensors."""
+    −1e30 sentinel; the keys in chunks (flash_attn.decode_split(Sk), or
+    `split`), each chunk's keys in sub-tiles of flash_attn.KEY_TILE, one
+    a consumer warp (CHUNK_TILES of them), each with its own max m, sum
+    l and unnormalised acc (a sub-tile with no key keeps m = −1e30, l =
+    acc = 0); the sub-tiles merged in warp order into the chunk's
+    partial, then the chunks in chunk order, both by _merge; the result
+    acc / l. q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), f32 tensors."""
     from repro_torch.kernels import flash_attn
 
     _, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     chunk, n = split or flash_attn.decode_split(sk)
+    sub = flash_attn.KEY_TILE
     kk = k.repeat_interleave(hq // hkv, dim=1)
     vv = v.repeat_interleave(hq // hkv, dim=1)
     s = q @ kk.transpose(-1, -2) * (d ** -0.5 * np.log2(np.e))
@@ -165,16 +178,22 @@ def _split_decode(q, k, v, *, causal=True, window=None, split=None):
     if window is not None:
         mask &= kpos > qpos - window
     s = s.masked_fill(~mask, -1e30)
-    parts = []
+    empty = (torch.full((*q.shape[:3], 1), -1e30),
+             torch.zeros((*q.shape[:3], 1)), torch.zeros(q.shape))
+    chunks = []
     for c in range(n):
-        sc = s[..., c * chunk:(c + 1) * chunk]
-        m = sc.amax(dim=-1, keepdim=True)
-        p = torch.exp2(sc - m)
-        parts.append((m, p.sum(dim=-1, keepdim=True),
-                      p @ vv[:, :, c * chunk:(c + 1) * chunk]))
-    top = torch.stack([m for m, _, _ in parts]).amax(dim=0)
-    l = sum(l_c * torch.exp2(m - top) for m, l_c, _ in parts)
-    acc = sum(a * torch.exp2(m - top) for m, _, a in parts)
+        warps = []
+        for w in range(flash_attn.CHUNK_TILES):
+            lo = c * chunk + w * sub
+            keys = slice(lo, max(lo, min(lo + sub, (c + 1) * chunk, sk)))
+            if keys.stop == keys.start:
+                warps.append(empty)
+                continue
+            m = s[..., keys].amax(dim=-1, keepdim=True).clamp(min=-1e30)
+            p = torch.exp2(s[..., keys] - m)
+            warps.append((m, p.sum(dim=-1, keepdim=True), p @ vv[:, :, keys]))
+        chunks.append(_merge(warps))
+    _, l, acc = _merge(chunks)
     return (acc / l).numpy()
 
 
@@ -448,23 +467,52 @@ def test_prefill_tile_constants_are_the_sources():
 
 def test_decode_constants_unchanged():
     """The decode's constants, on which its chunks and the mesh decode's
-    bit-equality rest, are those of the decode kernel: 64 packed rows and
-    64-key tiles, two tiles a 128-key chunk, Sq <= 16."""
+    bit-equality rest, are those of the decode kernel: 16 packed rows a
+    block, four consumer warps of 32 keys each, so a 128-key chunk, Sq <=
+    16, and clusters of at most 8 blocks."""
     from repro_torch.kernels import flash_attn
 
     assert (flash_attn.BLOCK_ROWS, flash_attn.KEY_TILE, flash_attn.CHUNK_TILES,
-            flash_attn.DECODE_ROWS) == (64, 64, 2, 16)
+            flash_attn.DECODE_ROWS, flash_attn.DECODE_CLUSTER) == (16, 32, 4, 16, 8)
     assert flash_attn.decode_split(2048) == (128, 16)
-    assert _constexprs(r"constexpr int MQ = (\d+);") == [flash_attn.BLOCK_ROWS]
-    assert _constexprs(r"constexpr int NK = (\d+);") == [flash_attn.KEY_TILE]
+    assert _constexprs(r"constexpr int DC_ROWS = (\d+);") == [flash_attn.BLOCK_ROWS]
+    assert _constexprs(r"constexpr int DC_KEYS = (\d+);") == [flash_attn.KEY_TILE]
+    assert _constexprs(r"constexpr int DC_WARPS = (\d+);") == [flash_attn.CHUNK_TILES]
     assert _constexprs(r"constexpr int DECODE_CHUNK = (\d+);") == [
         flash_attn.CHUNK_TILES * flash_attn.KEY_TILE]
+    assert _constexprs(r"constexpr int DECODE_CLUSTER = (\d+);") == [
+        flash_attn.DECODE_CLUSTER]
+    assert set(flash_attn.PACKED_ROWS.values()) == {flash_attn.BLOCK_ROWS}
+
+
+def test_decode_trace_places_every_stamp():
+    """decode_trace.py (the decode kernel's phase stamps, run on the card)
+    finds each of its places in csrc/flash_attn.cu's decode kernel and
+    adds the entry point that reads the stamps, so an edit of the kernel
+    that moves one shows here and not first on the card."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels import flash_attn
+
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location("decode_trace",
+                                                  root / "decode_trace.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (Path(flash_attn.__file__).parent / "csrc" / "flash_attn.cu").read_text()
+    out = tool.instrument(src)
+    kernel = out[out.index("flash_decode_kernel(const __grid_constant__"):]
+    kernel = kernel[:kernel.index("\n}\n")]
+    slots = {int(m) for m in __import__("re").findall(r"TR\((\d+)", kernel)}
+    assert slots == {0, 1, 2, 3, 4, 5, 6, 7, 12, 13, 14}
+    assert "int dc_trace_read(" in out and "dc_trace_read" not in src
 
 
 @pytest.mark.parametrize("dtype,sq,d,want", [
     (torch.bfloat16, 2048, 64, "flash_wgmma_kernel<__nv_bfloat16, 64>"),
     (torch.float16, 17, 80, "flash_wgmma_kernel<__half, 128>"),
-    (torch.bfloat16, 16, 256, "flash_tc_kernel<__nv_bfloat16, 256>"),
+    (torch.bfloat16, 16, 256, "flash_decode_kernel<__nv_bfloat16, 256>"),
 ])
 def test_device_kernel_names_the_route(dtype, sq, d, want):
     """A bf16/f16 call with Sq > 16 runs the wgmma prefill kernel, a

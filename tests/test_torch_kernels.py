@@ -313,11 +313,13 @@ def test_max_tile_fits_shared_memory():
 ])
 def test_flash_decode_split_covers_the_keys_and_fills_the_card(
         b, hkv, group, sq, sk):
-    """Whole key tiles per chunk, every key in exactly one chunk, no empty
-    chunk, a split that depends on Sk alone (so a row's output does not
-    depend on the batch), and a block per SM at tinyllama's decode, for
-    the tensor-core kernel's 64 packed rows a block and the f32 FMA
-    kernel's 16."""
+    """Whole warp sub-tiles per chunk, every key in exactly one chunk, no
+    empty chunk, a split that depends on Sk alone (so a row's output does
+    not depend on the batch), and at tinyllama's decode a block on every
+    SM: the f32 FMA kernel's block a chunk (132 or more), and the bf16/f16
+    decode kernel's clusters of DECODE_CLUSTER blocks, each a row block's
+    share of the chunks (128 or more: the card's 132 SMs rounded down to
+    whole clusters of 8), both 16 packed rows a block."""
     from repro_torch.kernels import flash_attn
 
     chunk, n = flash_attn.decode_split(sk)
@@ -325,11 +327,13 @@ def test_flash_decode_split_covers_the_keys_and_fills_the_card(
     assert chunk == flash_attn.CHUNK_TILES * flash_attn.KEY_TILE
     assert (n - 1) * chunk < sk <= n * chunk
     assert 1 <= n <= tiles
-    assert flash_attn.PACKED_ROWS[torch.float32] == 16
-    for rows in flash_attn.PACKED_ROWS.values():
-        blocks = b * hkv * -(-group * sq // rows) * n
-        if b * hkv >= 16 and sk >= 2048:  # tinyllama, batch >= 4
-            assert blocks >= 132
+    assert set(flash_attn.PACKED_ROWS.values()) == {16}
+    row_blocks = b * hkv * -(-group * sq // 16)
+    per_row_block = {torch.float32: n,
+                     torch.bfloat16: min(n, flash_attn.DECODE_CLUSTER)}
+    if b * hkv >= 16 and sk >= 2048:  # tinyllama, batch >= 4
+        assert row_blocks * per_row_block[torch.float32] >= 132
+        assert row_blocks * per_row_block[torch.bfloat16] >= 128
 
 
 @pytest.mark.parametrize("n,launches", [(32, 1), (128, 1), (129, 3), (256, 3),
@@ -422,19 +426,24 @@ def test_trsm_plan_solves_as_the_plain_substitution(dtype, unit):
 
 
 def test_flash_launches_per_call_on_cpu_shapes():
-    """Prefill is one launch; a decode, f32 or bf16, is two once its keys
-    span more than one chunk (the chunks, then their merge)."""
+    """Prefill is one launch; an f32 decode is two once its keys span
+    more than one chunk (the chunks, then their merge), a bf16 or f16
+    decode one at any key count (its cluster merges the chunks)."""
     from repro_torch.kernels import flash_attn
 
     q = torch.zeros(1, 4, 32, 8)
     assert flash_attn.cuda_launches(q, q[:, :2]) == 1
     assert flash_attn.cuda_launches(q[:, :, :1], q[:, :2]) == 1
     assert flash_attn.cuda_launches(q.bfloat16(), q[:, :2].bfloat16()) == 1
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         kv = torch.zeros(1, 2, 129, 8, dtype=dtype)
         qd = q[:, :, :1].to(dtype)
         assert flash_attn.cuda_launches(qd, kv[:, :, :128]) == 1
-        assert flash_attn.cuda_launches(qd, kv) == 2
+        assert flash_attn.cuda_launches(qd, kv) == (2 if dtype == torch.float32
+                                                   else 1)
+        assert flash_attn.cuda_launches(qd, torch.zeros(1, 2, 8192, 8,
+                                                        dtype=dtype)) == (
+            2 if dtype == torch.float32 else 1)
         assert flash_attn.cuda_launches(q[:, :, :17].to(dtype), kv) == 1
 
 
@@ -447,6 +456,39 @@ def test_build_names_libraries_by_content_and_flags():
     assert len({build.target(n) for n in build.SOURCES}) == len(build.SOURCES)
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+def test_build_times_each_nvcc_to_its_own_exit(monkeypatch, tmp_path):
+    """Every source's compiler runs at once, and each source's seconds end
+    at its own compiler's exit, not when an earlier one was waited for:
+    with a stand-in compiler that takes 1.5 s for the first source and
+    0.1 s for the others, the others read well under the first's time;
+    each library and its log appear where the loader looks."""
+    import sys
+    import time
+
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys, time\n"
+        "args = sys.argv[1:]\n"
+        "time.sleep(1.5 if args[-1].endswith('ced.cu') else 0.1)\n"
+        "print('ptxas info    : Used 1 registers')\n"
+        "open(args[args.index('-o') + 1], 'w').write('lib')\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    names = ("ced", "lu_panel", "trsm", "schur", "flash_attn")
+    t0 = time.perf_counter()
+    seconds = build._build(names)
+    assert time.perf_counter() - t0 < 1.5 + 1.0  # concurrent, not in turn
+    assert set(seconds) == set(names)
+    assert seconds["ced"] >= 1.5
+    assert all(seconds[n] < 1.0 for n in names[1:]), seconds
+    for name in names:
+        assert build.target(name).read_text() == "lib"
+        assert "Used 1 registers" in open(f"{build.target(name)}.log").read()
+    assert build._build(names) == {}  # built: nothing to compile
 
 
 def test_build_without_nvcc_raises(monkeypatch):
