@@ -80,9 +80,15 @@ Phases, each printed as one JSON line:
 14. train, from a seventh random stream, within TRAIN_BUDGET_S: the flash
    kernel under autograd at tinyllama's prefill shape (q (4, 32, 2048, 64),
    kv (4, 4, 2048, 64), causal) in bf16 and f32, its forward within
-   FLASH_TOL of the plain version and dq, dk, dv bit-equal to autograd
-   through the plain version, with the forward's and the plain
-   backward's device ms; tinyllama at full width with 2 layers in f32,
+   FLASH_TOL of the plain version and dq, dk, dv from the gradient
+   kernels (csrc/flash_bwd.cu) within GRAD_ULPS's rule of autograd
+   through the plain version and bit-equal from call to call, with the
+   forward's device ms, the gradient kernels' by kernel, the plain
+   backward's and SDPA's backward's; the same checks at small shapes on
+   every route (GRAD_ROUTES: gemma3's window at D = 256, hubert's
+   non-causal D = 80, causal D = 128 as llama4's chunk fold runs it,
+   Sq < Sk, fully masked rows with Sq > Sk, a grad whose rows start off
+   16 bytes, Sq <= 16) in bf16 and f32; tinyllama at full width with 2 layers in f32,
    batch 2 x 256, on the same seeded weights on the card and the CPU: the
    loss, every gradient leaf (none zero, wq/wk/wv included) and the
    parameters after one AdamW step (TRAIN_TOL); tinyllama-1.1b at full
@@ -92,9 +98,11 @@ Phases, each printed as one JSON line:
    one batch with AdamWConfig(lr=1e-3, warmup_steps=1): each step's
    wall, tokens/s, the loss (it must fall), the grad norm (finite),
    torch.cuda.max_memory_allocated, 44 flash launches a step (22
-   forwards, 22 remat recomputes), and one step under torch.profiler
-   split into forward, the flash kernel, the plain attention backward,
-   the rest of the backward and the optimizer, with the busy share; the
+   forwards, 22 remat recomputes) and 22 calls of the gradient kernels,
+   and one step under torch.profiler split into forward, the flash
+   kernel, its gradient kernels (3 CUDA launches a call; no plain
+   attention backward left), the rest of the backward and the
+   optimizer, with the busy share; the
    launcher in process (`repro_torch.launch.train.main`, repro-100m,
    batch 8 x 256, SDC on, a checkpoint every 20 steps) to 40 steps, then
    again to 50, which must resume from step 40, with no SDC rejection
@@ -264,7 +272,11 @@ which half lu_blocked runs), each with the device kernels' template
 names the profiler reports, "flash_attention:f32" (the f32 kernel at
 the prefill and decode shapes, launched by phase 13's f32 runs; the
 flash_attention row also carries phase 14's launches, `launches_train`,
-and its autograd case) and "flash_attention:f32_sliding" (the f32
+and its autograd case), "flash_attention_backward" and ":f32" (B6's
+gradient kernels at the training shape on the forward kernel's output
+and lse, beside their plain version and SDPA's backward, each kernel's
+device ms in kernels_ms, launches from phase 14: tinyllama's steps in
+bf16, the card-against-CPU step in f32) and "flash_attention:f32_sliding" (the f32
 kernel's D = 256 configuration at gemma3's window shape; its launches
 are the f32 route's on phase 13, no run of which has that shape), then
 "flash_attention:sliding", ":ring_decode", ":chunk_fold" and
@@ -342,6 +354,7 @@ SERVER_PATH = ("lu_panel", "trsm_lower", "trsm_upper_right")
 MAIN_PATH = CLIENT_PATH + SERVER_PATH
 SEQUENTIAL_PATH = SERVER_PATH + ("schur_update",)
 SERVE_PATH = ("flash_attention",)
+TRAIN_PATH = ("flash_attention", "flash_attention_backward")
 #: decode under a mesh: B6's split decode, its two halves apart
 MESH_DECODE_PATH = ("flash_decode_partial", "flash_combine")
 #: the faults phase's witness case: witness_matrix(WITNESS_SEED, 4096)
@@ -368,6 +381,20 @@ PEAK_OPS_S = {torch.float64: 67e12, torch.float32: 67e12,
 #: share of the outputs fails even where each is small. On the card the
 #: bf16 prefill read max|err| 0.0039, one ulp of an output in [0.5, 1).
 FLASH_TOL = {torch.float32: 1e-5}
+#: B6's gradient (csrc/flash_bwd.cu) against autograd through the plain
+#: forward, leaf by leaf. f32: max|err| <= 1e-5 * max|g| (summation order,
+#: exp2 of base-2 scores against exp, the lse's rounding). bf16/f16, eps
+#: the machine epsilon: every element within GRAD_ULPS eps max|g| and
+#: ||err|| <= eps ||want|| over the leaf. Each side rounds its output once
+#: (eps/2 |g| each: one eps of max|g| together); the kernels round the
+#: normalised P to T before dV = P^T dO, where the plain version rounds
+#: the unnormalised exp(s - max), and dS to T before dQ and dK, where the
+#: plain version's autograd keeps it in f32: u = eps/2 relative a term of
+#: each f32 sum, about u ||want|| normwise. The plain version of the
+#: kernels (ref.flash_attention_backward_ref) against the oracle read
+#: at most 0.97 eps max|g| elementwise and 0.57 eps normwise on the CPU's
+#: test shapes.
+GRAD_ULPS = 2
 #: the serving path: the reference launcher's default model, the prefill
 #: batch, the decode-against-prefill length and the launcher's defaults
 SERVE_ARCH = "tinyllama-1.1b"
@@ -1259,8 +1286,8 @@ def phase_sequential(rng, dev) -> dict:
                    "trsm_upper_right": nb * (panels - 1) + outer,
                    "schur_update": sum(k * k for k in range(nb))
                    + nb * (panels - 1), "trsm_left": 0,
-                   "flash_attention": 0, "flash_decode_partial": 0,
-                   "flash_combine": 0}
+                   "flash_attention": 0, "flash_attention_backward": 0,
+                   "flash_decode_partial": 0, "flash_combine": 0}
     check(launches == want_counts, f"sequential launches {launches}")
     ln, un, _ = lu_nserver(x, N_SERVERS)
     dl = float((l - ln).abs().max())
@@ -2752,8 +2779,8 @@ def phase_sequential_routes(rng, dev) -> dict:
                    "trsm_upper_right": nb * (panels - 1) + nb * (nb - 1) // 2,
                    "schur_update": sum(k * k for k in range(nb))
                    + nb * (panels - 1), "trsm_left": 0,
-                   "flash_attention": 0, "flash_decode_partial": 0,
-                   "flash_combine": 0}
+                   "flash_attention": 0, "flash_attention_backward": 0,
+                   "flash_decode_partial": 0, "flash_combine": 0}
     targs_of = {n: t for n, _, _, t in (*MIXED_ROUTES, *NARROW_ROUTES)}
 
     def run_route(route, xr, acc):
@@ -3837,47 +3864,155 @@ def models_vs_plain(rng, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+def grads_within(got, want) -> dict:
+    """Gradients against the oracle's by GRAD_ULPS's rule for their dtype:
+    each leaf's max|err| over its max|g| (and its normwise error), and
+    whether every leaf is within."""
+    out = {"max_err_of_max": [], "norm_err": [], "within": True}
+    for a, c in zip(got, want):
+        err = (a.float() - c.float()).abs()
+        top = float(c.float().abs().max())
+        of_max = float(err.max()) / top
+        norm = float(err.norm() / c.float().norm())
+        out["max_err_of_max"].append(of_max)
+        out["norm_err"].append(norm)
+        if c.dtype == torch.float32:
+            ok = of_max <= FLASH_TOL[torch.float32]
+        else:
+            eps = torch.finfo(c.dtype).eps
+            ok = of_max <= GRAD_ULPS * eps and norm <= eps
+        out["within"] = out["within"] and ok and top > 0
+    out["tolerance"] = ("1e-5 * max|g|" if want[0].dtype == torch.float32
+                        else f"{GRAD_ULPS} eps max|g|, eps ||want||")
+    return out
+
+
+#: B6's gradient at small shapes on every route the models give it:
+#: (label, b, hq, hkv, sq, sk, d, flash keyword arguments, grad layout)
+GRAD_ROUTES = (
+    ("window d256", 1, 4, 1, 384, 384, 256, {"causal": True, "window": 128},
+     "model"),
+    ("non-causal d80", 2, 16, 16, 256, 256, 80, {"causal": False}, "model"),
+    ("chunk fold d128", 4, 40, 8, 256, 256, 128, {"causal": True}, "model"),
+    ("sq < sk", 2, 8, 2, 100, 300, 64, {"causal": True}, "model"),
+    ("fully masked rows", 1, 8, 2, 300, 100, 64, {"causal": True}, "model"),
+    ("strided grad", 2, 32, 4, 256, 256, 64, {"causal": True}, "offset"),
+    ("short sq", 2, 32, 4, 9, 300, 64, {"causal": True}, "model"),
+)
+
+
+def grad_case(rng, dev, dtype, b, hq, hkv, sq, sk, d, layout="model"):
+    """q, k, v (model views, requiring grad) and a grad_out: the model's
+    (B, H, S, D) view of a (B, S, H, D) tensor, or with layout "offset"
+    columns 1 .. D of a (B, S, H, D + 1) tensor, whose rows start off 16
+    bytes (the gradient kernels' 2-byte copies)."""
+    q, k, v = (t.detach().requires_grad_()
+               for t in flash_inputs(rng, dev, dtype, b, hq, hkv, sq, sk, d))
+    width = d + (layout == "offset")
+    g = torch.from_numpy(rng.standard_normal((b, sq, hq, width),
+                                             dtype=np.float32)).to(dev, dtype)
+    return q, k, v, g[..., width - d:].transpose(1, 2)
+
+
+def autograd_check(ops, q, k, v, g, kw) -> dict:
+    """The kernel under autograd (one forward and one backward counted)
+    against the oracle, autograd through the plain version: the forward
+    within FLASH_TOL, dq, dk, dv within GRAD_ULPS's rule and the same bits
+    from a second backward. Returns the reading."""
+    from repro_torch.kernels import flash_grad, ref
+
+    def forward_and_backward():
+        out = ops.flash_attention(q, k, v, **kw)
+        return out, torch.autograd.grad(out, (q, k, v), g)
+
+    (got, grads), launches = counted(ops, forward_and_backward)
+    check(launches["flash_attention"] == 1
+          and launches["flash_attention_backward"] == 1,
+          f"the flash kernels did not run under autograd: {launches}")
+    _, again = forward_and_backward()
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    reading = flash_compare(got.detach(), want.detach(), v.detach())
+    check(reading["within"], f"flash forward under autograd: {reading}")
+    plain = flash_grad.flash_attention_backward(
+        q, k, v, g, kw.get("causal", True), kw.get("window"), kw.get("scale"))
+    grad = grads_within(grads, plain)
+    grad["bit_equal_run_to_run"] = all(bool(torch.equal(a, c))
+                                       for a, c in zip(grads, again))
+    check(grad["within"] and grad["bit_equal_run_to_run"],
+          f"dq, dk, dv against the plain version: {grad}")
+    return {"forward": reading, "grads": grad}
+
+
+def kernel_split(fn, reps: int) -> dict:
+    """Device ms a call of fn by kernel (template name), from the
+    profiler's device events of `reps` calls."""
+    events, _, _ = device_events(fn, reps)
+    check(bool(events), "the profiler recorded no device activity")
+    out: dict = {}
+    for e in events:
+        name = template_name(e.name)
+        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
 def train_autograd(rng, dev) -> dict:
-    """The flash kernel under autograd at tinyllama's prefill shape, bf16
+    """The flash kernel under autograd. At tinyllama's prefill shape, bf16
     and f32, q, k and v as the model's (B, S, H, D) views: the forward
-    within FLASH_TOL of the plain version, dq, dk and dv bit-equal to
-    autograd through the plain version (the backward IS that autograd),
-    the forward's device ms and the plain backward's. Returns the bf16
-    case (the kernels line's autograd_case) and the f32 one."""
-    from repro_torch.kernels import flash_grad, ops, ref
+    within FLASH_TOL of the plain version, dq, dk, dv from the gradient
+    kernels within GRAD_ULPS's rule of autograd through the plain version
+    and bit-equal from call to call; the forward's device ms, the
+    gradient kernels' by kernel, the plain backward's (the oracle) and
+    scaled_dot_product_attention's backward on the same values (K and V
+    repeated to the query heads; a yardstick the port never calls). Then
+    the same checks at small shapes on every route (GRAD_ROUTES), bf16 and
+    f32. Returns the bf16 case (the kernels line's autograd_case) and the
+    f32 one."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from repro_torch.kernels import flash_bwd, flash_grad, ops
 
     (hq, hkv, d), b, s = FLASH_HEADS, PREFILL_BATCH, PREFILL_LEN
     cases = {}
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = (t.detach().requires_grad_()
-                   for t in flash_inputs(rng, dev, dtype, b, hq, hkv, s, s, d))
-        g = torch.from_numpy(rng.standard_normal((b, s, hq, d), dtype=np.float32)
-                             ).to(dev, dtype).transpose(1, 2)
-        got, launches = counted(ops, lambda: ops.flash_attention(q, k, v, causal=True))
-        check(launches["flash_attention"] == 1 and got.grad_fn is not None,
-              "the flash kernel did not run under autograd")
-        want = ref.flash_attention_ref(q, k, v, causal=True)
-        reading = flash_compare(got.detach(), want.detach(), v.detach())
-        check(reading["within"], f"flash forward under autograd {dtype}: {reading}")
-        grads = torch.autograd.grad(got, (q, k, v), g)
-        plain = torch.autograd.grad(want, (q, k, v), g)
-        bit_equal = [bool(torch.equal(a, c)) for a, c in zip(grads, plain)]
-        check(all(bit_equal), f"dq, dk, dv against the plain version: {bit_equal}")
-        del got, want, grads, plain
+        q, k, v, g = grad_case(rng, dev, dtype, b, hq, hkv, s, s, d)
+        reading = autograd_check(ops, q, k, v, g, {"causal": True})
         fwd_ms, fwd_event, _ = timed(
             lambda: ops.flash_attention(q, k, v, causal=True), 10)
-        bwd_ms, bwd_event, _ = timed(
+        out = ops.flash_attention(q, k, v, causal=True)
+        bwd = kernel_split(lambda: torch.autograd.grad(
+            out, (q, k, v), g, retain_graph=True), 10)
+        check(sorted(bwd) == sorted(flash_bwd.device_kernels(q)),
+              f"the backward ran {sorted(bwd)}")
+        plain_ms, plain_event, _ = timed(
             lambda: flash_grad.flash_attention_backward(q, k, v, g, True), 3)
+        qr, kr, vr = (t.detach().requires_grad_() for t in (
+            q, k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)))
+        lib_out = sdpa(qr, kr, vr, is_causal=True)
+        lib_ms, lib_event, _ = timed(lambda: torch.autograd.grad(
+            lib_out, (qr, kr, vr), g, retain_graph=True), 10)
         cases[str(dtype).removeprefix("torch.")] = {
             "q": list(q.shape), "kv": list(k.shape), "causal": True,
             "forward_ms": fwd_ms, "forward_event_ms": fwd_event,
-            "plain_backward_ms": bwd_ms, "plain_backward_event_ms": bwd_event,
-            "grads_bit_equal_to_plain": bit_equal, **reading}
-        del q, k, v, g
+            "backward_ms": sum(bwd.values()), "backward_kernels_ms": bwd,
+            "plain_backward_ms": plain_ms, "plain_backward_event_ms": plain_event,
+            "sdpa_backward_ms": lib_ms, "sdpa_backward_event_ms": lib_event,
+            **reading}
+        del q, k, v, g, out, qr, kr, vr, lib_out
         torch.cuda.empty_cache()
-    emit({"phase": "train_autograd", **cases,
-          "units": "device ms a call under torch.profiler; the backward is "
-                   "autograd through flash_attention_ref, recomputed"})
+    routes = []
+    for label, *shape, kw, layout in GRAD_ROUTES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, g = grad_case(rng, dev, dtype, *shape, layout=layout)
+            reading = autograd_check(ops, q, k, v, g, kw)
+            routes.append({"route": label, "dtype": str(dtype).removeprefix("torch."),
+                           "shape": shape, **kw, "grad_layout": layout,
+                           **reading["grads"]})
+    emit({"phase": "train_autograd", **cases, "routes": routes,
+          "units": "device ms a call under torch.profiler; backward_ms: the "
+                   "three gradient kernels (csrc/flash_bwd.cu); "
+                   "plain_backward_ms: autograd through flash_attention_ref, "
+                   "recomputed (the oracle); sdpa_backward_ms: "
+                   "scaled_dot_product_attention's backward, K and V repeated"})
     return cases
 
 
@@ -3888,6 +4023,7 @@ def train_card_vs_cpu(dev, seed: int) -> dict:
     from dataclasses import replace
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
     from repro_torch.models.lm import init_lm, with_parameters
     from repro_torch.train.data import SyntheticLM
     from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
@@ -3903,7 +4039,10 @@ def train_card_vs_cpu(dev, seed: int) -> dict:
     runs = {}
     for where, model, bt in (("card", card, {k: v.to(dev) for k, v in batch.items()}),
                              ("cpu", cpu, batch)):
-        (loss, grads), seconds = wall(lambda: loss_and_grads(model, bt, cfg))
+        ((loss, grads), launches), seconds = wall(lambda: counted(
+            ops, lambda: loss_and_grads(model, bt, cfg)))
+        if where == "card":
+            card_launches = launches
         params, _, _ = adamw_update(dict(model.named_parameters()), grads,
                                     init_opt_state(model, opt_cfg), opt_cfg)
         runs[where] = (loss.cpu(), {n: x.cpu() for n, x in grads.items()},
@@ -3925,6 +4064,8 @@ def train_card_vs_cpu(dev, seed: int) -> dict:
             "zero_grad_leaves": zero, "max_abs_grad_qkv": qkv,
             "params_after_step_max_abs_err": param_err,
             "card_s": card_s, "cpu_s": cpu_s, "tolerance": TRAIN_TOL,
+            "card_launches": {n: card_launches[n] for n in
+                              ("flash_attention", "flash_attention_backward")},
             "phase_s": time.perf_counter() - t0}
     emit(line)
     check(loss_rel <= TRAIN_TOL["loss"], f"card vs CPU loss {loss_rel}")
@@ -3933,36 +4074,49 @@ def train_card_vs_cpu(dev, seed: int) -> dict:
     check(max(grad_err.values()) <= TRAIN_TOL["grad"],
           f"card vs CPU gradient {line['worst_grad_leaf']}")
     check(param_err <= TRAIN_TOL["params"], f"card vs CPU params {param_err}")
+    check(card_launches["flash_attention_backward"] == cfg.num_layers,
+          f"f32 gradient kernel calls: {card_launches}")
     return line
 
 
-def train_split(events_and_host) -> dict:
-    """A training step's device time by part, from one profiled step: the
-    flash kernel (B6: the forwards and the remat recomputes), the plain
-    attention backward (launched inside flash_grad's range), the rest of
-    the backward, the forward and the optimizer (by the steps' ranges
-    their launches fall in), and the card's busy share of the wall."""
+def train_split(events_and_host, plain_range: str | None = None) -> dict:
+    """A training step's device time by part, from one profiled step: B6's
+    forward kernel (the forwards and the remat recomputes), its gradient
+    kernels (flash_bwd_*), the plain attention backward (launched inside
+    `plain_range`, by default flash_grad.PLAIN_BACKWARD_RANGE, which a
+    step on the card does not enter; train_ab.py names an older tree's),
+    the rest of the backward, the forward and the optimizer (by the
+    steps' ranges their launches fall in), and the card's busy share of
+    the wall; the gradient kernels' launches a step."""
     from repro_torch.kernels import flash_grad
     from repro_torch.train import steps
 
+    plain_range = plain_range or flash_grad.PLAIN_BACKWARD_RANGE
     everything, host_s = events_and_host
     events, lost, _ = timed_device_events(everything)
     cuda = torch.autograd.DeviceType.CUDA
     host = [e for e in everything if e.device_type != cuda]
-    names = (flash_grad.BACKWARD_RANGE, steps.OPTIMIZER_RANGE,
-             steps.BACKWARD_RANGE, steps.FORWARD_RANGE)
+    names = (plain_range, steps.OPTIMIZER_RANGE, steps.BACKWARD_RANGE,
+             steps.FORWARD_RANGE)
     spans = {n: [(e.time_range.start, e.time_range.end) for e in host
                  if e.name == n] for n in names}
     launched = {e.id: e.time_range.start for e in host if LAUNCH_CALL.match(e.name)}
-    parts = dict.fromkeys(("forward", "flash_kernel_b6", "plain_attention_backward",
-                           "other_backward", "optimizer", "other"), 0.0)
-    label = {flash_grad.BACKWARD_RANGE: "plain_attention_backward",
+    parts = dict.fromkeys(("forward", "flash_kernel_b6", "flash_backward_b6",
+                           "plain_attention_backward", "other_backward",
+                           "optimizer", "other"), 0.0)
+    label = {plain_range: "plain_attention_backward",
              steps.OPTIMIZER_RANGE: "optimizer",
              steps.BACKWARD_RANGE: "other_backward",
              steps.FORWARD_RANGE: "forward"}
+    backward_launches = 0
     for evt in events:
         ms = evt.time_range.elapsed_us() / 1e3
-        if short_name(evt.name).startswith("flash_"):
+        name = short_name(evt.name)
+        if name.startswith("flash_bwd_"):
+            parts["flash_backward_b6"] += ms
+            backward_launches += 1
+            continue
+        if name.startswith("flash_"):
             parts["flash_kernel_b6"] += ms
             continue
         t = launched[evt.id]
@@ -3971,7 +4125,9 @@ def train_split(events_and_host) -> dict:
         parts[where] += ms
     busy = sum(parts.values())
     return {"device_ms": parts, "device_busy_ms": busy, "wall_ms": host_s * 1e3,
-            "device_busy_share": busy / (host_s * 1e3), "lost_events": lost}
+            "device_busy_share": busy / (host_s * 1e3), "lost_events": lost,
+            "flash_backward_launches": backward_launches,
+            "plain_backward_ranges": len(spans[plain_range])}
 
 
 def train_full(dev, seed: int) -> tuple[dict, dict]:
@@ -3980,11 +4136,13 @@ def train_full(dev, seed: int) -> tuple[dict, dict]:
     TRAIN_SHAPE: every leaf's gradient nonzero and finite; then, the
     counts set to 0, one warm step and TRAIN_STEPS timed steps on one
     batch (the falling loss, finite grad norms, 2 flash launches a
-    layer a step: the forward and its remat recompute), then one step
-    under torch.profiler (train_split). Returns (the line, the steps'
+    layer a step: the forward and its remat recompute; 1 call of the
+    gradient kernels a layer a step), then one step under
+    torch.profiler (train_split: flash_bwd.CUDA_LAUNCHES gradient
+    kernels a layer, no plain backward). Returns (the line, the steps'
     launches)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_bwd, ops
     from repro_torch.models.lm import init_lm
     from repro_torch.train.data import SyntheticLM
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -4014,7 +4172,9 @@ def train_full(dev, seed: int) -> tuple[dict, dict]:
         steps_run.append({"wall_s": seconds, "loss": float(metrics["loss"]),
                           "grad_norm": float(metrics["grad_norm"]),
                           "lr": float(metrics["lr"]),
-                          "flash_launches": launches["flash_attention"]})
+                          "flash_launches": launches["flash_attention"],
+                          "flash_backward_launches":
+                              launches["flash_attention_backward"]})
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     timed_steps = steps_run[1:]
@@ -4029,10 +4189,20 @@ def train_full(dev, seed: int) -> tuple[dict, dict]:
             "tokens_per_s": TRAIN_SHAPE[0] * TRAIN_SHAPE[1] / float(np.median(walls)),
             "max_memory_allocated_bytes": peak,
             "flash_launches_per_step": 2 * cfg.num_layers,
+            "flash_backward_calls_per_step": cfg.num_layers,
+            "flash_backward_cuda_launches_per_call": flash_bwd.CUDA_LAUNCHES,
             "profile": split, "phase_s": time.perf_counter() - t0}
     emit(line)
     check(all(r["flash_launches"] == 2 * cfg.num_layers for r in steps_run),
           f"flash launches a step: {[r['flash_launches'] for r in steps_run]}")
+    check(all(r["flash_backward_launches"] == cfg.num_layers
+              for r in steps_run),
+          f"flash backward calls a step: "
+          f"{[r['flash_backward_launches'] for r in steps_run]}")
+    check(split["flash_backward_launches"]
+          == flash_bwd.CUDA_LAUNCHES * cfg.num_layers
+          and split["plain_backward_ranges"] == 0,
+          f"a profiled step's gradient kernels: {split}")
     check(all(math.isfinite(r["grad_norm"]) for r in steps_run),
           "a grad norm is not finite")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
@@ -4307,17 +4477,21 @@ def mesh_decode(dev, seed: int) -> dict:
 def phase_train(rng, dev, seed: int) -> tuple[dict, dict]:
     """Training on the card (module docstring): B6 under autograd, card
     against CPU, tinyllama-1.1b at full size, the launcher; within
-    TRAIN_BUDGET_S. Returns (the flash kernel's autograd case for the
-    kernels line, the full model's steps' launches)."""
+    TRAIN_BUDGET_S. Returns (the flash kernel's autograd cases and the
+    forward's and gradient kernels' launches for the kernels line, the
+    full model's steps' launches)."""
     t0 = time.perf_counter()
     autograd = train_autograd(rng, dev)
-    train_card_vs_cpu(dev, seed)
+    card_vs_cpu = train_card_vs_cpu(dev, seed)
     full, launches = train_full(dev, seed)
     emit(train_launcher())
     phase_s = time.perf_counter() - t0
     emit({"phase": "train_wall", "phase_s": phase_s, "budget_s": TRAIN_BUDGET_S})
     check(phase_s <= TRAIN_BUDGET_S, f"the train phase took {phase_s:.1f} s")
     return {"autograd_case": autograd, "launches_train": launches["flash_attention"],
+            "launches_backward": launches["flash_attention_backward"],
+            "launches_backward_f32":
+                card_vs_cpu["card_launches"]["flash_attention_backward"],
             "train_steps": len(full["steps"])}, launches
 
 
@@ -4568,8 +4742,9 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
         note="launches from the serve phase's greedy_generate run (22 "
              "layers x 47 decode steps), launches_train from the train "
              "phase's tinyllama steps (22 forwards and 22 remat recomputes "
-             "a step, under autograd; autograd_case: the forward kernel and "
-             "the plain backward at the prefill shape); causal prefill counted at half "
+             "a step, under autograd; autograd_case: the forward kernel, "
+             "the gradient kernels, the plain backward and SDPA's backward "
+             "at the prefill shape); causal prefill counted at half "
              "of 4·B·Hq·S²·D; bf16 prefill on wgmma fed by a TMA ring "
              "(device_kernels, by the profiler), decode in one launch of "
              "flash_decode_kernel (decode_case's device_kernels and "
@@ -4608,6 +4783,47 @@ def kernels_line(rng, dev, launches: dict, errs: dict, strips: dict,
              "launch, flash_combine_kernel (decode_case's "
              "cuda_launches_per_call); the bound at the f32 "
              "rate")
+    # B6's gradient (csrc/flash_bwd.cu) at the training shape, bf16 and
+    # f32: the three kernels on the forward kernel's own output and lse,
+    # beside their plain version on the same inputs and SDPA's backward
+    # (K and V repeated to the query heads; a yardstick the port never
+    # calls); the bound is the 5 products of 2·D operations a seen pair
+    # and q, k, v, O, lse, dO and the three gradients once each
+    from repro_torch.kernels import flash_bwd
+
+    pairs = fb * hq * s * (s + 1) // 2
+    for dtype, suffix in ((bf16, ""), (f32, ":f32")):
+        q, k, v = flash_inputs(rng, dev, dtype, fb, hq, hkv, s, s, d)
+        g = flash_inputs(rng, dev, dtype, fb, hq, hkv, s, s, d)[0]
+        o, lse = flash_attn.flash_attention_lse_cuda(q, k, v, causal=True)
+        grad = lambda: flash_bwd.flash_attention_backward_cuda(q, k, v, o, lse, g)
+        plain_grad = lambda: ref.flash_attention_backward_ref(q, k, v, o, lse, g)
+        errs[f"flash_attention_backward{suffix}"] = max(
+            max_err(a.float(), c.float())[0] for a, c in zip(grad(), plain_grad()))
+        qr, kr, vr = (t.detach().requires_grad_() for t in (
+            q, k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1)))
+        lib_out = sdpa(qr, kr, vr, is_causal=True)
+        row(f"flash_attention_backward{suffix}", "flash_bwd.cu",
+            "src/repro/kernels/flash_attn.py:79", [fb, hq, s, d], grad,
+            plain_grad,
+            lambda: torch.autograd.grad(lib_out, (qr, kr, vr), g,
+                                        retain_graph=True), 10, 3,
+            dtype.itemsize * 4 * (fb * hq * s * d + fb * hkv * s * d)
+            + 4 * fb * hq * s, 10 * d * pairs, dtype=dtype,
+            kv_shape=[fb, hkv, s, d], expect_launches=flash_bwd.CUDA_LAUNCHES,
+            kernels_ms=kernel_split(grad, 10),
+            replaces_note="the port's gradient of B6, which has no Pallas "
+                          "backward (the reference differentiates its jnp "
+                          "attention)",
+            note="launches: the train phase's calls of the gradient "
+                 "kernels (tinyllama's steps in bf16, one a layer a step; "
+                 "the card-against-CPU f32 step for :f32), 3 CUDA launches "
+                 "each (delta, dK and dV, dQ; kernels_ms); causal pairs "
+                 "counted once; the kernels run 7 products where the bound "
+                 "counts 5; bf16 on mma.sync m16n8k16, f32 on the FMA "
+                 "pipes")
+        del q, k, v, g, o, lse, qr, kr, vr, lib_out
+        torch.cuda.empty_cache()
     # the split decode's halves (decode under a mesh), bf16: the partial
     # over the first of two ranks' halves of the decode case's keys, and
     # the merge of both halves' chunks
@@ -4950,7 +5166,7 @@ def main() -> int:
         per_phase[f"serve {arch}"] = (arch_launches, path)
     errs.update(models_vs_plain(rng, dev))
     train_flash, per_phase["train"] = phase_train(rng_train, dev, args.seed)
-    per_phase["train"] = (per_phase["train"], SERVE_PATH)
+    per_phase["train"] = (per_phase["train"], TRAIN_PATH)
     per_phase["mesh"] = (phase_mesh(), SERVE_PATH)
     per_phase["mesh_decode"] = (mesh_decode(dev, args.seed), MESH_DECODE_PATH)
     for phase, (launches, path) in per_phase.items():
@@ -4980,6 +5196,9 @@ def main() -> int:
     launches["trsm_lower:row_solve"] = row_solve["calls"]
     for route in ("sliding", "ring_decode", "chunk_fold", "non_causal"):
         launches[f"flash_attention:{route}"] = flash_routes[route]
+    launches["flash_attention_backward"] = train_flash["launches_backward"]
+    launches["flash_attention_backward:f32"] = \
+        train_flash["launches_backward_f32"]
     launches["flash_attention:decode_partial"] = \
         per_phase["mesh_decode"][0]["flash_decode_partial"]
     launches["flash_attention:combine"] = \

@@ -30,7 +30,13 @@ its CUDA launches a call, its largest error against the plain version
 (ref.flash_attention_ref, the partial's and merge's own plain versions)
 on the same inputs (for the chunk fold, on one kv group of one chunk),
 and the host µs a wrapper call takes to return (the median of
-HOST_CALLS calls timed one by one). Each child builds csrc/flash_attn.cu
+HOST_CALLS calls timed one by one). Then the backward of
+ops.flash_attention under autograd at tinyllama's training shape, q (4,
+32, 2048, 64) over kv (4, 4, 2048, 64), causal, in bf16 and f32: in a
+tree with B6's gradient kernels their three launches, in one without,
+autograd through the plain version; beside SDPA's backward (K and V
+repeated), with its launches and its largest error against the plain
+autograd over each gradient's max|g|. Each child builds csrc/flash_attn.cu
 alone. It prints one JSON line a run. The trees run in the order A B B A in
 every round, so that a drift of the card's clock over the call weighs
 on both. The last line gives, for each measurement, the median of the
@@ -48,6 +54,10 @@ import schur_ab
 
 REPS = 20
 HOST_CALLS = 100
+#: B6's backward under autograd at tinyllama's training shape: (label,
+#: dtype)
+BACKWARD_CASES = (("bf16 causal backward", "bfloat16"),
+                  ("f32 causal backward", "float32"))
 #: (label, dtype, b, hq, hkv, sq, sk, d, cache slots, flash keyword
 #: arguments); "partial" and "combine" label the split decode's halves
 #: over the first half and both halves of the keys
@@ -83,7 +93,7 @@ def child(src: str, seed: int) -> dict:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     sys.path.insert(0, src)
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, flash_grad, ops, ref
 
     build.build(("flash_attn",))
     dev = torch.device("cuda", 0)
@@ -191,6 +201,27 @@ def child(src: str, seed: int) -> dict:
             out[f"{label} sdpa ms"] = device_ms(lib)[0]
         out[f"{label} max_abs_v"] = float(v.float().abs().max())
         del q, k, v
+        torch.cuda.empty_cache()
+    for label, dtype in BACKWARD_CASES:
+        dtype = getattr(torch, dtype)
+        b, hq, hkv, s, d = 4, 32, 4, 2048, 64
+        q, k, v = (draw((b, s, h, d), dtype).transpose(1, 2).detach()
+                   .requires_grad_() for h in (hq, hkv, hkv))
+        g = draw((b, s, hq, d), dtype).transpose(1, 2)
+        o = ops.flash_attention(q, k, v, causal=True)
+        call = lambda: torch.autograd.grad(o, (q, k, v), g, retain_graph=True)
+        want = flash_grad.flash_attention_backward(q, k, v, g, True)
+        out[f"{label} max_err_of_max"] = max(
+            float((a.float() - c.float()).abs().max() / c.float().abs().max())
+            for a, c in zip(call(), want))
+        del want
+        out[f"{label} ms"], out[f"{label} launches"] = device_ms(call)
+        kr, vr = (t.detach().repeat_interleave(hq // hkv, dim=1).requires_grad_()
+                  for t in (k, v))
+        lib_o = sdpa(q, kr, vr, is_causal=True)
+        out[f"{label} sdpa ms"] = device_ms(lambda: torch.autograd.grad(
+            lib_o, (q, kr, vr), g, retain_graph=True))[0]
+        del q, k, v, g, o, kr, vr, lib_o
         torch.cuda.empty_cache()
     return out
 

@@ -482,6 +482,11 @@ class Session:
     def strip_block(self) -> int:
         return self.n_aug // self.partitions
 
+    @property
+    def batch(self) -> int | None:
+        """The stack's batch size; None for one matrix."""
+        return int(self.x_aug.shape[0]) if self.x_aug.ndim == 3 else None
+
     # -- dispatch ------------------------------------------------------------
 
     def tasks(self, *, check_boundary: bool | None = None) -> list[ShardTask]:

@@ -181,6 +181,12 @@ class Transport:
                 )
         return self._driver_pool.submit(fn, *args)
 
+    def factor_async(self, tasks, faults=()) -> Future:
+        """`factor` as a Future on this transport's driver threads: the
+        relay inside stays sequential (the one-way chain is a data
+        dependency); only the session boundary is asynchronous."""
+        return self.driver_submit(self.factor, tasks, faults)
+
     # -- per-task surface ----------------------------------------------------
 
     def start(self, task: ShardTask, worker_id: int, *, faults=(),

@@ -1,6 +1,8 @@
 """SPDC core of the port — the paper's contribution on PyTorch (mirrors
 repro.core)."""
-from .decipher import Determinant, decipher, decipher_batch
+from .augment import augment_for_servers
+from .cipher import cipher_flops
+from .decipher import Determinant, decipher, decipher_batch, decipher_flops
 from .faults import (
     FaultPlan,
     ServerFault,
@@ -31,6 +33,7 @@ from .protocol import (
     outsource_determinant_mixed,
     resolve_dtype,
 )
+from .prt import sign_preserved
 from .verify import (
     Verdict,
     authenticate,
@@ -45,7 +48,8 @@ from .verify import (
 )
 
 __all__ = [
-    "Determinant", "decipher", "decipher_batch",
+    "augment_for_servers", "cipher_flops",
+    "Determinant", "decipher", "decipher_batch", "decipher_flops",
     "FaultPlan", "ServerFault", "apply_faults", "corrupt_strip",
     "normalize_plan", "resolve_delays",
     "SPDCInverseResult", "outsource_inverse",
@@ -54,6 +58,7 @@ __all__ = [
     "slogdet_from_lu", "slogdet_pair_from_lu",
     "SPDCBatchResult", "SPDCResult", "common_padded_size",
     "outsource_determinant", "outsource_determinant_mixed", "resolve_dtype",
+    "sign_preserved",
     "Verdict", "authenticate", "epsilon", "growth_estimate", "localize",
     "per_server_residuals", "q1", "q2", "q3", "q3_paper_literal",
 ]

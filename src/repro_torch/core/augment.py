@@ -64,6 +64,15 @@ def augment(a: torch.Tensor, p: int, *,
     return out
 
 
+def augment_for_servers(a: torch.Tensor, num_servers: int, *,
+                        rng: np.random.Generator | None = None
+                        ) -> tuple[torch.Tensor, int]:
+    """Augment a so that it partitions into num_servers × num_servers
+    equal blocks: (B, p), p = padding_for_servers(n, num_servers)."""
+    p = padding_for_servers(a.shape[-1], num_servers)
+    return augment(a, p, rng=rng), p
+
+
 def augment_block_row(a: torch.Tensor, p: int, row0: int, rows: int, *,
                       rng: np.random.Generator | None = None) -> torch.Tensor:
     """Rows [row0, row0 + rows) of `augment(a, p, rng=rng)` without

@@ -147,3 +147,10 @@ def equilibrate(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     log2_scale = -(e_r.sum(dim=-1, dtype=torch.int32)
                    + e_c.sum(dim=-1, dtype=torch.int32))
     return x, log2_scale
+
+
+def cipher_flops(n: int) -> int:
+    """Cipher cost model — paper Table I claims n² flops for the protocol:
+    one multiply (or divide) per element; the rotation is pure data
+    movement (0 flops)."""
+    return n * n

@@ -191,3 +191,9 @@ def decipher_batch(
         )
         for i, (seed, meta) in enumerate(zip(seeds, metas, strict=True))
     ]
+
+
+def decipher_flops(n: int) -> int:
+    """Paper Table I Decipher cost: 2n (n diagonal products and about n
+    for the running product or log accumulation)."""
+    return 2 * n

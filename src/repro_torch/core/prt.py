@@ -51,6 +51,12 @@ def growth_safe_sign(n: int, k: int) -> int:
     return rotation_sign(n, k)
 
 
+def sign_preserved(n: int, k: int) -> bool:
+    """True iff a k-quarter-turn rotation preserves det's sign for size n:
+    always for n ≡ 0, 1 (mod 4), for even k only for n ≡ 2, 3 (mod 4)."""
+    return rotation_sign(n, k) == 1
+
+
 def quantize_seed(psi: float, method: str = "floor") -> int:
     """Quantized seed Ψ' — paper §IV.C.2 offers floor/ceil/round/trunc."""
     if method == "floor":

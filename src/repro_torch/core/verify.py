@@ -322,3 +322,14 @@ def authenticate(
         verdict.server_ok = sok
         verdict.culprit = culprit
     return verdict
+
+
+def verification_flops(n: int, method: str) -> int:
+    """Authenticate's cost models (paper Table I's Authenticate column)."""
+    if method == "q1":
+        return 3 * 2 * n * n  # three mat-vec products
+    if method == "q2":
+        return 3 * 2 * n * n + 2 * 2 * n  # three mat-vec + two dot products
+    if method in ("q3", "q3_literal"):
+        return 2 * n * (n + 1) // 2 + n  # Σ_i 2i muls/adds + n subtractions
+    raise ValueError(method)

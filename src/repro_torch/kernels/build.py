@@ -30,7 +30,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("ced", "lu_panel", "trsm", "schur", "flash_attn")
+SOURCES = ("ced", "lu_panel", "trsm", "schur", "flash_attn", "flash_bwd")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

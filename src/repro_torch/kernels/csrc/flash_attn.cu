@@ -84,7 +84,9 @@
 //    besides (making them take turns through named barriers timed the
 //    same, PERF.md);
 //  * the epilogue divides by l, rounds once to T, stages the rows through
-//    Q's tile and stores 16 bytes a thread at q's layout.
+//    Q's tile and stores 16 bytes a thread at q's layout; under autograd
+//    it also writes each row's base-2 log-sum-exp m + log2 l, which the
+//    backward (flash_bwd.cu) recomputes P from.
 // Every configuration runs in registers alone: on this toolkit ptxas
 // gives the pipelined consumer about 168 registers whatever setmaxnreg
 // grants, and a thread's O, S and P (64 + 32 + 16 at DT = 128) fit that.
@@ -193,21 +195,9 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "mma.cuh"
 
 namespace {
-
-template <typename T>
-__device__ __forceinline__ T narrow(float v) {
-  return static_cast<T>(v);
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <>
-__device__ __forceinline__ __half narrow<__half>(float v) {
-  return __float2half(v);
-}
 
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -229,47 +219,9 @@ struct Params {
   int row_blocks;  // decode: ceil(group * sq / packed rows a block)
   int aligned;     // every row and 16-byte chunk lies on 16 bytes
   int partial;     // decode: leave every chunk's partial, merge none
-};
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void run(float (&c)[4], uint32_t a0,
-                                             uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void run(float (&c)[4], uint32_t a0,
-                                             uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-  }
+  // prefill under autograd: each row's base-2 log-sum-exp m + log2 l,
+  // (batch, hq, sq) f32, for the backward (flash_bwd.cu); null otherwise
+  float* lse;
 };
 
 // ---------------------------------------------------------------------------
@@ -741,6 +693,17 @@ __device__ __forceinline__ void pf_consume(const Params& p,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv_l[r] = 1.f / (l[r] == 0.f ? 1.f : l[r]);
   }
+  // the rows' log-sum-exp for the backward, by one thread a row
+  if (p.lse != nullptr && tq == 0 && (!Tile::SPLIT_COLS || consumer == 0)) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = row0 + 16 * warp + lane / 4 + 8 * r;
+      if (i < p.sq) {
+        p.lse[(static_cast<long long>(b) * p.hq + h) * p.sq + i] =
+            m[r] + log2f(l[r]);
+      }
+    }
+  }
   // every product that reads the Q rows about to be overwritten is done:
   // this warpgroup's, or with split columns both consumers'
   if (Tile::SPLIT_COLS) {
@@ -952,30 +915,6 @@ struct DcTile {
   static constexpr size_t SMEM =
       SWIZZLE_ATOM + BARS + 8 * 2 * STAGES * DC_WARPS;
 };
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned s) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], unsigned s) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // The merge of n chunk partials of one output row by one warp, the one
 // arithmetic of the decode's cluster and of flash_combine_kernel: chunk
@@ -1871,6 +1810,10 @@ flash_fma32_kernel(const Params p) {
         dst[p.d + 1] = l[i];
       }
     } else {
+      if (p.lse != nullptr && tx == 0) {
+        p.lse[(static_cast<long long>(b) * p.hq + h) * p.sq + ii] =
+            m[i] + log2f(l[i]);
+      }
       const float inv_l = 1.f / (l[i] == 0.f ? 1.f : l[i]);
       float* dst = static_cast<float*>(p.o) + b * p.ob + h * p.oh + ii * p.os;
 #pragma unroll
@@ -1946,6 +1889,10 @@ int launch_fma_d(const Params& p, cudaStream_t stream) {
 // kernel and, for split keys, flash_combine_kernel; bf16 and f16 run
 // flash_wgmma_kernel for a prefill (chunk 0) and flash_decode_kernel,
 // one launch, for a decode (ROWS packed decode rows a block either way).
+// lse, where not null (a forward under autograd), receives each row's
+// base-2 log-sum-exp m + log2 l, (batch, hq, sq) f32, from the prefill
+// kernels' epilogues; the decode writes none, so a call with lse must
+// take the prefill (chunk 0, at any sq), else cudaErrorInvalidValue.
 // Returns the first error of a launch that is not cudaSuccess, else 0.
 //
 // NAME_partial is the packed decode's first half alone for one query row
@@ -1974,12 +1921,15 @@ int launch_fma_d(const Params& p, cudaStream_t stream) {
            long long oh, long long os, int batch, int hq, int hkv, int sq,   \
            int sk, int d, float scale, int causal, int has_window,           \
            int window, float* part, int chunk, int nchunks, int aligned,     \
-           cudaStream_t stream) {                                            \
+           float* lse, cudaStream_t stream) {                                \
+    if (lse != nullptr && chunk > 0) {                                       \
+      return static_cast<int>(cudaErrorInvalidValue);                        \
+    }                                                                        \
     Params p{q, qb, qh, qs, k, kb, kh, ks, v, vb, vh, vs, o, ob, oh, os,    \
              part, batch, hq, hkv, hq / hkv, sq, sk, d, scale * LOG2E,       \
              causal, has_window, window, chunk, nchunks,                     \
              chunk > 0 ? ((hq / hkv) * sq + ROWS - 1) / ROWS : 1, aligned,   \
-             0};                                                             \
+             0, lse};                                                        \
     return LAUNCH<T>(p, stream);                                             \
   }                                                                          \
   int NAME##_partial(const T* q, long long qb, long long qh, long long qs,   \

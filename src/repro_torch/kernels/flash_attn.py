@@ -21,6 +21,12 @@ producer warp's bulk copies, and the blocks over a row block's chunks, at
 most DECODE_CLUSTER of them, are one thread block cluster that merges the
 chunks. In f32 the chunks and their merge are two launches.
 
+Under autograd (flash_grad.FlashAttention) the forward is
+`flash_attention_lse_cuda`: the prefill kernels also write each row's
+base-2 log-sum-exp m + log2 l, (B, Hq, Sq) f32, which the gradient
+kernels (flash_bwd) recompute P from; such a call takes the prefill at
+any Sq, since the decode writes none. Serving calls pass no lse.
+
 The two halves of that decode are wrappers of their own, for keys that
 lie on several ranks: `flash_decode_partial_cuda` leaves the chunks' f32
 partials of one query row over one key range, (chunks, B, Hq, 1, D + 2)
@@ -46,7 +52,7 @@ _SIGNATURES = {
         _INT,
         (_PTR, _LL, _LL, _LL, _PTR, _LL, _LL, _LL, _PTR, _LL, _LL, _LL,
          _PTR, _LL, _LL, _LL, _INT, _INT, _INT, _INT, _INT, _INT, _FLT,
-         _INT, _INT, _INT, _PTR, _INT, _INT, _INT, _PTR),
+         _INT, _INT, _INT, _PTR, _INT, _INT, _INT, _PTR, _PTR),
     )
     for suffix in _SUFFIX.values()
 }
@@ -209,6 +215,16 @@ def _check_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: batch {b} or heads {hq} exceed the grid")
 
 
+def empty_rows_like(t: torch.Tensor) -> torch.Tensor:
+    """An empty tensor in t's memory layout where that has a unit stride
+    along D (a (B, H, S, D) view of a (B, S, H, D) tensor stays one), else
+    contiguous: a kernel's output or gradient, written row by row."""
+    out = torch.empty_like(t)
+    if out.stride(3) != 1:
+        out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    return out
+
+
 def _check_packed(q: torch.Tensor, k: torch.Tensor) -> None:
     hq, sq = q.shape[1], q.shape[2]
     hkv = k.shape[1]
@@ -223,19 +239,38 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """softmax(QKᵀ·scale + mask)·V on CUDA tensors: q (B, Hq, Sq, D), k and
     v (B, Hkv, Sk, D), unit stride along D. Returns a new (B, Hq, Sq, D)
     tensor laid out in memory as q is; the operands are left as they are."""
+    return _forward(q, k, v, causal, window, scale, None)
+
+
+def flash_attention_lse_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: int | None = None,
+                             scale: float | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward under autograd: (O, lse), O as flash_attention_cuda
+    gives it and lse each row's base-2 log-sum-exp m + log2 l, a new
+    (B, Hq, Sq) f32 tensor, which the backward (flash_bwd) recomputes P
+    from. The prefill kernels write it, so every Sq takes the prefill
+    route here (the decode writes no lse): one launch."""
+    b, hq, sq, _ = q.shape
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    return _forward(q, k, v, causal, window, scale, lse), lse
+
+
+def _forward(q, k, v, causal, window, scale, lse) -> torch.Tensor:
+    """One launch of the forward (two for an f32 decode whose keys are
+    split), writing each row's log-sum-exp to lse where it is given."""
     _check_cuda(q, k, v, window)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    out = torch.empty_like(q)
-    if out.stride(3) != 1:
-        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = empty_rows_like(q)
     if b == 0 or sq == 0:
         return out
     chunk = nchunks = 0
     part = None
-    if sq <= DECODE_ROWS:
+    if sq <= DECODE_ROWS and lse is None:
         chunk, nchunks = decode_split(sk)
         _check_packed(q, k)
         if nchunks > 1:
@@ -249,7 +284,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             b, hq, hkv, sq, sk, d, float(scale), int(bool(causal)),
             int(window is not None), min(int(window or 0), _WIDE_WINDOW),
             None if part is None else part.data_ptr(), chunk, nchunks,
-            int(_aligned(q, k, v)), torch.cuda.current_stream().cuda_stream,
+            int(_aligned(q, k, v)), None if lse is None else lse.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     build.check_launch(lib, "flash_attention", code)
     return out

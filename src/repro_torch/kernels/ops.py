@@ -7,7 +7,9 @@ ref.py. Any other device raises.
 `LAUNCHES[name]` counts the kernel launches each wrapper made (plain
 versions never count), so a run can show that its path went through the
 kernels; `reset_launches()` zeroes every count. `flash_attention` counts
-one a call (a split decode's two CUDA launches included);
+one a call (a split decode's two CUDA launches included), and
+`flash_attention_backward` one a backward of a call made under autograd
+(its three CUDA launches: Δ, dK and dV, dQ);
 `flash_decode_partial` and `flash_combine`, the split decode's halves
 for keys spread over ranks, count their own. A mixed route counts
 under its kernel's name. `trsm_left` also counts each launch under its
@@ -41,7 +43,8 @@ from .trsm import trsm_left_cuda, trsm_lower_cuda, trsm_upper_right_cuda
 LAUNCHES: dict[str, int] = {
     "ced": 0, "lu_panel": 0, "trsm_lower": 0, "trsm_upper_right": 0,
     "trsm_left": 0, "schur_update": 0, "flash_attention": 0,
-    "flash_decode_partial": 0, "flash_combine": 0,
+    "flash_attention_backward": 0, "flash_decode_partial": 0,
+    "flash_combine": 0,
 }
 #: trsm_left's launches by leg: "l" solves L a = b, "u" U y = a, "ut"
 #: Uᵀ a = b and "lt" Lᵀ y = a (T's stored triangle, then "t" where the
@@ -152,10 +155,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     right-aligned to the keys; scale defaults to D^-½.
 
     On CUDA, where grad is enabled and an operand requires it, the
-    kernel runs under autograd (flash_grad.FlashAttention: the kernel
-    forward, the plain version's gradient); otherwise, as in serving
-    under no_grad, the kernel is called directly. Either way one launch
-    counts."""
+    kernel runs under autograd (flash_grad.FlashAttention: the forward
+    kernel, writing each row's log-sum-exp, and in the backward the
+    gradient kernels of csrc/flash_bwd.cu, counted apart as
+    "flash_attention_backward"); otherwise, as in serving under no_grad,
+    the kernel is called directly. Either way the forward counts one
+    launch. On the CPU the plain version runs, under autograd as any
+    tensor code does."""
     if _on_cuda(q, k, v):
         if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad):

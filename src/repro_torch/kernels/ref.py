@@ -139,6 +139,9 @@ def schur_update_ref(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 #: the masked-score sentinel of the reference's kernel (flash_attn.py:23)
 NEG_INF = -1e30
+#: log2(e), by which the kernels scale their scores to work in base 2
+#: (csrc/flash_attn.cu, csrc/flash_bwd.cu)
+LOG2E = 1.4426950408889634
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -155,14 +158,23 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the sum is divided by the f32 row sum, then cast to q's dtype. A row
     with every key masked (causal with Sq > Sk) therefore gets the mean of
     V over the Sk keys, as the reference's Pallas kernel gives it."""
-    _, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    g = hq // hkv
     if scale is None:
-        scale = 1.0 / (d ** 0.5)
-    kk = k.repeat_interleave(g, dim=1).float()
-    vv = v.repeat_interleave(g, dim=1)
-    s = torch.matmul(q.float(), kk.transpose(-1, -2)) * scale
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    s, _ = _scores(q, k, scale, causal, window)
+    vv = v.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(p.to(v.dtype).float(), vv.float())
+    return (o / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, factor: float, causal: bool,
+            window: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, Hq, Sq, Sk) f32 scores q·k·factor, masked ones the −1e30
+    sentinel, and the (Sq, Sk) mask of the keys each row sees (query row i
+    at position i + Sk − Sq)."""
+    sq, sk = q.shape[2], k.shape[2]
+    kk = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1).float()
+    s = torch.matmul(q.float(), kk.transpose(-1, -2)) * factor
     qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
     kpos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -170,14 +182,70 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
-    s = s.masked_fill(~mask, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    o = torch.matmul(p.to(v.dtype).float(), vv.float())
-    return (o / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+    return s.masked_fill(~mask, NEG_INF), mask
 
 
-#: log2(e), by which the split decode scales its scores (csrc/flash_attn.cu)
-LOG2E = 1.4426950408889634
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            *, causal: bool = True, window: int | None = None,
+                            scale: float | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward under autograd: (flash_attention_ref's output, lse),
+    lse each row's base-2 log-sum-exp over its scores, (B, Hq, Sq) f32:
+    m + log2 Σ exp2(s − m), s = q·k·scale·log2 e with masked scores the
+    −1e30 sentinel and m the row's max. A row that sees no key has m =
+    −1e30 and l = Sk, so its lse is −1e30 too."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    s, _ = _scores(q, k, scale * LOG2E, causal, window)
+    m = s.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log2(torch.exp2(s - m).sum(dim=-1))
+    out = flash_attention_ref(q, k, v, causal=causal, window=window,
+                              scale=scale)
+    return out, lse
+
+
+def flash_attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, o: torch.Tensor,
+                                 lse: torch.Tensor, do: torch.Tensor, *,
+                                 causal: bool = True,
+                                 window: int | None = None,
+                                 scale: float | None = None
+                                 ) -> tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """(dq, dk, dv) of ⟨do, O⟩ in the backward kernels' arithmetic
+    (csrc/flash_bwd.cu), from the forward's output o and its base-2 lse:
+    s = q·k·scale·log2 e in f32; P = exp2(s − lse) where the key is seen,
+    0 where masked, and 1/Sk on every key of a row that sees none (causal,
+    position < 0: the forward gave it the mean of V); Δ = Σ_d do·o in f32;
+    dV = Pᵀ·do with P rounded to V's dtype; dS = P ∘ (do·Vᵀ − Δ) in f32,
+    0 where masked and in a row that sees no key, rounded to the operands'
+    dtype before dQ = scale·dS·K and dK = scale·dSᵀ·Q; every sum in f32,
+    dK and dV summed over the kv head's query heads, each gradient
+    rounded once to its operand's dtype."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    s, mask = _scores(q, k, scale * LOG2E, causal, window)
+    qpos = torch.arange(sq, device=q.device) + (sk - sq)
+    dead = (qpos < 0)[:, None] if causal else torch.zeros_like(mask[:, :1])
+    p = torch.where(mask, torch.exp2(s - lse[..., None]), 0.0)
+    p = torch.where(dead, 1.0 / sk, p)
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    vv = v.repeat_interleave(g, dim=1).float()
+    dp = torch.matmul(do.float(), vv.transpose(-1, -2))
+    ds = torch.where(mask & ~dead, p * (dp - delta), 0.0).to(q.dtype).float()
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    kk = k.repeat_interleave(g, dim=1).float()
+    dq = torch.matmul(ds, kk) * scale
+
+    def group_sum(x):
+        return x.view(b, hkv, g, sk, d).sum(dim=2)
+
+    return (dq.to(q.dtype), group_sum(dk).to(k.dtype),
+            group_sum(dv).to(v.dtype))
 
 
 def flash_decode_partial_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -34,8 +34,12 @@ fields:
 The flash kernel (B6) is one fused op: its flops are the products of its
 unmasked (query, key) pairs, its bytes q, k, v and the output once each;
 the plain version it stands for on the CPU (and its materialised scores)
-is not counted. Its backward is the plain version's gradient on the card
-too, and is counted op by op. The split decode's halves under a mesh are
+is not counted. Under autograd its backward is one fused op too, as the
+gradient kernels run it on the card (csrc/flash_bwd.cu): its flops the
+seven products of 2·D a pair those kernels run (S and dP twice, dV, dK,
+dQ), its bytes q, k, v, the output, lse, the incoming gradient and the
+three gradients once each; the plain gradient that gives the values here
+is not counted. The split decode's halves under a mesh are
 fused ops too: the partial's flops are its pairs over the rank's own
 keys, its bytes q, the rank's K and V rows and the partials; the merge's
 flops are a multiply-add per partial element, its bytes the partials
@@ -256,9 +260,9 @@ def _skip_propagation(counter: _Counter):
 
 @contextlib.contextmanager
 def _fused_flash(counter: _Counter):
-    """ops.flash_attention, ops.flash_decode_partial and ops.flash_combine
-    each counted as the one kernel it launches on the card (module
-    docstring)."""
+    """ops.flash_attention (and, under autograd, its backward),
+    ops.flash_decode_partial and ops.flash_combine each counted as the
+    one kernel it launches on the card (module docstring)."""
     from ..kernels import ops
 
     originals = {name: getattr(ops, name) for name in (
@@ -282,8 +286,48 @@ def _fused_flash(counter: _Counter):
         b, hq, sq, d = q.shape
         return 4.0 * b * hq * d * _flash_pairs(sq, k.shape[2], causal, window)
 
-    ops.flash_attention = fused("flash_attention", attention_flops,
-                                lambda q, k, v: (q, k, v))
+    forward = fused("flash_attention", attention_flops,
+                    lambda q, k, v: (q, k, v))
+
+    class FusedGrad(torch.autograd.Function):
+        """B6 under autograd: the forward as above; the backward the
+        gradient kernels' one fused op, its values the plain gradient's."""
+
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window, scale):
+            ctx.save_for_backward(q, k, v)
+            ctx.mask = (causal, window, scale)
+            return forward(q, k, v, causal=causal, window=window, scale=scale)
+
+        @staticmethod
+        def backward(ctx, g):
+            from ..kernels.flash_grad import flash_attention_backward
+
+            q, k, v = ctx.saved_tensors
+            causal, window, scale = ctx.mask
+            counter.paused += 1
+            try:
+                grads = flash_attention_backward(q, k, v, g, causal, window,
+                                                 scale)
+            finally:
+                counter.paused -= 1
+            b, hq, sq, d = q.shape
+            counter.cost.flops += 14.0 * b * hq * d * _flash_pairs(
+                sq, k.shape[2], causal, window)
+            # q, k, v and their gradients, the output and dO, the f32 lse
+            counter.cost.hbm_bytes += (
+                2 * sum(tensor_bytes(t) for t in (q, k, v))
+                + 2 * tensor_bytes(g) + 4.0 * b * hq * sq)
+            for t in grads:
+                counter.keep_alive(t)
+            return (*grads, None, None, None)
+
+    def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+            return FusedGrad.apply(q, k, v, causal, window, scale)
+        return forward(q, k, v, causal=causal, window=window, scale=scale)
+
+    ops.flash_attention = flash_attention
     ops.flash_decode_partial = fused("flash_decode_partial", attention_flops,
                                      lambda q, k, v: (q, k, v))
     ops.flash_combine = fused("flash_combine",

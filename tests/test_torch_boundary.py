@@ -58,7 +58,8 @@ def _imports(path):
     sorted(PORT.rglob("*.py"))
     + [REPO / name for name in ("chip_smoke.py", "profile_clock_probe.py",
                                 "profile_parse_probe.py", "prefill_ab.py",
-                                "schur_ab.py", "flash_ab.py", "decode_trace.py")]
+                                "schur_ab.py", "flash_ab.py", "decode_trace.py",
+                                "train_ab.py")]
     + sorted((REPO / "examples").glob("*_torch.py")),
     ids=lambda p: str(p.relative_to(REPO)),
 )

@@ -1646,32 +1646,133 @@ def test_ring_decode_on_card_matches_prefill_and_plain(cuda, kind):
                  cache["v"][:, :keys].transpose(1, 2))
 
 
-# --- training: the flash kernel's forward under autograd -------------------
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,hq,hkv,sq,sk,d,kw", [
-    (2, 8, 2, 300, 300, 64, {"causal": True}),
-    (1, 4, 1, 200, 200, 128, {"causal": True, "window": 40}),
-    (2, 4, 4, 130, 130, 80, {"causal": False}),
-    (1, 8, 2, 100, 100, 64, {"causal": True, "scale": 0.2}),
-], ids=["gqa", "window", "non-causal", "scale"])
-def test_flash_under_autograd_grads_equal_plain(cuda, dtype, b, hq, hkv, sq,
-                                                sk, d, kw):
-    """With grad enabled the wrapper runs the kernel under autograd: the
-    forward within tolerance of the plain version, one launch counted,
-    and dq, dk, dv bit-equal to autograd through the plain version at the
-    same inputs (the model's strided views)."""
+# --- training: the flash kernel and its gradient kernels under autograd ---
+def _grads_within(got, want):
+    """Gradients against the oracle's or the plain version's, leaf by
+    leaf: f32 within 1e-5 of the leaf's max|g| (summation order, exp2
+    against exp); bf16/f16, eps their machine epsilon, every element
+    within 2 eps max|g| (each side rounds the output once, and P and dS
+    are rounded to the dtype before their products) and ||err|| <= eps
+    ||want|| over the leaf."""
+    for a, c in zip(got, want):
+        assert a.shape == c.shape and a.dtype == c.dtype
+        err = (a.float() - c.float()).abs()
+        top = float(c.float().abs().max())
+        assert top > 0
+        if c.dtype == torch.float32:
+            assert float(err.max()) <= 1e-5 * top, float(err.max()) / top
+            continue
+        eps = torch.finfo(c.dtype).eps
+        assert float(err.max()) <= 2 * eps * top, float(err.max()) / top
+        rel = float(err.norm() / c.float().norm())
+        assert rel <= eps, rel
+
+
+def _autograd_case(cuda, b, hq, hkv, sq, sk, d, dtype, seed):
+    """q, k, v as the model's strided views, requiring grad, and a
+    grad_out of the same layout."""
     q, k, v = (t.detach().requires_grad_()
-               for t in _qkv(cuda, b, hq, hkv, sq, sk, d, dtype, seed=40,
+               for t in _qkv(cuda, b, hq, hkv, sq, sk, d, dtype, seed=seed,
                              layout="bshd"))
-    g = torch.from_numpy(_rand((b, sq, hq, d), 41)).to(cuda, dtype).transpose(1, 2)
+    g = torch.from_numpy(_rand((b, sq, hq, d), seed + 1)).to(
+        cuda, dtype).transpose(1, 2)
+    return q, k, v, g
+
+
+AUTOGRAD_CASES = {
+    "gqa": (2, 8, 2, 300, 300, 64, {"causal": True}),
+    "window": (1, 4, 1, 200, 200, 128, {"causal": True, "window": 40}),
+    "non-causal": (2, 4, 4, 130, 130, 80, {"causal": False}),
+    "scale": (1, 8, 2, 100, 100, 64, {"causal": True, "scale": 0.2}),
+    "d256-window": (1, 4, 2, 150, 150, 256, {"causal": True, "window": 24}),
+    "chunk-fold": (4, 4, 1, 128, 128, 128, {"causal": True}),
+    "right-aligned": (1, 4, 2, 70, 250, 64, {"causal": True}),
+    "fully-masked": (1, 4, 2, 90, 40, 64, {"causal": True}),
+    "short-sq": (2, 8, 2, 9, 100, 64, {"causal": True}),
+    "d8": (1, 2, 1, 33, 33, 8, {"causal": True}),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["gqa", "window", "non-causal", "scale"])
+def test_flash_under_autograd_grads_equal_plain(cuda, dtype, case):
+    """With grad enabled the wrapper runs the kernel under autograd: the
+    forward within tolerance of the plain version, one forward and one
+    backward counted, and dq, dk, dv from the gradient kernels within
+    _grads_within of autograd through the plain version at the same
+    inputs (the model's strided views)."""
+    b, hq, hkv, sq, sk, d, kw = AUTOGRAD_CASES[case]
+    q, k, v, g = _autograd_case(cuda, b, hq, hkv, sq, sk, d, dtype, 40)
     ops.reset_launches()
     got = ops.flash_attention(q, k, v, **kw)
     assert ops.LAUNCHES["flash_attention"] == 1 and got.grad_fn is not None
     want = ref.flash_attention_ref(q, k, v, **kw)
     _flash_within(got.detach(), want.detach(), v.detach())
-    for a, c in zip(torch.autograd.grad(got, (q, k, v), g),
-                    torch.autograd.grad(want, (q, k, v), g)):
-        assert torch.equal(a, c)
+    grads = torch.autograd.grad(got, (q, k, v), g)
+    assert ops.LAUNCHES["flash_attention_backward"] == 1
+    _grads_within(grads, torch.autograd.grad(want, (q, k, v), g))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("case", sorted(AUTOGRAD_CASES))
+def test_flash_backward_kernels_match_plain(cuda, dtype, case):
+    """The gradient kernels on every route against their plain version
+    (ref.flash_attention_backward_ref on the kernel forward's own output
+    and lse) and against the oracle (autograd through the plain forward);
+    the forward's lse against the plain lse; the same bits on a second
+    backward."""
+    from repro_torch.kernels import flash_attn, flash_bwd, flash_grad
+
+    b, hq, hkv, sq, sk, d, kw = AUTOGRAD_CASES[case]
+    q, k, v, g = _autograd_case(cuda, b, hq, hkv, sq, sk, d, dtype, 50)
+    with torch.no_grad():
+        out, lse = flash_attn.flash_attention_lse_cuda(q, k, v, **kw)
+        _, lse0 = ref.flash_attention_lse_ref(q, k, v, **kw)
+        seen = lse0 > -1e29  # rows that see a key
+        assert torch.equal(seen, lse > -1e29)
+        assert float((lse - lse0)[seen].abs().max()) <= 1e-4 * max(
+            1.0, float(lse0[seen].abs().max()))
+        got = flash_bwd.flash_attention_backward_cuda(q, k, v, out, lse, g, **kw)
+        again = flash_bwd.flash_attention_backward_cuda(q, k, v, out, lse, g, **kw)
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+        for a, t in zip(got, (q, k, v)):
+            assert a.shape == t.shape and a.stride() == t.stride()
+        _grads_within(got, ref.flash_attention_backward_ref(q, k, v, out, lse,
+                                                            g, **kw))
+    _grads_within(got, flash_grad.flash_attention_backward(
+        q, k, v, g, kw.get("causal", True), kw.get("window"), kw.get("scale")))
+
+
+def test_flash_backward_takes_any_grad_layout(cuda):
+    """grad_out contiguous in (B, H, S, D), as the model's strided view,
+    and expanded from one row (a D stride of 0, made contiguous once):
+    the same gradients, bit for bit, as from its contiguous copy."""
+    from repro_torch.kernels import flash_attn, flash_bwd
+
+    q, k, v, g = _autograd_case(cuda, 2, 8, 2, 100, 100, 64, torch.bfloat16,
+                                60)
+    with torch.no_grad():
+        out, lse = flash_attn.flash_attention_lse_cuda(q, k, v)
+        row = g[:, :, :1, :1]
+        for grad in (g, row.expand_as(g)):
+            got = flash_bwd.flash_attention_backward_cuda(q, k, v, out, lse, grad)
+            want = flash_bwd.flash_attention_backward_cuda(
+                q, k, v, out, lse, grad.contiguous())
+            assert all(torch.equal(a, c) for a, c in zip(got, want))
+
+
+def test_flash_backward_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attn, flash_bwd
+
+    q, k, v = _qkv(cuda, 1, 4, 2, 64, 64, 64, torch.bfloat16)
+    out, lse = flash_attn.flash_attention_lse_cuda(q, k, v)
+    with pytest.raises(ValueError):
+        flash_bwd.flash_attention_backward_cuda(q, k, v, out, lse[:, :, 1:], out)
+    with pytest.raises(ValueError):
+        flash_bwd.flash_attention_backward_cuda(q, k, v, out.float(), lse, out)
+    with pytest.raises(ValueError):
+        flash_bwd.flash_attention_backward_cuda(q, k, v, out, lse.cpu(), out)
 
 
 def test_flash_without_grad_is_the_direct_call(cuda):

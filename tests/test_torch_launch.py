@@ -97,6 +97,37 @@ def test_op_cost_links_and_bytes():
     assert op_cost._flash_pairs(4, 4, True, 2) == 7
 
 
+@pytest.mark.parametrize("kw", [{"causal": True}, {"causal": True, "window": 5},
+                                {"causal": False}])
+def test_flash_backward_is_one_fused_op(kw):
+    """B6 under autograd in the count: the forward 4·B·Hq·D·pairs flops
+    and q, k, v and the output; the backward the gradient kernels' seven
+    products, 14·B·Hq·D·pairs, and q, k, v, the output, lse, dO and the
+    three gradients once each; no op of the plain gradient that gives the
+    values (the oracle's, bit for bit)."""
+    from repro_torch.kernels import flash_grad, ops
+
+    b, hq, hkv, s, d = 2, 4, 2, 16, 8
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d),
+                                                    dtype=np.float32))
+               .requires_grad_() for h in (hq, hkv, hkv))
+    g = torch.from_numpy(rng.standard_normal((b, hq, s, d), dtype=np.float32))
+    pairs = op_cost._flash_pairs(s, s, kw["causal"], kw.get("window"))
+    with op_cost.counting() as cost:
+        out = ops.flash_attention(q, k, v, **kw)
+        fwd_flops, fwd_bytes = cost.flops, cost.hbm_bytes
+        grads = torch.autograd.grad(out, (q, k, v), g)
+    assert fwd_flops == 4 * b * hq * d * pairs
+    assert fwd_bytes == 4 * (2 * b * hq * s * d + 2 * b * hkv * s * d)
+    assert cost.flops - fwd_flops == 14 * b * hq * d * pairs
+    assert cost.hbm_bytes - fwd_bytes == 4 * (
+        4 * b * hq * s * d + 4 * b * hkv * s * d + b * hq * s)
+    want = flash_grad.flash_attention_backward(q, k, v, g, kw["causal"],
+                                               kw.get("window"))
+    assert all(torch.equal(a, c) for a, c in zip(grads, want))
+
+
 def test_roofline_analyze_terms():
     """The reference's case, scaled by the H100 constants: a step of
     PEAK_FLOPS flops and half HBM_BW bytes takes 1 s and 0.5 s; 100 GB of

@@ -12,8 +12,11 @@ and the mask both run.
 Tolerances (f32 throughout, sums in another order): the loss rtol 1e-5;
 each gradient leaf within 1e-4 of its own max|g| (and none is zero);
 remat policies 1e-6 of max|g| (the same arithmetic, recomputed); the
-flash backward function bit-equal to autograd through the plain version
-(it is that autograd). AdamW: parameters 1e-6, moments 1e-6 relative
+oracle flash_grad.flash_attention_backward bit-equal to autograd through
+the plain version (it is that autograd), and FlashAttention's wiring
+bit-equal to the plain versions of its forward and gradient kernels
+(tests/test_torch_flash_grad.py holds those to the oracle and the
+reference). AdamW: parameters 1e-6, moments 1e-6 relative
 (one bf16 ulp, 2^-7, for a bf16 state). A whole train step: parameters
 within 1e-5, where Adam moves each by about ±lr per step for any
 gradient above eps, so an element whose gradient is rounding noise may
@@ -307,22 +310,28 @@ def test_flash_backward_is_autograd_of_the_plain_version(case):
 
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_autograd_function_wiring(monkeypatch, case):
-    """FlashAttention with its CUDA launch replaced by the plain version
-    (the wiring is all that runs here): the forward's value, the plain
-    version's gradients for q, k and v, none for the mask arguments."""
-    monkeypatch.setattr(flash_grad, "flash_attention_cuda",
-                        ref.flash_attention_ref)
+    """FlashAttention with its CUDA forward and backward replaced by their
+    plain versions (the wiring is all that runs here): the forward's
+    value, the gradients for q, k and v that the plain version of the
+    gradient kernels gives on the saved operands, output and lse, none
+    for the mask arguments, and one backward call counted."""
+    monkeypatch.setattr(flash_grad, "flash_attention_lse_cuda",
+                        ref.flash_attention_lse_ref)
+    monkeypatch.setattr(flash_grad, "flash_attention_backward_cuda",
+                        ref.flash_attention_backward_ref)
     shape, kw = FLASH_CASES[case]
     q, k, v, g = _qkv(*shape, seed=1)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     out = flash_grad.FlashAttention.apply(*leaves, kw.get("causal", True),
                                           kw.get("window"), kw.get("scale"))
     assert out.grad_fn is not None
+    ops.reset_launches()
     got = torch.autograd.grad(out, leaves, g)
-    plain = [t.clone().requires_grad_() for t in (q, k, v)]
-    want_out = ref.flash_attention_ref(*plain, **kw)
-    want = torch.autograd.grad(want_out, plain, g)
-    assert torch.equal(out.detach(), want_out.detach())
+    assert ops.LAUNCHES["flash_attention_backward"] == 1
+    ops.reset_launches()
+    want_out, lse = ref.flash_attention_lse_ref(q, k, v, **kw)
+    want = ref.flash_attention_backward_ref(q, k, v, want_out, lse, g, **kw)
+    assert torch.equal(out.detach(), want_out)
     for a, b_ in zip(got, want):
         assert torch.equal(a, b_)
 
